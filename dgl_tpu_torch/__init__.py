@@ -1,0 +1,14 @@
+"""dgl_tpu_torch: the PyTorch and CUDA port of dgl_tpu, for NVIDIA Hopper.
+
+Plain tensor code is PyTorch; every kernel that dgl_tpu wrote in Pallas for
+the TPU is a kernel written by hand for the card (``kernels/csrc``). Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``; on CPU
+tensors each kernel wrapper computes its plain PyTorch version instead.
+"""
+
+from .graph import Graph, from_edges
+from .models import GraphSAGE
+from .nn import SAGEConv
+from .ops import gspmm
+
+__all__ = ["Graph", "from_edges", "gspmm", "SAGEConv", "GraphSAGE"]

@@ -1,0 +1,49 @@
+"""Carry GraphSAGE weights from the JAX package's flax parameter tree.
+
+The tree is given as nested dicts of numpy arrays (``jax`` is not needed
+to call this). A flax ``Dense`` kernel is ``(in, out)``; a torch ``Linear``
+weight is ``(out, in)``.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["sage_state_dict_from_flax"]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _layer(name: str) -> int:
+    return int(name.split("_", 1)[1])
+
+
+def sage_state_dict_from_flax(
+    params: Mapping, batch_stats: Optional[Mapping] = None
+) -> dict:
+    """A ``state_dict`` for ``dgl_tpu_torch.models.GraphSAGE`` from the
+    ``params`` (and, for the BN variant, ``batch_stats``) of
+    ``dgl_tpu.models.GraphSAGE``."""
+    sd = {}
+    for name, sub in params.items():
+        if name.startswith("conv_"):
+            i = _layer(name)
+            sd[f"convs.{i}.fc_self.weight"] = _t(np.asarray(sub["fc_self"]["kernel"]).T)
+            sd[f"convs.{i}.fc_neigh.weight"] = _t(np.asarray(sub["fc_neigh"]["kernel"]).T)
+            sd[f"convs.{i}.fc_neigh_bias"] = _t(sub["fc_neigh_bias"])
+        elif name.startswith("bn_"):
+            i = _layer(name)
+            sd[f"bns.{i}.weight"] = _t(sub["scale"])
+            sd[f"bns.{i}.bias"] = _t(sub["bias"])
+        else:
+            raise KeyError(f"unexpected GraphSAGE parameter group {name!r}")
+    for name, sub in (batch_stats or {}).items():
+        i = _layer(name)
+        sd[f"bns.{i}.running_mean"] = _t(sub["mean"])
+        sd[f"bns.{i}.running_var"] = _t(sub["var"])
+    return sd

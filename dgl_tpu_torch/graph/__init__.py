@@ -1,0 +1,3 @@
+from .graph import Graph, from_edges
+
+__all__ = ["Graph", "from_edges"]

@@ -1,0 +1,12 @@
+from .conv import SAGEConv, dropout
+from .init import kaiming_uniform_fan_in, relu_gain, xavier_uniform_
+from .norm import MaskedBatchNorm
+
+__all__ = [
+    "SAGEConv",
+    "MaskedBatchNorm",
+    "dropout",
+    "relu_gain",
+    "xavier_uniform_",
+    "kaiming_uniform_fan_in",
+]
