@@ -7,8 +7,9 @@ tensors each kernel wrapper computes its plain PyTorch version instead.
 """
 
 from .graph import Graph, from_edges
-from .models import GraphSAGE
-from .nn import SAGEConv
-from .ops import gspmm
+from .models import GAT, GraphSAGE
+from .nn import GATConv, SAGEConv
+from .ops import edge_softmax, gspmm
 
-__all__ = ["Graph", "from_edges", "gspmm", "SAGEConv", "GraphSAGE"]
+__all__ = ["Graph", "from_edges", "gspmm", "edge_softmax", "SAGEConv", "GATConv", "GraphSAGE",
+           "GAT"]

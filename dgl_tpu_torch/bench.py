@@ -29,54 +29,18 @@ import time
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
+from .benchmarks.common import masked_softmax_ce
 from .data import load_node_dataset
 from .device import DeviceLike, resolve_device
 from .graph import from_edges
 from .models import GraphSAGE
 from .ops import gspmm
-from .train.timing import EpochTimer, synchronize
+from .train.timing import EpochTimer, device_profile, synchronize
 
-__all__ = ["BASELINE_S", "masked_cross_entropy", "run", "main"]
+__all__ = ["BASELINE_S", "run", "main"]
 
 BASELINE_S = 0.3627  # DGL 0.6.1 on one V100 (BASELINE.md)
-
-
-def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy over the nodes where ``mask`` is 1 (float mask)."""
-    ce = F.cross_entropy(logits, labels, reduction="none")
-    return torch.sum(ce * mask) / torch.sum(mask)
-
-
-def _device_profile(step, epochs: int, device: torch.device) -> dict:
-    """Run ``epochs`` more steps under ``torch.profiler``: per-epoch wall
-    time, device busy time and the kernels by device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        synchronize(device)
-        t0 = time.perf_counter()
-        for _ in range(epochs):
-            step()
-        synchronize(device)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / epochs
-    # device-side events only: the CPU ops that launched them carry the
-    # same time again
-    rows = [
-        {"name": ev.key, "calls_per_epoch": ev.count / epochs,
-         "device_ms_per_epoch": ev.self_device_time_total / 1e3 / epochs}
-        for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA and ev.count > 0
-    ]
-    rows.sort(key=lambda r: -r["device_ms_per_epoch"])
-    busy_ms = sum(r["device_ms_per_epoch"] for r in rows)
-    return {"epochs": epochs, "wall_ms_per_epoch": wall_ms, "device_busy_ms_per_epoch": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels": rows}
 
 
 def _train(g, x, y, mask, num_classes, x_agg, epochs, warmup, device, seed, profile_epochs):
@@ -91,7 +55,7 @@ def _train(g, x, y, mask, num_classes, x_agg, epochs, warmup, device, seed, prof
 
     def step():
         opt.zero_grad(set_to_none=True)
-        loss = masked_cross_entropy(model(g, x, x_agg=x_agg, generator=drop_gen), y, mask)
+        loss = masked_softmax_ce(model(g, x, x_agg=x_agg, generator=drop_gen), y, mask)
         loss.backward()
         opt.step()
         return loss.detach()
@@ -107,7 +71,7 @@ def _train(g, x, y, mask, num_classes, x_agg, epochs, warmup, device, seed, prof
         raise FloatingPointError(f"non-finite training loss: {losses}")
     res = {"epoch_s": timer.mean, "epochs_s": timer.durations, "losses": losses}
     if profile_epochs:
-        res["profile"] = _device_profile(step, profile_epochs, device)
+        res["profile"] = device_profile(step, profile_epochs, device)
     return res
 
 

@@ -1,4 +1,4 @@
-"""Carry GraphSAGE weights from the JAX package's flax parameter tree.
+"""Carry GraphSAGE and GAT weights from the JAX package's flax parameter tree.
 
 The tree is given as nested dicts of numpy arrays (``jax`` is not needed
 to call this). A flax ``Dense`` kernel is ``(in, out)``; a torch ``Linear``
@@ -12,7 +12,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["sage_state_dict_from_flax"]
+__all__ = ["sage_state_dict_from_flax", "gat_state_dict_from_flax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -46,4 +46,22 @@ def sage_state_dict_from_flax(
         i = _layer(name)
         sd[f"bns.{i}.running_mean"] = _t(sub["mean"])
         sd[f"bns.{i}.running_var"] = _t(sub["var"])
+    return sd
+
+
+def gat_state_dict_from_flax(params: Mapping) -> dict:
+    """A ``state_dict`` for ``dgl_tpu_torch.models.GAT`` from the ``params``
+    of ``dgl_tpu.models.GAT``. ``attn_l`` and ``attn_r`` keep the JAX
+    package's pairing (``attn_r`` scores the source side, ``attn_l`` the
+    destination side); both are (1, H, D) in either package."""
+    sd = {}
+    for name, sub in params.items():
+        if not name.startswith("gat_"):
+            raise KeyError(f"unexpected GAT parameter group {name!r}")
+        i = _layer(name)
+        sd[f"convs.{i}.fc.weight"] = _t(np.asarray(sub["fc"]["kernel"]).T)
+        sd[f"convs.{i}.attn_l"] = _t(sub["attn_l"])
+        sd[f"convs.{i}.attn_r"] = _t(sub["attn_r"])
+        if "res_fc" in sub:
+            sd[f"convs.{i}.res_fc.weight"] = _t(np.asarray(sub["res_fc"]["kernel"]).T)
     return sd

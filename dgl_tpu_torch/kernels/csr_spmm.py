@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from .build import load
+from .seg_sum import csr_rows
 
 __all__ = ["csr_spmm", "csr_spmm_plain"]
 
@@ -32,9 +33,7 @@ def csr_spmm_plain(
     (E, D) message buffer."""
     n_rows = indptr.numel() - 1
     deg = (indptr[1:] - indptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(n_rows, device=x.device), deg, output_size=indices.numel()
-    )
+    rows = csr_rows(indptr, indices.numel())
     msg = x.index_select(0, indices.long())
     if w is not None:
         msg = msg * w.unsqueeze(1)

@@ -23,10 +23,11 @@
 // What the design does about it:
 //   * one warp per row, no atomics: each row's sum is combined in a fixed
 //     order, so results are deterministic from run to run;
-//   * the warp is cut into P = 32 / L lane groups of L lanes; each group
-//     takes one edge at a time and its lanes stride the feature dimension
-//     with 16-, 8- or 4-byte loads (V = 4, 2 or 1 floats), so a narrow row
-//     (D = 16: L = 4, P = 8) still keeps all 32 lanes busy on 8 edges;
+//   * the lane layout of lanes.cuh, shared with K2 and K3: the warp is cut
+//     into P = 32 / L lane groups of L lanes; each group takes one edge at
+//     a time and its lanes stride the feature dimension with 16-, 8- or
+//     4-byte loads (V = 4, 2 or 1 floats), so a narrow row (D = 16: L = 4,
+//     P = 8) still keeps all 32 lanes busy on 8 edges;
 //   * each lane group keeps kUnroll edges in flight (all index loads first,
 //     then all row loads), to hide the two dependent L2 latencies;
 //   * wide rows (D = 602 for the hoisted precompute) run as feature tiles of
@@ -36,46 +37,20 @@
 // of the synthetic reddit graph has a row of about 212,000 edges; splitting
 // such rows across warps is later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lanes.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
-constexpr int kTile = 4;    // vectors per lane per feature tile
-constexpr int kUnroll = 4;  // edges in flight per lane group
+using namespace warp_csr;
 
-template <int V>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (V == 2) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = __ldg(p);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    p[0] = v[0];
-  }
-}
+constexpr int kTile = 4;  // vectors per lane per feature tile
 
 template <int V, typename IdxT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 csr_spmm_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ indices,
                 const float* __restrict__ w, const float* __restrict__ x,
                 float* __restrict__ out, int64_t n_rows, int d, int lanes, int mean) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int64_t row = warp_row();
   if (row >= n_rows) return;  // uniform across the warp
   const int lane = threadIdx.x % kWarp;
   const int groups = kWarp / lanes;  // edges taken at once
@@ -125,14 +100,7 @@ csr_spmm_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ ind
       }
     }
 
-    // combine the lane groups in a fixed butterfly order
-#pragma unroll
-    for (int t = 0; t < kTile; ++t)
-#pragma unroll
-      for (int k = 0; k < V; ++k)
-        for (int off = lanes; off < kWarp; off <<= 1)
-          acc[t][k] += __shfl_xor_sync(0xffffffffu, acc[t][k], off);
-
+    group_sum<kTile, V>(acc, lanes);
     if (slot == 0) {
       float* orow = out + row * d;
 #pragma unroll
@@ -149,28 +117,21 @@ csr_spmm_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ ind
   }
 }
 
-template <int V, typename IdxT>
-void launch_v(const IdxT* indptr, const int32_t* indices, const float* w, const float* x,
-              float* out, int64_t n_rows, int d, int mean, cudaStream_t stream) {
-  const int nvec = d / V;
-  int lanes = 1;
-  while (lanes < nvec && lanes < kWarp) lanes <<= 1;
-  const dim3 block(kWarp * kWarpsPerBlock);
-  const dim3 grid(static_cast<unsigned>((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  csr_spmm_kernel<V, IdxT><<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows,
-                                                       d, lanes, mean);
-}
-
 template <typename IdxT>
 void dispatch(const IdxT* indptr, const int32_t* indices, const float* w, const float* x,
               float* out, int64_t n_rows, int d, int mean, cudaStream_t stream) {
-  const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
-  if (d % 4 == 0 && align % 16 == 0) {
-    launch_v<4>(indptr, indices, w, x, out, n_rows, d, mean, stream);
-  } else if (d % 2 == 0 && align % 8 == 0) {
-    launch_v<2>(indptr, indices, w, x, out, n_rows, d, mean, stream);
+  const int vw = vec_width(d, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out));
+  const int lanes = lanes_for(d, vw);
+  const dim3 grid = grid_for(n_rows), block = block_dim();
+  if (vw == 4) {
+    csr_spmm_kernel<4, IdxT><<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows, d,
+                                                         lanes, mean);
+  } else if (vw == 2) {
+    csr_spmm_kernel<2, IdxT><<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows, d,
+                                                         lanes, mean);
   } else {
-    launch_v<1>(indptr, indices, w, x, out, n_rows, d, mean, stream);
+    csr_spmm_kernel<1, IdxT><<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows, d,
+                                                         lanes, mean);
   }
 }
 

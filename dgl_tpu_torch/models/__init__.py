@@ -1,3 +1,4 @@
+from .gat import GAT
 from .sage import GraphSAGE
 
-__all__ = ["GraphSAGE"]
+__all__ = ["GraphSAGE", "GAT"]

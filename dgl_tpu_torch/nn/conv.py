@@ -1,21 +1,25 @@
 """Graph convolution layers over ``dgl_tpu_torch.ops``.
 
-Counterpart of ``dgl_tpu/nn/conv.py``; this slice ports ``SAGEConv``.
+Counterpart of ``dgl_tpu/nn/conv.py``; the port has ``SAGEConv`` and
+``GATConv``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..graph.graph import Graph
-from ..ops import gspmm
+from ..kernels.gat_attention import gat_attention
+from ..ops import edge_softmax, gather_dst, gather_src_rows, gspmm
 from .init import relu_gain, xavier_uniform_
 
-__all__ = ["SAGEConv", "dropout"]
+__all__ = ["SAGEConv", "GATConv", "dropout"]
 
 
 def dropout(
@@ -94,3 +98,119 @@ class SAGEConv(nn.Module):
         if self.activation is not None:
             out = self.activation(out)
         return out
+
+
+# the edge form's (E, H, D) message buffer above which the JAX package
+# switches to its memory-safe form (DGL_TPU_MSG_BUDGET_GB = 4, a quarter of it)
+_EDGE_MSG_LIMIT_BYTES = 1 << 30
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention; returns (N_dst, H, D).
+
+    DGL's GATConv math: logits ``leaky_relu(a_src[s] + a_dst[d])`` with
+    ``a_src = Σ_D (W x)[s] · attn_r`` and ``a_dst = Σ_D (W x)[d] · attn_l``
+    (the JAX package's pairing: ``attn_r`` scores the source side), softmax
+    over each node's in-edges, attention dropout, weighted sum of ``W x``.
+
+    Two forms of the same function, picked by ``fused``:
+
+    * fused (K3, ``kernels/gat_attention.py``): logits, softmax, dropout and
+      aggregation in one kernel launch each way, no per-edge tensor. When
+      ``in_feats < out_feats`` it aggregates the narrow inputs and applies
+      ``W`` per head after (``Σ α·(W x) = W·(Σ α x)``). Attention dropout is
+      the hash of the edge id, its seed one int32 drawn from ``generator``.
+    * edge: gather ``W x`` per edge, ``edge_softmax`` with the bound shift,
+      ``gspmm(copy_e, sum)``; its sums are K2 launches. Attention dropout is
+      an ordinary mask from ``generator``.
+
+    Left out: the JAX layer's positional sampled-block path (slice E) and
+    its memory-safe form for graphs whose (E, H, D) messages pass the budget
+    (slice D's binary ``gspmm``); both raise ``NotImplementedError``.
+
+    ``generator`` (a CPU generator) draws the initial weights: ``fc``
+    xavier-uniform (gain 1), ``attn_l``/``attn_r`` uniform in
+    ``±sqrt(6 / (H + D))``, flax's xavier-uniform on a (1, H, D) shape.
+    """
+
+    def __init__(
+        self,
+        in_feats: int,
+        out_feats: int,
+        num_heads: int = 1,
+        feat_drop: float = 0.0,
+        attn_drop: float = 0.0,
+        negative_slope: float = 0.2,
+        residual: bool = False,
+        activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        *,
+        fused: bool = False,
+        device: DeviceLike = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        h, d = num_heads, out_feats
+        self.in_feats, self.out_feats, self.num_heads = in_feats, out_feats, num_heads
+        self.feat_drop, self.attn_drop, self.negative_slope = feat_drop, attn_drop, negative_slope
+        self.activation, self.fused = activation, fused
+        self.fc = nn.utils.skip_init(nn.Linear, in_feats, h * d, bias=False)
+        xavier_uniform_(self.fc.weight, 1.0, generator)
+        bound = math.sqrt(6.0 / (h + d))
+        self.attn_l = nn.Parameter(torch.empty(1, h, d).uniform_(-bound, bound, generator=generator))
+        self.attn_r = nn.Parameter(torch.empty(1, h, d).uniform_(-bound, bound, generator=generator))
+        self.res_fc = None
+        if residual and in_feats != h * d:
+            self.res_fc = nn.utils.skip_init(nn.Linear, in_feats, h * d, bias=False)
+            xavier_uniform_(self.res_fc.weight, 1.0, generator)
+        self.residual = residual
+        self.to(dev)
+
+    def forward(self, g: Graph, x: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if isinstance(x, (tuple, list)):
+            raise NotImplementedError("GATConv over sampled blocks (x_src, x_dst) is ported in slice E")
+        if self.feat_drop > 0.0:
+            x = dropout(x, self.feat_drop, self.training, generator)
+        h, d = self.num_heads, self.out_feats
+        z = self.fc(x).view(-1, h, d)
+        a_src = (z * self.attn_r).sum(-1)  # (N, H)
+        a_dst = (z * self.attn_l).sum(-1)
+        if self.fused:
+            out = self._fused(g, x, z, a_src, a_dst, generator)
+        else:
+            out = self._edge(g, z, a_src, a_dst, generator)
+        if self.residual:
+            res = x if self.res_fc is None else self.res_fc(x)
+            out = out + res.view(-1, h, d)
+        if self.activation is not None:
+            out = self.activation(out)
+        return out
+
+    def _fused(self, g, x, z, a_src, a_dst, generator):
+        h, d, in_d = self.num_heads, self.out_feats, x.shape[-1]
+        keep, seed = 1.0, None
+        if self.attn_drop > 0.0 and self.training:
+            keep = 1.0 - self.attn_drop
+            seed = torch.randint(-(2**31), 2**31 - 1, (1,), dtype=torch.int32,
+                                 device=x.device, generator=generator)
+        if in_d >= d:
+            return gat_attention(g, z, a_src, a_dst, negative_slope=self.negative_slope,
+                                 keep=keep, seed=seed)
+        agg = gat_attention(g, x.unsqueeze(1).expand(-1, h, in_d), a_src, a_dst,
+                            negative_slope=self.negative_slope, keep=keep, seed=seed)
+        return torch.einsum("nhi,hdi->nhd", agg, self.fc.weight.view(h, d, in_d))
+
+    def _edge(self, g, z, a_src, a_dst, generator):
+        h, d = self.num_heads, self.out_feats
+        if g.num_edges * h * d * z.element_size() > _EDGE_MSG_LIMIT_BYTES:
+            raise NotImplementedError(
+                "GATConv's memory-safe edge form (per-edge messages over "
+                f"{_EDGE_MSG_LIMIT_BYTES >> 30} GiB) is ported in slice D; use fused=True"
+            )
+        z_e = gather_src_rows(g, z.reshape(-1, h * d)).view(-1, h, d)
+        logits = F.leaky_relu((z_e * self.attn_r).sum(-1) + gather_dst(g, a_dst), self.negative_slope)
+        bound = F.leaky_relu(a_src.detach().amax(0, keepdim=True) + a_dst, self.negative_slope)
+        alpha = edge_softmax(g, logits, dst_bound=bound)
+        alpha = dropout(alpha, self.attn_drop, self.training, generator)
+        return gspmm(g, "copy_e", "sum", e=z_e * alpha.unsqueeze(-1))

@@ -1,3 +1,14 @@
+from .gather import gather_dst, gather_src_rows, seg_sum_dst, spread_dst
+from .segment import segment_max
+from .softmax import edge_softmax
 from .spmm import gspmm
 
-__all__ = ["gspmm"]
+__all__ = [
+    "gspmm",
+    "edge_softmax",
+    "gather_dst",
+    "gather_src_rows",
+    "spread_dst",
+    "seg_sum_dst",
+    "segment_max",
+]

@@ -1,14 +1,20 @@
 """g-SpMM: message passing as one sparse-dense product per direction.
 
-Counterpart of ``dgl_tpu/ops/spmm.py:gspmm`` for the ops of the main path::
+Counterpart of ``dgl_tpu/ops/spmm.py:gspmm`` for the ops of the ported
+paths::
 
-    out[v] = reduce_{e=(u,v)} x[u],   reduce ∈ {sum, mean}
+    out[v] = reduce_{e=(u,v)} x[u]   (copy_u / copy_lhs)
+    out[v] = reduce_{e=(u,v)} e[e]   (copy_e / copy_rhs)
+    reduce ∈ {sum, mean}
 
-Zero-in-degree nodes give 0. The forward is one K1 launch over the
-dst-sorted CSR (mean divides by the clamped in-degree inside the kernel).
-The backward scales the output cotangent by the same ``1/max(deg, 1)`` for
-mean and aggregates it with one K1 launch over the reverse CSR, as
-``_lane_copy_u_bwd`` does in the JAX package.
+Zero-in-degree nodes give 0. ``copy_u``: the forward is one K1 launch over
+the dst-sorted CSR (mean divides by the clamped in-degree inside the
+kernel); the backward scales the output cotangent by the same
+``1/max(deg, 1)`` for mean and aggregates it with one K1 launch over the
+reverse CSR, as ``_lane_copy_u_bwd`` does in the JAX package. ``copy_e``:
+one K2 launch (``ops/gather.py:seg_sum_dst``) over edge features in
+canonical order, any trailing shape; mean scales its result by
+``1/max(deg, 1)``; the backward is a row gather by dst.
 """
 
 from __future__ import annotations
@@ -19,22 +25,22 @@ import torch
 
 from ..graph.graph import Graph
 from ..kernels.csr_spmm import csr_spmm
+from .gather import seg_sum_dst
 
 __all__ = ["gspmm"]
 
 _COPY_U = ("copy_u", "copy_lhs")
+_COPY_E = ("copy_e", "copy_rhs")
 # ops and reduces of the JAX package that later slices of the port bring
 _LATER_OPS = {
-    "copy_e": "slice B (GAT: segment sums of edge messages)",
-    "copy_rhs": "slice B (GAT: segment sums of edge messages)",
     "add": "slice D (binary ops with edge weights)",
     "sub": "slice D (binary ops with edge weights)",
     "mul": "slice D (binary ops with edge weights)",
     "div": "slice D (binary ops with edge weights)",
 }
 _LATER_REDUCES = {
-    "max": "slice B (segment extrema)",
-    "min": "slice B (segment extrema)",
+    "max": "a later slice (segment max/min reductions)",
+    "min": "a later slice (segment max/min reductions)",
 }
 
 
@@ -65,26 +71,33 @@ def gspmm(
     x: Optional[torch.Tensor] = None,
     e: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Generalized SpMM; this slice serves ``copy_u``/``copy_lhs`` with
-    ``sum``/``mean``.
+    """Generalized SpMM; the port serves ``copy_u``/``copy_lhs`` and
+    ``copy_e``/``copy_rhs`` with ``sum``/``mean``.
 
     Args:
       g: graph with its reverse (``from_edges`` builds both).
-      op: message op; ``copy_u`` uses only ``x``.
+      op: message op; ``copy_u`` uses only ``x``, ``copy_e`` only ``e``.
       reduce: ``sum`` or ``mean``.
       x: (num_src_nodes, D) float32 source-node features.
-      e: edge features; unused by ``copy_u``.
+      e: (num_edges, ...) float32 edge features in canonical order.
     Returns:
-      (num_dst_nodes, D) aggregated features.
+      (num_dst_nodes, D) or (num_dst_nodes, ...) aggregated features.
     """
     if op in _LATER_OPS:
         raise NotImplementedError(f"spmm op {op!r} is ported in {_LATER_OPS[op]}")
-    if op not in _COPY_U:
+    if op not in _COPY_U + _COPY_E:
         raise ValueError(f"unknown spmm op: {op!r}")
     if reduce in _LATER_REDUCES:
         raise NotImplementedError(f"spmm reduce {reduce!r} is ported in {_LATER_REDUCES[reduce]}")
     if reduce not in ("sum", "mean"):
         raise ValueError(f"unknown spmm reduce: {reduce!r}")
+    if op in _COPY_E:
+        if e is None:
+            raise ValueError(f"spmm op {op!r} requires edge features e")
+        out = seg_sum_dst(g, e)
+        if reduce == "mean":
+            out = out * _inv_deg(g, out.dtype).reshape((-1,) + (1,) * (out.dim() - 1))
+        return out
     if x is None:
         raise ValueError(f"spmm op {op!r} requires node features x")
     if x.dim() != 2 or x.shape[0] != g.num_src_nodes:
@@ -94,4 +107,3 @@ def gspmm(
     if g.reverse is None:
         raise ValueError("gspmm needs the graph's reverse for its backward")
     return _CopyU.apply(x, g, reduce == "mean")
-

@@ -3,7 +3,8 @@
 * epoch wallclock with warmup-skip (3 epochs for full-graph training),
   synchronised with the device after every epoch;
 * phase-split wallclock;
-* per-call device time of a function, from CUDA events.
+* per-call device time of a function, from CUDA events;
+* a ``torch.profiler`` window over training steps.
 
 PyTorch returns before the card finishes, so every host-clock interval here
 ends in ``torch.cuda.synchronize()``.
@@ -20,7 +21,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 
-__all__ = ["EpochTimer", "PhaseTimer", "time_fn", "event_times_ms", "synchronize"]
+__all__ = ["EpochTimer", "PhaseTimer", "time_fn", "event_times_ms", "synchronize",
+           "device_profile"]
 
 
 def synchronize(device: torch.device) -> None:
@@ -98,3 +100,33 @@ def event_times_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) ->
         end.record()
     torch.cuda.synchronize()
     return [start.elapsed_time(end) for start, end in events]
+
+
+def device_profile(step: Callable[[], object], epochs: int, device: torch.device) -> dict:
+    """Run ``epochs`` more steps under ``torch.profiler``: per-epoch wall
+    time, device busy time and the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(epochs):
+            step()
+        synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / epochs
+    # device-side events only: the CPU ops that launched them carry the
+    # same time again
+    rows = [
+        {"name": ev.key, "calls_per_epoch": ev.count / epochs,
+         "device_ms_per_epoch": ev.self_device_time_total / 1e3 / epochs}
+        for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CUDA and ev.count > 0
+    ]
+    rows.sort(key=lambda r: -r["device_ms_per_epoch"])
+    busy_ms = sum(r["device_ms_per_epoch"] for r in rows)
+    return {"epochs": epochs, "wall_ms_per_epoch": wall_ms, "device_busy_ms_per_epoch": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels": rows}

@@ -17,6 +17,7 @@ from dgl_tpu.nn import SAGEConv as FlaxSAGEConv
 
 import dgl_tpu_torch
 from dgl_tpu_torch import bench
+from dgl_tpu_torch.benchmarks.common import masked_softmax_ce
 from dgl_tpu_torch.convert import sage_state_dict_from_flax
 from dgl_tpu_torch.nn import MaskedBatchNorm
 from dgl_tpu_torch.train import EpochTimer
@@ -48,7 +49,7 @@ def _jax_loss(logits, y, mask):
 
 
 def _torch_loss(logits, y, mask):
-    return bench.masked_cross_entropy(logits, torch.from_numpy(y), torch.from_numpy(mask))
+    return masked_softmax_ce(logits, torch.from_numpy(y), torch.from_numpy(mask))
 
 
 def _models(variant, gj, x):

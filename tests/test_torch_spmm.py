@@ -94,10 +94,10 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     [
         ("copy_x", "sum", ValueError, "copy_x"),
         ("copy_u", "avg", ValueError, "avg"),
-        ("copy_e", "sum", NotImplementedError, "slice B"),
+        ("copy_e", "sum", ValueError, "requires edge features"),
         ("u_mul_e", "sum", ValueError, "u_mul_e"),
         ("mul", "sum", NotImplementedError, "slice D"),
-        ("copy_u", "max", NotImplementedError, "slice B"),
+        ("copy_u", "max", NotImplementedError, "later slice"),
     ],
 )
 def test_gspmm_rejects_bad_or_later_ops(op, reduce, exc, match):
