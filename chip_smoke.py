@@ -41,14 +41,27 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      adjoint timed as one K1 launch and as index_select + K2 (reddit at
      W = 16, pubmed at W = 64); a fused GATConv's forward and backward
      allocate no more on reddit than on its self-loops alone;
-  8. gat_main: the GAT driver at full size, reddit (fused form) then pubmed
+  8. row_gather: P1 (row_gather_async) and P2 (row_gather_smem) held bit
+     for bit to x[idx] in float32 and bfloat16, int32 and int64 indices,
+     ragged e, rows of 2 B to 40 KB, misaligned x, P2 up to its 227 KB
+     limit and its refusal above it, two runs bitwise equal; the row-gather
+     probe (python -m dgl_tpu_torch.tools.exp_dma_gather) as its main path,
+     at its default shape and at cora's node count at D = 16, each run with
+     the P1 and P2 counters set to 0 before it and read after it, every line
+     with maxerr 0 but P2's refusal at the default shape; CUDA-event medians
+     of P1, index_select and a write-only fill of the same output on the
+     index streams of K1 forward and backward, K3 forward and pubmed's
+     gather_src_rows, and the probe's default, with gather_floor_ms (P1 less
+     the fill) beside the kernel that gathers them; P2 against P1 and
+     index_select at (2708, 16) on reddit's indices mod 2708;
+  9. gat_main: the GAT driver at full size, reddit (fused form) then pubmed
      (edge form), each run with every launch counter set to 0 before it and
      read after it. reddit: K3 forward and b2 exactly 3 per step each, K2
      and K1 none, the training's peak device memory above the graph and
      data printed and held below one (E, 16) float32 buffer; pubmed: K3
      none, K2 exactly 9 per step plus one per edge-softmax rescue, K1 3 per
      step (see phase_gat_main). Losses finite and falling;
-  9. kernels: one line listing every ported kernel with its numbers.
+  10. kernels: one line listing every ported kernel with its numbers.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -311,7 +324,7 @@ def phase_reddit():
          plain_ms_fwd=res["fwd"]["plain_ms"], plain_ms_bwd=res["bwd"]["plain_ms"],
          library_ms_fwd=res["fwd"]["library_ms"], library_ms_bwd=res["bwd"]["library_ms"],
          bound_ms_fwd=res["fwd"]["bound_ms"], bound_ms_bwd=res["bwd"]["bound_ms"], detail=res)
-    return res
+    return res, g
 
 
 def phase_main():
@@ -671,7 +684,208 @@ def phase_gat_reddit():
          gather_adjoint=adjoint, fused_memory=memory,
          k3_library="none: no single PyTorch call computes the fused attention",
          **{f"{k}_ms": r["ms"] for k, r in res.items()}, detail=res)
-    return res
+    return res, g
+
+
+# -- P1 and P2: the row gather ----------------------------------------------
+
+def gather_bound(idx, row_bytes):
+    """Least time (ms) of ``x[idx]``: the rows idx touches read once, idx
+    read once and the output written once; and the same with all E rows
+    read, as the kernels read them (``bound_ms_e_rows``)."""
+    e, ib = idx.numel(), idx.element_size()
+    touched = torch.unique(idx).numel()
+    bound, by = _bound_ms(touched * row_bytes + e * ib + e * row_bytes, 0)
+    return bound, by, _bound_ms(2 * e * row_bytes + e * ib, 0)[0]
+
+
+def check_row_gather(gen):
+    """P1 and P2 against x[idx], bit for bit, on every path the kernels
+    have: float32 and bfloat16, int32 and int64 indices, ragged e, copies of
+    16, 8, 4 and 2 bytes (rows of 41 bfloat16 values; x shifted off its
+    alignment), P1's staged pieces (1 KB rows) and column pieces (40 KB
+    rows), P2 up to and at its shared-memory limit; then P2's refusal
+    above the limit, before any launch. Returns the number of cases."""
+    from dgl_tpu_torch.kernels.row_gather import (
+        SMEM_LIMIT_BYTES, row_gather_async, row_gather_plain, row_gather_smem)
+
+    dev = torch.device("cuda")
+    cases = 0
+
+    def hold(what, fn, x, idx, tile):
+        nonlocal cases
+        got = fn(x, idx, tile=tile)
+        if not torch.equal(got, row_gather_plain(x, idx)):
+            bad = int((got != row_gather_plain(x, idx)).flatten(1).any(1).nonzero()[0])
+            raise AssertionError(f"{what} tile={tile}: row {bad} differs from x[idx]")
+        if not torch.equal(got, fn(x, idx, tile=tile)):
+            raise AssertionError(f"{what} tile={tile}: two runs differ")
+        cases += 1
+
+    def inputs(n, d, e, dtype, shift=0):
+        base = torch.randn(n * d + shift, device=dev, generator=gen).to(dtype)
+        idx = torch.randint(0, n, (e,), device=dev, generator=gen)
+        idx[: min(e, 64)] = n - 1  # the last row, and one row read many times
+        return base[shift:].view(n, d), idx
+
+    # (n, d, e, tiles) for P1 and P2; every e is ragged against every tile
+    p1 = [(5000, 16, 100_003, (128, 256)), (3000, 41, 77_777, (128, 256)),
+          (2000, 256, 10_001, (128, 256)), (300, 10_000, 1_001, (1, 256)),
+          (1000, 1, 5_003, (256, 1000))]
+    p2 = [(2708, 16, 100_003, (512, 2048)), (500, 41, 77_777, (512, 100)),
+          (227, 256, 10_001, (512, 2048))]  # 227 rows of 1 KB: exactly the limit
+    for fn, shapes in ((row_gather_async, p1), (row_gather_smem, p2)):
+        for n, d, e, tiles in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, idx = inputs(n, d, e, dtype)
+                for ii in (idx.int(), idx):
+                    for tile in tiles:
+                        hold(f"{fn.__name__} ({n}, {d}) {dtype} e={e} {ii.dtype}", fn, x, ii, tile)
+    for fn in (row_gather_async, row_gather_smem):  # x 8 and 4 bytes off 16-byte alignment
+        for shift in (2, 1):
+            x, idx = inputs(2708, 16, 50_001, torch.float32, shift)
+            hold(f"{fn.__name__} x shifted by {shift} floats", fn, x, idx.int(), 512)
+    x, idx = inputs(228, 256, 1000, torch.float32)
+    before = row_gather_smem.launches
+    try:
+        row_gather_smem(x, idx)
+    except ValueError as ex:
+        if row_gather_smem.launches != before or str(SMEM_LIMIT_BYTES) not in str(ex):
+            raise AssertionError(f"P2's refusal launched or does not name the limit: {ex}")
+    else:
+        raise AssertionError("row_gather_smem took an x above its shared-memory limit")
+    torch.cuda.synchronize()
+    return cases
+
+
+def phase_row_gather(red, red_graph, gred, gat_graph):
+    """P1 and P2 checked, the probe run as the path's main path, and the
+    gather floor of K1 and K3 measured on their own index streams."""
+    from dgl_tpu_torch.kernels.row_gather import row_gather_async, row_gather_plain, row_gather_smem
+    from dgl_tpu_torch.tools import exp_dma_gather
+    from dgl_tpu_torch.train.timing import device_profile
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = check_row_gather(gen)
+
+    # the main path: the probe, each run with the counters set to 0 before it
+    probe, launches = {}, {}
+    for key, argv in (("default", []), ("cora_d16", ["--n", "2708", "--d", "16"])):
+        torch.cuda.synchronize()
+        row_gather_async.launches = row_gather_smem.launches = 0
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            lines = exp_dma_gather.main(argv)
+        launches[key] = {"row_gather_async": row_gather_async.launches,
+                         "row_gather_smem": row_gather_smem.launches}
+        probe[key] = {"stdout": log.getvalue().splitlines(), "lines": lines}
+        # only P2's refusal of the default 173 MB x may fail, at both tiles
+        failed = [ln for ln in lines if "failed" in ln]
+        if len(lines) != 6 or len(failed) != (2 if key == "default" else 0) or not all(
+                ln["name"] == "row_gather_smem" and ln["failed"].startswith("ValueError")
+                for ln in failed):
+            raise AssertionError(f"probe {key}: unexpected lines {lines}")
+        if any(ln["maxerr"] != 0.0 for ln in lines if "maxerr" in ln):
+            raise AssertionError(f"probe {key}: a gather differs from x[idx]: {lines}")
+        torch.cuda.empty_cache()
+    want = {"default": {"row_gather_async": 18, "row_gather_smem": 0},
+            "cora_d16": {"row_gather_async": 18, "row_gather_smem": 18}}
+    if launches != want:  # per tile: 1 checked call, 2 cold, 6 timed
+        raise AssertionError(f"probe launches {launches}; want {want}")
+
+    # the gather floor on the kernels' own index streams
+    pubmed = _gat_graph("pubmed", dev)
+    tool_x, tool_idx = exp_dma_gather.make_inputs(169343, 256, 2332486, torch.float32, dev)
+    streams = {  # name: (idx, n, d, the kernel that gathers these rows, its ms)
+        "k1_fwd": (red_graph.src, red_graph.num_src_nodes, 16, "K1 forward", red["fwd"]["kernel_ms"]),
+        "k1_bwd": (red_graph.reverse.src, red_graph.num_dst_nodes, 16, "K1 backward",
+                   red["bwd"]["kernel_ms"]),
+        "k3_fwd": (gat_graph.src, gat_graph.num_src_nodes, 16, "K3 forward",
+                   gred["gat_attention_fwd"]["ms"]),
+        "gather_src_rows": (pubmed.src, pubmed.num_src_nodes, 64, "gather_src_rows (index_select)",
+                            None),
+        "tool_default": (tool_idx, 169343, 256, None, None),
+    }
+    floors = {}
+    for key, (idx, n, d, kernel, kernel_ms) in streams.items():
+        x = tool_x if key == "tool_default" else torch.randn(n, d, device=dev, generator=gen)
+        buf = torch.empty(idx.numel(), d, device=dev)
+        got = row_gather_async(x, idx)
+        if not torch.equal(got, x.index_select(0, idx)):
+            raise AssertionError(f"{key}: P1 differs from index_select")
+        del got
+        p1 = {tile: median_ms(lambda: row_gather_async(x, idx, tile=tile), reps=20, warmup=3)
+              for tile in (128, 256)}
+        lib = median_ms(lambda: x.index_select(0, idx), reps=20, warmup=3)
+        idx64 = idx.long()
+        lib64 = median_ms(lambda: x.index_select(0, idx64), reps=20, warmup=3)
+        fill = median_ms(lambda: buf.fill_(1.0), reps=20, warmup=3)
+        # an event pair around one call also spans the wrapper's host work,
+        # which a small gather (pubmed's) does not hide: the profiler's
+        # device time per call beside it
+        busy = {name: device_profile(fn, 20, dev)["device_busy_ms_per_epoch"] for name, fn in (
+            ("p1", lambda: row_gather_async(x, idx)), ("index_select", lambda: x.index_select(0, idx)),
+            ("fill", lambda: buf.fill_(1.0)))}
+        bound, by, bound_rows = gather_bound(idx, 4 * d)
+        floors[key] = {
+            "rows": idx.numel(), "n": n, "d": d, "p1_ms_tile128": p1[128], "p1_ms_tile256": p1[256],
+            "index_select_ms": lib, "index_select_int64_ms": lib64, "fill_ms": fill,
+            # the time to read the indexed rows alone: P1 (its faster tile) less the write
+            "gather_floor_ms": min(p1.values()) - fill,
+            "p1_device_ms": busy["p1"], "index_select_device_ms": busy["index_select"],
+            "fill_device_ms": busy["fill"], "gather_floor_device_ms": busy["p1"] - busy["fill"],
+            "bound_ms": bound, "bound_ms_e_rows": bound_rows,
+            "kernel": kernel, "kernel_ms": lib if key == "gather_src_rows" else kernel_ms,
+        }
+        if key == "tool_default":
+            floors[key]["plain_ms"] = median_ms(lambda: row_gather_plain(x, idx), reps=10, warmup=2)
+            floors[key]["bound_by"] = by
+        del buf, idx64
+    del tool_x, tool_idx
+
+    # P2 where it fits: cora's node count at reddit's width, reddit's indices
+    idx = red_graph.src % 2708
+    x = torch.randn(2708, 16, device=dev, generator=gen)
+    ref = x.index_select(0, idx)
+    got = row_gather_smem(x, idx)
+    err = (got - ref).abs().max().item()
+    if not torch.equal(got, ref):
+        raise AssertionError("P2 on reddit's indices mod 2708 differs from index_select")
+    bound, by, bound_rows = gather_bound(idx, 64)
+    smem = {
+        "rows": idx.numel(), "n": 2708, "d": 16, "max_abs_err": err,
+        "ms": median_ms(lambda: row_gather_smem(x, idx), reps=20, warmup=3),
+        "ms_tile2048": median_ms(lambda: row_gather_smem(x, idx, tile=2048), reps=20, warmup=3),
+        "p1_ms": median_ms(lambda: row_gather_async(x, idx), reps=20, warmup=3),
+        "plain_ms": median_ms(lambda: row_gather_plain(x, idx), reps=20, warmup=3),
+        "library_ms": median_ms(lambda: x.index_select(0, idx), reps=20, warmup=3),
+        "bound_ms": bound, "bound_by": by, "bound_ms_e_rows": bound_rows,
+    }
+    emit("row_gather", seconds=time.perf_counter() - t0, cases=cases, launches=launches,
+         probe=probe, gather_floor=floors, smem_2708x16=smem,
+         **{f"gather_floor_ms_{k}": f["gather_floor_ms"] for k, f in floors.items()})
+    default = floors["tool_default"]
+    return {
+        "row_gather_async": {
+            "launches": launches["default"]["row_gather_async"], "max_abs_err": max(
+                ln["maxerr"] for ln in probe["default"]["lines"] if ln["name"] == "row_gather_async"),
+            "ms": default["p1_ms_tile256"], "plain_ms": default["plain_ms"],
+            "library_ms": default["index_select_ms"], "bound_ms": default["bound_ms"],
+            "bound_by": default["bound_by"], "bound_ms_e_rows": default["bound_ms_e_rows"],
+            "shape": f"x (169343, 256) float32, e = {default['rows']} (the probe's default), "
+                     "tile 256",
+        },
+        "row_gather_smem": {
+            "launches": launches["cora_d16"]["row_gather_smem"], "max_abs_err": smem["max_abs_err"],
+            "ms": smem["ms"], "plain_ms": smem["plain_ms"], "library_ms": smem["library_ms"],
+            "bound_ms": smem["bound_ms"], "bound_by": smem["bound_by"],
+            "bound_ms_e_rows": smem["bound_ms_e_rows"],
+            "shape": f"x (2708, 16) float32, reddit's {smem['rows']} indices mod 2708, tile 512 "
+                     "(the probe's default x, 173 MB, does not fit)",
+        },
+    }
 
 
 def phase_gat_main():
@@ -774,10 +988,12 @@ def main():
     phase_device()
     phase_build()
     phase_random()
-    red = phase_reddit()
+    red, red_graph = phase_reddit()
     launches = phase_main()
     phase_gat_random()
-    gred = phase_gat_reddit()
+    gred, gat_graph = phase_gat_reddit()
+    rows = phase_row_gather(red, red_graph, gred, gat_graph)
+    del red_graph, gat_graph
     glaunch = phase_gat_main()
     both = lambda key: red["fwd"][key] + red["bwd"][key]  # noqa: E731
     k2f, k2r = gred["seg_sum_fwd"], gred["seg_sum_rev"]
@@ -832,6 +1048,12 @@ def main():
             "ms_rev": k2r["ms"],
             "max_abs_err_rev": k2r["max_abs_err"],
         },
+        # P1 at the probe's default shape, launches from the probe's default
+        # run; P2 where x fits, launches from the probe's run at (2708, 16)
+        *({"name": name, "route": "cuda", "source": "dgl_tpu_torch/kernels/csrc/row_gather.cu",
+           "replaces": replaces, **rows[name]}
+          for name, replaces in (("row_gather_async", "tools/exp_dma_gather.py:34"),
+                                 ("row_gather_smem", "tools/exp_dma_gather.py:72"))),
     ]}), flush=True)
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES: Dict[str, str] = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
-    for name in ("csr_spmm", "seg_sum", "gat_attention")
+    for name in ("csr_spmm", "seg_sum", "gat_attention", "row_gather")
 }
 # device helpers every source includes (``#include "lanes.cuh"`` resolves
 # beside the source); a changed header rebuilds every library

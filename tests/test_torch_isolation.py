@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX and nothing of the JAX package."""
+"""The port stands alone: no JAX, nothing of the JAX package and nothing of
+its ``tools/``."""
 
 import ast
 import os
@@ -8,7 +9,7 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dgl_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dgl_tpu", "tools"}
 
 
 def _port_files():
@@ -40,16 +41,18 @@ def test_no_forbidden_import(path):
 
 
 def test_scan_covers_the_gat_slice():
-    """The walk reaches the driver subpackage and every kernel's wrapper."""
+    """The walk reaches the driver and probe subpackages and every kernel's
+    wrapper."""
     scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
     for rel in ("dgl_tpu_torch/benchmarks/common.py",
                 "dgl_tpu_torch/benchmarks/node_classification/main_gat.py",
                 "dgl_tpu_torch/graph/transforms.py", "dgl_tpu_torch/ops/gather.py",
-                "dgl_tpu_torch/ops/softmax.py", "dgl_tpu_torch/models/gat.py"):
+                "dgl_tpu_torch/ops/softmax.py", "dgl_tpu_torch/models/gat.py",
+                "dgl_tpu_torch/tools/exp_dma_gather.py"):
         assert rel in scanned, rel
     csrc = os.path.join(ROOT, "dgl_tpu_torch", "kernels", "csrc")
     kernels = sorted(n[:-3] for n in os.listdir(csrc) if n.endswith(".cu"))
-    assert kernels == ["csr_spmm", "gat_attention", "seg_sum"]
+    assert kernels == ["csr_spmm", "gat_attention", "row_gather", "seg_sum"]
     for name in kernels:  # each CUDA source has its Python wrapper in the scan
         assert f"dgl_tpu_torch/kernels/{name}.py" in scanned, name
 

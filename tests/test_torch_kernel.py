@@ -1,6 +1,7 @@
 """K1 (csr_spmm): the plain version against a numpy oracle, the wrapper's
-checks, and, on a CUDA card, K1, K2 (seg_sum) and both K3 passes
-(gat_attention_fwd / _bwd) against their plain versions.
+checks, and, on a CUDA card, K1, K2 (seg_sum), both K3 passes
+(gat_attention_fwd / _bwd) and P1 and P2 (row_gather_async / _smem) against
+their plain versions.
 
 This file imports no JAX, so the card's tests can run where JAX is absent:
     python -m pytest --noconftest tests/test_torch_kernel.py -m cuda
@@ -16,6 +17,12 @@ from dgl_tpu_torch.kernels.gat_attention import (
     gat_attention_bwd_plain,
     gat_attention_fwd,
     gat_attention_fwd_plain,
+)
+from dgl_tpu_torch.kernels.row_gather import (
+    SMEM_LIMIT_BYTES,
+    row_gather_async,
+    row_gather_plain,
+    row_gather_smem,
 )
 from dgl_tpu_torch.kernels.seg_sum import seg_sum, seg_sum_plain
 
@@ -155,3 +162,33 @@ def test_gat_attention_passes_match_plain_on_card(heads, d, keep):
     for got, want in zip(bwd, gat_attention_bwd_plain(*args, **kw)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert all(torch.equal(a, b) for a, b in zip(bwd, gat_attention_bwd(*args, **kw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_matches_plain_on_card(dtype):
+    """Bit for bit: 16-, 8-, 4- and 2-byte copies (41 bfloat16 values make
+    an 82-byte row), 1 KB rows staged in pieces, 40 KB rows in column
+    pieces, ragged e, int32 and int64 indices; P2 wherever x fits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for n, d, e in ((5000, 16, 100_003), (3000, 41, 7_777), (2000, 256, 10_001),
+                    (300, 10_000, 1_001), (227, 256, 3_001)):
+        x = torch.randn(n, d, device=dev, generator=gen).to(dtype)
+        idx = torch.randint(0, n, (e,), device=dev, generator=gen)
+        fits = x.numel() * x.element_size() <= SMEM_LIMIT_BYTES
+        for ii in (idx, idx.int()):
+            want = row_gather_plain(x, ii)
+            for fn, tiles in ((row_gather_async, (1, 128, 256)), (row_gather_smem, (100, 512))):
+                if fn is row_gather_smem and not fits:
+                    continue
+                for tile in tiles:
+                    before = fn.launches
+                    got = fn(x, ii, tile=tile)
+                    assert fn.launches == before + 1
+                    assert torch.equal(got, want), (fn.__name__, n, d, e, tile)
+    big = torch.zeros(228, 256, device=dev)
+    before = row_gather_smem.launches
+    with pytest.raises(ValueError, match="limit"):
+        row_gather_smem(big, idx[:10])
+    assert row_gather_smem.launches == before
