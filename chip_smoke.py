@@ -6,22 +6,32 @@
 Phases, one JSON line each; any failure ends the run with a non-zero exit:
   1. device: requires CUDA, prints the card's name and power limit, turns
      TF32 off for float32 matmuls and convolutions;
-  2. build: builds every kernel from the sources in dgl_tpu_torch/kernels/csrc;
+  2. build: builds every kernel from the sources in dgl_tpu_torch/kernels/csrc
+     and prints ptxas' registers and spills of every variant;
   3. random: K1 (csr_spmm) on random CSRs with empty rows and hub rows of
      10^5 edges, D in {1, 16, 41, 602}, sum and mean, with and without edge
      weights, forward and backward through gspmm's autograd, on inputs
      around 1 and on small integers. Every row is held to float64 sums of
      the same inputs within a summation-error bound (integer sums: bit for
      bit), and rows of at most HUB_DEG terms to the plain PyTorch version at
-     RTOL/ATOL; two kernel runs must be bitwise equal;
+     RTOL/ATOL; two kernel runs must be bitwise equal. The same checks on
+     CSRs around the row split T (graph/split.py): rows of T - 1, T, T + 1,
+     2T and 2T + 1 edges, every row long, no row long, E = 0, int32 and
+     int64 indptr; and a plan that does not match indptr refused before any
+     launch;
   4. reddit: the same checks on the full reddit graph at D = 16, forward
-     and reverse CSR, with CUDA-event times of the kernel, the plain version
-     and torch.sparse.mm, and the bytes bound;
+     and reverse CSR (one combine launch for the reverse CSR's long rows),
+     with CUDA-event times of the kernel at T = 256, 512 and 1024, the plain
+     version and torch.sparse.mm, and the bytes bound; T and each CSR's long
+     rows and chunks; gspmm's forward and backward under
+     torch.cuda.set_sync_debug_mode("error"), which a host sync fails;
   5. main: dgl_tpu_torch.bench.run("reddit") at full size, once unhoisted
-     and once hoisted, K1's launch counter set to 0 before each run and read
-     after it; the loss must be finite and fall, K1 must launch exactly 4
-     times per unhoisted step and 2 per hoisted step plus once for the
-     hoisted precompute, and both modes must agree on the first step's loss;
+     and once hoisted, K1's launch and combine counters set to 0 before each
+     run and read after it; the loss must be finite and fall, K1 must launch
+     exactly 4 times per unhoisted step and 2 per hoisted step plus once for
+     the hoisted precompute, its combine once per backward launch (the
+     reverse CSR's long rows), and both modes must agree on the first
+     step's loss;
   6. gat_random: K3 (gat_attention_fwd, gat_attention_bwd) and K2 (seg_sum)
      on random CSRs with empty rows and 10^5-edge hub rows in both
      directions, H in {1, 4, 8}, D in {8, 16, 41}, keep in {1.0, 0.82}, on
@@ -32,15 +42,19 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      float32 plain version at RTOL/ATOL; both K3 passes (keep 1 and 0.5,
      see check_k3_exact) and K2 also run on inputs whose sums are exact and
      must match bit for bit on every row, hub rows included; two runs of
-     each kernel are bitwise equal;
+     each kernel are bitwise equal; K2 also on the CSRs around the split, W
+     in {1, 16, 41, 64, 602};
   7. gat_reddit: K3 forward and b2 on reddit with self-loops (H = 1,
      D = 16, reddit's attention dropout) and K2 at (E, 16) over the dst and
      the reverse CSR: the same checks, CUDA-event medians of the kernel, the
-     plain version and, for K2, torch.segment_reduce (K3 has no single
-     PyTorch call to compare with), and the bytes bounds; gather_src_rows'
-     adjoint timed as one K1 launch and as index_select + K2 (reddit at
-     W = 16, pubmed at W = 64); a fused GATConv's forward and backward
-     allocate no more on reddit than on its self-loops alone;
+     plain version and, for K2, torch.segment_reduce and index_add_ (its
+     row ids made outside the timed calls; K3 has no single PyTorch call to
+     compare with), K2 at T = 256, 512 and 1024 and at 1, 2 and 4 rows per
+     warp, and the bytes bounds; seg_sum_dst's forward and backward under
+     set_sync_debug_mode("error"); gather_src_rows' adjoint timed as one K1
+     launch and as index_select + K2 (reddit at W = 16, pubmed at W = 64); a
+     fused GATConv's forward and backward allocate no more on reddit than
+     on its self-loops alone;
   8. row_gather: P1 (row_gather_async) and P2 (row_gather_smem) held bit
      for bit to x[idx] in float32 and bfloat16, int32 and int64 indices,
      ragged e, rows of 2 B to 40 KB, misaligned x, P2 up to its 227 KB
@@ -60,8 +74,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      and K1 none, the training's peak device memory above the graph and
      data printed and held below one (E, 16) float32 buffer; pubmed: K3
      none, K2 exactly 9 per step plus one per edge-softmax rescue, K1 3 per
-     step (see phase_gat_main). Losses finite and falling;
-  10. kernels: one line listing every ported kernel with its numbers.
+     step (see phase_gat_main), K1's combine once per K1 launch (pubmed's
+     reverse CSR has long rows) and K2's none. Losses finite and falling;
+  10. kernels: one line listing every ported kernel with its numbers, K1's
+     and K2's with T, chunks and combine launches.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -178,13 +194,24 @@ def phase_device():
     return smi
 
 
+def _ptxas_lines(log):
+    """``-Xptxas -v``'s registers and spills of every kernel variant, each
+    line prefixed by the variant's mangled name."""
+    lines, entry = [], "?"
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "registers" in ln or "spill" in ln:
+            lines.append(f"{entry}: {ln.strip().removeprefix('ptxas info    : ')}")
+    return lines
+
+
 def phase_build():
     from dgl_tpu_torch.kernels.build import build
 
     t0 = time.perf_counter()
     info = build()
-    ptxas = {name: [ln.strip() for ln in b["log"].splitlines() if "registers" in ln or "spill" in ln]
-             for name, b in info.items()}
+    ptxas = {name: _ptxas_lines(b["log"]) for name, b in info.items()}
     emit("build", seconds=time.perf_counter() - t0,
          kernels={name: b["seconds"] for name, b in info.items()}, ptxas=ptxas)
 
@@ -213,6 +240,121 @@ def _inputs(rng, kind, n, d, e, dev):
         x, cot = (rng.integers(-4, 5, (n, d)) for _ in range(2))
         w = rng.integers(1, 4, e)
     return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (x, cot, w)]
+
+
+# -- the row split (graph/split.py): rows of more than T edges in chunks -----
+
+def _split_degrees(rng, t):
+    """Row lengths around the split T, by case: rows of T - 1, T, T + 1, 2T
+    and 2T + 1 edges among short and empty rows; every row long; no row long
+    (five of exactly T edges); no edge at all (E = 0)."""
+    return {
+        "around_T": [0, t - 1, t, t + 1, 2 * t, 2 * t + 1, 1, 0, 3 * t + 5, 7],
+        "all_long": [t + 1 + 37 * i for i in range(40)],
+        "no_long": [t] * 5 + rng.integers(0, t + 1, 300).tolist(),
+        "no_edges": [0] * 7,
+    }
+
+
+def _csr_of(degrees, n_src, rng, dev):
+    """An int64 indptr of the given row lengths and random int32 indices."""
+    indptr = np.zeros(len(degrees) + 1, np.int64)
+    np.cumsum(degrees, out=indptr[1:])
+    idx = rng.integers(0, n_src, int(indptr[-1])).astype(np.int32)
+    return torch.from_numpy(indptr).to(dev), torch.from_numpy(idx).to(dev)
+
+
+def _refuses_mismatched_plan(fn, ip, *args):
+    """A plan for one row fewer, and one for one edge fewer, raise ValueError
+    before any launch."""
+    from dgl_tpu_torch.graph.split import row_split
+
+    host = ip.cpu().numpy()
+    bad = [host[:-1]]
+    if host[-1] > 0:
+        bad.append(np.concatenate([host[:-1], host[-1:] - 1]))
+    for b in bad:
+        before = fn.launches
+        try:
+            fn(ip, *args, split=row_split(b, device=ip.device))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{fn.__name__} took a row split that does not match its indptr")
+        if fn.launches != before:
+            raise AssertionError(f"{fn.__name__} launched before refusing a mismatched row split")
+
+
+def check_split_k1(rng, dev):
+    """K1 on CSRs around the split, D in {1, 16, 41, 602}, int32 and int64
+    indptr, sum and mean, with and without edge weights: float64 bounds, the
+    plain version, integer sums bit for bit and a second run, bitwise."""
+    from dgl_tpu_torch.graph.split import SPLIT_T, row_split
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
+
+    n_src, cases, acc = 3000, 0, [0.0, 0.0, 0.0]
+    for name, degrees in _split_degrees(rng, SPLIT_T).items():
+        ip, idx = _csr_of(degrees, n_src, rng, dev)
+        plan = row_split(ip)
+        for d in (1, 16, 41, 602):
+            x, _, w = _inputs(rng, "normal", n_src, d, idx.numel(), dev)
+            xi, _, wi = _inputs(rng, "integer", n_src, d, idx.numel(), dev)
+            for indptr in (ip.int(), ip):
+                for mean in (False, True):
+                    for ww, wwi in ((None, None), (w, wi)):
+                        what = (f"split {name} D={d} {indptr.dtype} mean={mean} "
+                                f"weighted={ww is not None}")
+                        got = csr_spmm(indptr, idx, x, ww, mean=mean, split=plan)
+                        if not torch.equal(got, csr_spmm(indptr, idx, x, ww, mean=mean, split=plan)):
+                            raise AssertionError(f"{what}: two kernel runs differ")
+                        _merge(acc, [check(what, got, ip, reference64(ip, idx, x, ww, mean=mean),
+                                           csr_spmm_plain(ip, idx, x, ww, mean=mean))])
+                        if not mean:
+                            check(f"{what} integer", csr_spmm(indptr, idx, xi, wwi, split=plan), ip,
+                                  reference64(ip, idx, xi, wwi), exact=True)
+                        cases += 1
+        _refuses_mismatched_plan(csr_spmm, ip, idx, x)
+    return cases, acc
+
+
+def no_host_sync(run, control):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("error")``, where a
+    host sync raises; then ``control()``, which syncs and so must raise
+    there, to show that the mode is live."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+        try:
+            control()
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("a host sync did not raise under set_sync_debug_mode('error')")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def _split_fields(g):
+    """T, and the long rows and chunks of a graph's two CSRs."""
+    return {"split_T": g.split.t, "long_rows_fwd": g.split.num_long,
+            "chunks_fwd": g.split.num_chunks, "long_rows_rev": g.reverse.split.num_long,
+            "chunks_rev": g.reverse.split.num_chunks}
+
+
+def t_sweep(fn, indptr):
+    """``fn(plan)``'s median ms with the plan of each T in (256, 512, 1024);
+    None when no row is longer than 256 edges, as all three plans are then
+    empty and time the same launch."""
+    from dgl_tpu_torch.graph.split import row_split
+
+    plans = {t: row_split(indptr, t) for t in (256, 512, 1024)}
+    if plans[256].num_long == 0:
+        return None
+    return {t: {"long_rows": plan.num_long, "chunks": plan.num_chunks,
+                "ms": median_ms(lambda: fn(plan), reps=30, warmup=3)}
+            for t, plan in plans.items()}
 
 
 def phase_random():
@@ -254,23 +396,26 @@ def phase_random():
                 ]
                 for indptr in (g.indptr, g.indptr.long()):
                     errs.append(check(
-                        f"{what} weighted {indptr.dtype}", csr_spmm(indptr, g.src, x, w, mean=mean),
+                        f"{what} weighted {indptr.dtype}",
+                        csr_spmm(indptr, g.src, x, w, mean=mean, split=g.split),
                         g.indptr, reference64(g.indptr, g.src, x, w, mean=mean),
                         csr_spmm_plain(indptr, g.src, x, w, mean=mean), exact))
                 worst = max([worst] + [e[0] for e in errs])
                 worst64 = max([worst64] + [e[1] for e in errs])
                 used = max([used] + [e[2] for e in errs])
                 cases += len(errs)
+    split_cases, acc = check_split_k1(rng, dev)
     torch.cuda.synchronize()
     emit("random", cases=cases, nodes=n, edges=g.num_edges,
          max_in_degree=int(g.in_degrees().max()), max_out_degree=int(g.out_degrees().max()),
-         zero_in_degree_rows=int((g.in_degrees() == 0).sum()), max_abs_err=worst,
-         max_abs_err_f64=worst64, max_bound_used=used, rtol=RTOL, atol=ATOL, hub_deg=HUB_DEG,
-         deterministic=True)
+         zero_in_degree_rows=int((g.in_degrees() == 0).sum()), max_abs_err=max(worst, acc[0]),
+         max_abs_err_f64=max(worst64, acc[1]), max_bound_used=max(used, acc[2]), rtol=RTOL,
+         atol=ATOL, hub_deg=HUB_DEG, deterministic=True, split_cases=split_cases,
+         split_max_abs_err=acc[0], split_max_bound_used=acc[2], **_split_fields(g))
 
 
 def phase_reddit():
-    from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch import from_edges, gspmm
     from dgl_tpu_torch.data import load_node_dataset
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
 
@@ -295,17 +440,22 @@ def phase_reddit():
     }
     res = {}
     for side, (gg, xx, mean) in sides.items():
-        kern = lambda: csr_spmm(gg.indptr, gg.src, xx, mean=mean)  # noqa: E731
+        kern = lambda: csr_spmm(gg.indptr, gg.src, xx, mean=mean, split=gg.split)  # noqa: E731
         plain = lambda: csr_spmm_plain(gg.indptr, gg.src, xx, mean=mean)  # noqa: E731
+        combines = csr_spmm.combines
         err, err64, used = check(f"reddit {side}", kern(), gg.indptr,
                            reference64(gg.indptr, gg.src, xx, mean=mean), plain())
+        if csr_spmm.combines - combines != int(gg.split.num_long > 0):
+            raise AssertionError(f"reddit {side}: {gg.split.num_long} long rows but "
+                                 f"{csr_spmm.combines - combines} combine launches")
         # every edge counted once: integer sums are exact in any order
-        check(f"reddit {side} integer", csr_spmm(gg.indptr, gg.src, x_int), gg.indptr,
-              reference64(gg.indptr, gg.src, x_int), exact=True)
+        check(f"reddit {side} integer", csr_spmm(gg.indptr, gg.src, x_int, split=gg.split),
+              gg.indptr, reference64(gg.indptr, gg.src, x_int), exact=True)
         a = torch.sparse_csr_tensor(gg.indptr.long(), gg.src.long(),
                                     torch.ones(e, device=dev), size=(n, n),
                                     check_invariants=False)
-        lib_err = (torch.sparse.mm(a, xx) - csr_spmm(gg.indptr, gg.src, xx)).abs().max().item()
+        lib_err = (torch.sparse.mm(a, xx)
+                   - csr_spmm(gg.indptr, gg.src, xx, split=gg.split)).abs().max().item()
         bound_ms, bound_by = spmm_bound(n, n, e, d, 4)
         res[side] = {
             "kernel_ms": median_ms(kern, reps=30, warmup=3),
@@ -318,8 +468,18 @@ def phase_reddit():
             "max_bound_used": used,
             "library_max_abs_err_vs_kernel_sum": lib_err,
             "max_row_nnz": int(gg.in_degrees().max()),
+            "split_T": gg.split.t, "long_rows": gg.split.num_long, "chunks": gg.split.num_chunks,
+            "t_sweep": t_sweep(lambda p: csr_spmm(gg.indptr, gg.src, xx, mean=mean, split=p),
+                               gg.indptr),
         }
-    emit("reddit", nodes=n, edges=e, d=d, load_s=load_s,
+        res[side]["at_or_below_library"] = res[side]["kernel_ms"] <= res[side]["library_ms"]
+    # gspmm's forward and backward on the card read nothing back: no host sync
+    xk = x.clone().requires_grad_()
+    no_host_sync(lambda: gspmm(g, "copy_u", "mean", x=xk).backward(g_out),
+                 lambda: csr_spmm(g.indptr, g.src, x))  # no plan: built from indptr, a sync
+    if xk.grad is None:
+        raise AssertionError("gspmm's backward gave no gradient under the sync check")
+    emit("reddit", nodes=n, edges=e, d=d, load_s=load_s, no_host_sync=True, **_split_fields(g),
          kernel_ms_fwd=res["fwd"]["kernel_ms"], kernel_ms_bwd=res["bwd"]["kernel_ms"],
          plain_ms_fwd=res["fwd"]["plain_ms"], plain_ms_bwd=res["bwd"]["plain_ms"],
          library_ms_fwd=res["fwd"]["library_ms"], library_ms_bwd=res["bwd"]["library_ms"],
@@ -332,12 +492,13 @@ def phase_main():
     from dgl_tpu_torch import bench
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
 
-    res, launches = {}, {}
+    res, launches, combines = {}, {}, {}
     for mode in ("unhoisted", "hoisted"):
-        csr_spmm.launches = 0
+        csr_spmm.launches = csr_spmm.combines = 0
         r = bench.run("reddit", epochs=5, warmup=3, device="cuda",
                       hoisted=mode == "hoisted", unhoisted=mode == "unhoisted")
         launches[mode] = csr_spmm.launches
+        combines[mode] = csr_spmm.combines
         res[mode] = dict(r[mode], setup_s=r["setup_s"], device=r["device"], synthetic=r["synthetic"],
                          precompute_s=r.get("precompute_s"))
     steps = {mode: len(res[mode]["losses"]) for mode in res}
@@ -346,6 +507,11 @@ def phase_main():
     want = {"unhoisted": 4 * steps["unhoisted"], "hoisted": 2 * steps["hoisted"] + 1}
     if launches != want:
         raise AssertionError(f"K1 launched {launches} times over {steps} steps; want {want}")
+    # only the reverse CSR has long rows: one combine per backward launch
+    want = {"unhoisted": 2 * steps["unhoisted"], "hoisted": steps["hoisted"]}
+    if combines != want:
+        raise AssertionError(f"K1's combine launched {combines} times over {steps} steps; "
+                             f"want {want}")
     for mode in res:
         losses = res[mode]["losses"]
         if not losses[-1] < losses[0]:
@@ -361,8 +527,9 @@ def phase_main():
          losses_unhoisted=res["unhoisted"]["losses"], losses_hoisted=res["hoisted"]["losses"],
          launches_unhoisted=launches["unhoisted"], launches_hoisted=launches["hoisted"],
          launches_per_unhoisted_step=launches["unhoisted"] / steps["unhoisted"],
+         combines_unhoisted=combines["unhoisted"], combines_hoisted=combines["hoisted"],
          steps_unhoisted=steps["unhoisted"], steps_hoisted=steps["hoisted"])
-    return launches
+    return launches, combines
 
 
 # -- GAT: K3 (fused attention) and K2 (segment sum) --------------------------
@@ -486,22 +653,44 @@ def check_k3_exact(what, g, h, d, gen):
                                      "exact sums")
 
 
-def check_k2(what, indptr, msg, ints, acc):
+def check_k2(what, indptr, msg, ints, acc, split):
     """One K2 launch against float64 sums (the (2n + 8)·u·Σ|term| bound),
     the plain version, and small integers summed bit for bit."""
     from dgl_tpu_torch.kernels.seg_sum import seg_sum, seg_sum_plain
 
-    got = seg_sum(indptr, msg)
-    if not torch.equal(got, seg_sum(indptr, msg)):
+    got = seg_sum(indptr, msg, split=split)
+    if not torch.equal(got, seg_sum(indptr, msg, split=split)):
         raise AssertionError(f"{what}: two K2 runs differ")
     m64 = msg.double()
     _merge(acc, [check(f"{what} K2", got, indptr,
                        (seg_sum_plain(indptr, m64), seg_sum_plain(indptr, m64.abs())),
                        seg_sum_plain(indptr, msg), slack=(2, 8))])
     i64 = ints.double()
-    check(f"{what} K2 integer", seg_sum(indptr, ints), indptr,
+    check(f"{what} K2 integer", seg_sum(indptr, ints, split=split), indptr,
           (seg_sum_plain(indptr, i64), seg_sum_plain(indptr, i64.abs())), exact=True)
     return got
+
+
+def check_split_k2(rng, dev, acc):
+    """K2 on CSRs around the split (_split_degrees), W in {1, 16, 41, 64,
+    602} (every vector width and feature tile), int32 and int64 indptr;
+    returns the number of cases."""
+    from dgl_tpu_torch.graph.split import SPLIT_T, row_split
+    from dgl_tpu_torch.kernels.seg_sum import seg_sum
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = 0
+    for name, degrees in _split_degrees(rng, SPLIT_T).items():
+        ip, _ = _csr_of(degrees, 1, rng, dev)
+        plan, e = row_split(ip), int(sum(degrees))
+        for w in (1, 16, 41, 64, 602):
+            msg = 1.0 + torch.randn(e, w, device=dev, generator=gen)
+            ints = torch.randint(-4, 5, (e, w), device=dev, generator=gen).float()
+            for indptr in (ip.int(), ip):
+                check_k2(f"split {name} W={w} {indptr.dtype}", indptr, msg, ints, acc, plan)
+                cases += 1
+        _refuses_mismatched_plan(seg_sum, ip, msg)
+    return cases
 
 
 def phase_gat_random():
@@ -533,10 +722,11 @@ def phase_gat_random():
                 cases += 1
             # K2 on the same shapes as GAT's edge form: (E, H·D), both CSRs
             w = h * d
-            for side, indptr in (("dst", g.indptr), ("reverse", g.reverse.indptr)):
+            for side, gg in (("dst", g), ("reverse", g.reverse)):
                 msg = 1.0 + torch.randn(g.num_edges, w, device=dev, generator=gen)
                 ints = torch.randint(-4, 5, (g.num_edges, w), device=dev, generator=gen).float()
-                check_k2(f"{what} {side}", indptr, msg, ints, k2)
+                check_k2(f"{what} {side}", gg.indptr, msg, ints, k2, gg.split)
+    split_cases = check_split_k2(np.random.default_rng(4), dev, k2)
     torch.cuda.synchronize()
     emit("gat_random", cases=cases, nodes=n, edges=g.num_edges,
          max_in_degree=int(g.in_degrees().max()), max_out_degree=int(g.out_degrees().max()),
@@ -545,7 +735,8 @@ def phase_gat_random():
          k3_fwd_max_bound_used=k3["fwd"][2], k3_bwd_max_abs_err=k3["bwd"][0],
          k3_bwd_max_abs_err_f64=k3["bwd"][1], k3_bwd_max_bound_used=k3["bwd"][2],
          k2_max_abs_err=k2[0], k2_max_abs_err_f64=k2[1], k2_max_bound_used=k2[2],
-         rtol=RTOL, atol=ATOL, hub_deg=HUB_DEG, deterministic=True)
+         k2_split_cases=split_cases, rtol=RTOL, atol=ATOL, hub_deg=HUB_DEG, deterministic=True,
+         **_split_fields(g))
 
 
 def _gat_graph(name, dev):
@@ -567,8 +758,8 @@ def adjoint_times(g, w, gen):
 
     rev = g.reverse
     ge = 1.0 + torch.randn(g.num_edges, w, device=g.indptr.device, generator=gen)
-    k1 = lambda: csr_spmm(rev.indptr, rev.eid, ge)  # noqa: E731
-    k2 = lambda: seg_sum(rev.indptr, ge.index_select(0, rev.eid))  # noqa: E731
+    k1 = lambda: csr_spmm(rev.indptr, rev.eid, ge, split=rev.split)  # noqa: E731
+    k2 = lambda: seg_sum(rev.indptr, ge.index_select(0, rev.eid), split=rev.split)  # noqa: E731
     a, b = k1(), k2()
     return {"w": w, "edges": g.num_edges, "k1_ms": median_ms(k1, reps=20, warmup=2),
             "index_select_k2_ms": median_ms(k2, reps=20, warmup=2),
@@ -617,7 +808,8 @@ def fused_memory(g, gen):
 def phase_gat_reddit():
     from dgl_tpu_torch.kernels.gat_attention import (
         gat_attention_bwd, gat_attention_bwd_plain, gat_attention_fwd, gat_attention_fwd_plain)
-    from dgl_tpu_torch.kernels.seg_sum import seg_sum, seg_sum_plain
+    from dgl_tpu_torch.kernels.seg_sum import csr_rows, seg_sum, seg_sum_plain
+    from dgl_tpu_torch.ops import seg_sum_dst
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -660,28 +852,51 @@ def phase_gat_reddit():
     del v, out, w1, node
     msg = 1.0 + torch.randn(e, d, device=dev, generator=gen)
     ints = torch.randint(-4, 5, (e, d), device=dev, generator=gen).float()
-    for side, indptr in (("fwd", g.indptr), ("rev", rev.indptr)):
-        acc = [0.0, 0.0, 0.0]
-        got = check_k2(f"reddit {side}", indptr, msg, ints, acc)
+    for side, gg in (("fwd", g), ("rev", rev)):
+        indptr, acc = gg.indptr, [0.0, 0.0, 0.0]
+        combines = seg_sum.combines
+        got = check_k2(f"reddit {side}", indptr, msg, ints, acc, gg.split)
+        if seg_sum.combines - combines != 3 * int(gg.split.num_long > 0):
+            raise AssertionError(f"reddit {side}: {gg.split.num_long} long rows but "
+                                 f"{seg_sum.combines - combines} K2 combine launches in three runs")
         offsets = indptr.long()
+        rows = csr_rows(indptr, e)  # index_add_'s row ids, made outside the timed calls
         lib = torch.segment_reduce(msg, "sum", offsets=offsets)
         bound, by = k2_bound(n, e, d)
-        res[f"seg_sum_{side}"] = {
-            "ms": median_ms(lambda: seg_sum(indptr, msg), reps=20, warmup=2),
+        r = res[f"seg_sum_{side}"] = {
+            "ms": median_ms(lambda: seg_sum(indptr, msg, split=gg.split), reps=20, warmup=2),
             "plain_ms": median_ms(lambda: seg_sum_plain(indptr, msg), reps=5, warmup=1),
             "library_ms": median_ms(lambda: torch.segment_reduce(msg, "sum", offsets=offsets),
                                     reps=20, warmup=2),
+            "index_add_ms": median_ms(lambda: torch.zeros(n, d, device=dev).index_add_(0, rows, msg),
+                                      reps=20, warmup=2),
             "library_max_abs_err_vs_kernel": (lib - got).abs().max().item(),
             "bound_ms": bound, "bound_by": by,
             "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
             "max_row_nnz": int((indptr[1:] - indptr[:-1]).max()),
+            "split_T": gg.split.t, "long_rows": gg.split.num_long, "chunks": gg.split.num_chunks,
+            "t_sweep": t_sweep(lambda p: seg_sum(indptr, msg, split=p), indptr),
         }
-    del msg, ints
+        r["at_or_below_segment_reduce"] = r["ms"] <= r["library_ms"]
+        r["at_or_below_index_add"] = r["ms"] <= r["index_add_ms"]
+        del rows
+    # seg_sum_dst's forward and backward on the card read nothing back: no host sync
+    mk = msg.clone().requires_grad_()
+    cot = torch.randn(n, d, device=dev, generator=gen)
+    no_host_sync(lambda: seg_sum_dst(g, mk).backward(cot),
+                 lambda: seg_sum(g.indptr, msg))  # no plan: built from indptr, a sync
+    if mk.grad is None:
+        raise AssertionError("seg_sum_dst's backward gave no gradient under the sync check")
+    del msg, ints, mk
     adjoint = {"reddit": adjoint_times(g, d, gen),
                "pubmed": adjoint_times(_gat_graph("pubmed", dev), 64, gen)}
     memory = fused_memory(g, gen)
     emit("gat_reddit", nodes=n, edges=e, heads=h, d=d, keep=REDDIT_KEEP, load_s=load_s,
-         gather_adjoint=adjoint, fused_memory=memory,
+         gather_adjoint=adjoint, fused_memory=memory, no_host_sync=True, **_split_fields(g),
+         seg_sum_fwd_index_add_ms=res["seg_sum_fwd"]["index_add_ms"],
+         seg_sum_rev_index_add_ms=res["seg_sum_rev"]["index_add_ms"],
+         seg_sum_fwd_library_ms=res["seg_sum_fwd"]["library_ms"],
+         seg_sum_rev_library_ms=res["seg_sum_rev"]["library_ms"],
          k3_library="none: no single PyTorch call computes the fused attention",
          **{f"{k}_ms": r["ms"] for k, r in res.items()}, detail=res)
     return res, g
@@ -917,16 +1132,18 @@ def phase_gat_main():
     counters = {"csr_spmm": csr_spmm, "gat_attention_fwd": gat_attention_fwd,
                 "gat_attention_bwd": gat_attention_bwd, "seg_sum": seg_sum}
     steps = {"reddit": 8, "pubmed": 30}
-    res, launches, rescues = {}, {}, {}
+    res, launches, rescues, combines = {}, {}, {}, {}
     for ds in ("reddit", "pubmed"):
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
+        csr_spmm.combines = seg_sum.combines = 0
         edge_softmax.rescues = 0
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             r = main_gat.run(ds, epochs=steps[ds], runs=1, device="cuda")
         launches[ds] = {k: fn.launches for k, fn in counters.items()}
+        combines[ds] = {"csr_spmm": csr_spmm.combines, "seg_sum": seg_sum.combines}
         rescues[ds] = edge_softmax.rescues
         res[ds] = r
         if "Training time/epoch" not in log.getvalue():
@@ -939,6 +1156,14 @@ def phase_gat_main():
                    "seg_sum": 9 * s + rescues["pubmed"]}
     if launches["reddit"] != want_reddit or launches["pubmed"] != want_pubmed:
         raise AssertionError(f"launches {launches}; want reddit {want_reddit}, pubmed {want_pubmed}")
+    # K1's launches (the gather adjoint) run over pubmed's reverse CSR, whose
+    # long rows each take a combine; K2 runs over the dst CSR, which has none
+    pub = _gat_graph("pubmed", torch.device("cuda"))
+    want = {"reddit": {"csr_spmm": 0, "seg_sum": 0},
+            "pubmed": {"csr_spmm": 3 * s * int(pub.reverse.split.num_long > 0),
+                       "seg_sum": (9 * s + rescues["pubmed"]) * int(pub.split.num_long > 0)}}
+    if combines != want:
+        raise AssertionError(f"combine launches {combines}; want {want}")
     for ds in res:
         losses = res[ds]["losses"][0]
         tail = statistics.mean(losses[-5:])
@@ -957,7 +1182,8 @@ def phase_gat_main():
          reddit_epochs_s=res["reddit"]["epochs_s"], pubmed_epochs_s=res["pubmed"]["epochs_s"],
          reddit_setup_s=res["reddit"]["setup_s"], pubmed_setup_s=res["pubmed"]["setup_s"],
          reddit_losses=res["reddit"]["losses"][0], pubmed_losses=res["pubmed"]["losses"][0],
-         steps=steps, launches=launches, pubmed_rescues=rescues["pubmed"],
+         steps=steps, launches=launches, combines=combines, pubmed_rescues=rescues["pubmed"],
+         pubmed_split=_split_fields(pub),
          pubmed_k2_per_step_derived=9, pubmed_k1_per_step_derived=3,
          reddit_setup_bytes=res["reddit"]["setup_bytes"],
          reddit_train_peak_bytes=res["reddit"]["train_peak_bytes"],
@@ -967,7 +1193,7 @@ def phase_gat_main():
          pubmed_train_peak_bytes=res["pubmed"]["train_peak_bytes"],
          reddit_edge_buffer_bytes=edge_buffer,
          reddit_edges=e, pubmed_edges=res["pubmed"]["num_edges"])
-    return launches
+    return launches, combines
 
 
 def _kernel_entry(name, source, replaces, launches, r, **extra):
@@ -989,12 +1215,12 @@ def main():
     phase_build()
     phase_random()
     red, red_graph = phase_reddit()
-    launches = phase_main()
+    launches, combines = phase_main()
     phase_gat_random()
     gred, gat_graph = phase_gat_reddit()
     rows = phase_row_gather(red, red_graph, gred, gat_graph)
     del red_graph, gat_graph
-    glaunch = phase_gat_main()
+    glaunch, gcombines = phase_gat_main()
     both = lambda key: red["fwd"][key] + red["bwd"][key]  # noqa: E731
     k2f, k2r = gred["seg_sum_fwd"], gred["seg_sum_rev"]
     print(json.dumps({"kernels": [
@@ -1008,6 +1234,14 @@ def main():
             "launches": launches["unhoisted"],
             "launches_hoisted": launches["hoisted"],
             "launches_pubmed_gat": glaunch["pubmed"]["csr_spmm"],
+            # the row split: its combine launches on the same runs, T, and
+            # the long rows and chunks of reddit's reverse CSR
+            "combines": combines["unhoisted"],
+            "combines_hoisted": combines["hoisted"],
+            "combines_pubmed_gat": gcombines["pubmed"]["csr_spmm"],
+            "split_T": red["bwd"]["split_T"],
+            "long_rows": red["bwd"]["long_rows"],
+            "chunks": red["bwd"]["chunks"],
             "max_abs_err": max(red["fwd"]["max_abs_err"], red["bwd"]["max_abs_err"]),
             "max_abs_err_f64": max(red["fwd"]["max_abs_err_f64"], red["bwd"]["max_abs_err_f64"]),
             # one forward (mean, dst CSR) plus one backward (sum, reverse CSR)
@@ -1019,6 +1253,8 @@ def main():
             "library_ms": both("library_ms"),
             "ms_fwd": red["fwd"]["kernel_ms"],
             "ms_bwd": red["bwd"]["kernel_ms"],
+            "library_ms_fwd": red["fwd"]["library_ms"],
+            "library_ms_bwd": red["bwd"]["library_ms"],
         },
         # K3's two passes on reddit with self-loops, H = 1, D = 16, with
         # dropout; launches from the reddit GAT run of gat_main
@@ -1031,7 +1267,8 @@ def main():
         # K2 at (E, 16) on reddit with self-loops over the dst CSR, the only
         # CSR the edge form runs it over (forward sums and spread_dst's
         # adjoint); launches from the pubmed GAT run of gat_main. The
-        # reverse CSR's hub row, which no GAT path gives K2 now, beside it
+        # reverse CSR, with its long rows split, which no path gives K2 now,
+        # beside it
         {
             "name": "seg_sum",
             "route": "cuda",
@@ -1045,7 +1282,14 @@ def main():
             "bound_ms": k2f["bound_ms"],
             "bound_by": k2f["bound_by"],
             "library_ms": k2f["library_ms"],
+            "index_add_ms": k2f["index_add_ms"],
+            "combines": gcombines["pubmed"]["seg_sum"],
+            "split_T": k2r["split_T"],
+            "long_rows": k2r["long_rows"],
+            "chunks": k2r["chunks"],
             "ms_rev": k2r["ms"],
+            "library_ms_rev": k2r["library_ms"],
+            "index_add_ms_rev": k2r["index_add_ms"],
             "max_abs_err_rev": k2r["max_abs_err"],
         },
         # P1 at the probe's default shape, launches from the probe's default

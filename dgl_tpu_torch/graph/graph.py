@@ -6,6 +6,8 @@ canonical order, sorted by destination with ties kept in input order:
 ``v`` live at ``indptr[v]:indptr[v+1]``), ``dst`` the row id of every edge and
 ``eid`` the input-order id of every canonical edge. The transpose is built
 once on the host and kept as ``reverse``; backward passes aggregate over it.
+Each of the two CSRs carries its row split (``split``, ``graph/split.py``),
+built on the host with it: the kernels' plan for rows too long for one warp.
 A node with no in-edges aggregates to 0.
 
 There is no padding and there are no sentinel edges: arrays hold exactly
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .split import RowSplit, row_split
 
 __all__ = ["Graph", "from_edges"]
 
@@ -35,6 +38,7 @@ class Graph:
     eid: torch.Tensor  # (E,) int32, input-order id of each canonical edge
     num_src_nodes: int
     num_dst_nodes: int
+    split: RowSplit  # the long rows of this CSR and their chunks
     reverse: Optional["Graph"] = None
 
     @property
@@ -59,6 +63,7 @@ class Graph:
             dst=self.dst.to(dev),
             indptr=self.indptr.to(dev),
             eid=self.eid.to(dev),
+            split=self.split.to(dev),
             reverse=None if self.reverse is None else self.reverse.to(dev),
         )
 
@@ -130,5 +135,7 @@ def from_edges(
     def t(a):
         return torch.from_numpy(a).to(dev)
 
-    rev = Graph(t(rs), t(rd), t(rindptr), t(reid), num_dst_nodes, num_src_nodes)
-    return Graph(t(s), t(d), t(indptr), t(eid), num_src_nodes, num_dst_nodes, rev)
+    rev = Graph(t(rs), t(rd), t(rindptr), t(reid), num_dst_nodes, num_src_nodes,
+                row_split(rindptr, device=dev))
+    return Graph(t(s), t(d), t(indptr), t(eid), num_src_nodes, num_dst_nodes,
+                 row_split(indptr, device=dev), rev)

@@ -1,0 +1,112 @@
+"""The row split of a CSR: its long rows cut into chunks of at most T edges.
+
+The CSR kernels give one warp to each row (``kernels/csrc/lanes.cuh``), and
+a launch lasts as long as its longest row. On the synthetic reddit graph the
+reverse CSR has a row of 212,102 edges, a second of 121,314, and 1,852 rows
+of more than 512 edges. So every row of more than ``T`` edges is cut into
+chunks of at most ``T`` edges, in ascending edge order; a kernel runs each
+chunk as one warp's work, into a partials buffer, and a combine launch adds
+each long row's partials in ascending chunk order (no atomics: two runs are
+bitwise equal). Rows of at most ``T`` edges run on the per-row code as
+before.
+
+The plan is built once on the host, with the graph (``from_edges``), from
+the CSR's ``indptr`` in numpy, so the ops never read ``indptr`` back from
+the card. It holds no padding, no sentinels and no tiling: only the long
+rows and their chunks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = ["SPLIT_T", "RowSplit", "row_split"]
+
+# T, the longest row one warp walks alone, in edges; of 256, 512 and 1024
+# the fastest on the card (chip_smoke.py prints all three; PERF.md)
+SPLIT_T = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSplit:
+    """The long rows of one CSR and their chunks.
+
+    ``rows`` (L,) int64: the rows of more than ``t`` edges, ascending;
+    ``chunk_ptr`` (L + 1,) int64: long row ``i`` owns chunks
+    ``chunk_ptr[i]:chunk_ptr[i + 1]``; ``chunks`` (C, 2) int64: each chunk's
+    ``[begin, end)`` edge offsets, at most ``t`` edges, ascending.
+    ``num_rows`` and ``num_edges`` are the CSR's, to check a plan against the
+    ``indptr`` it is used with.
+    """
+
+    t: int
+    num_rows: int
+    num_edges: int
+    rows: torch.Tensor
+    chunk_ptr: torch.Tensor
+    chunks: torch.Tensor
+
+    @property
+    def num_long(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def num_chunks(self) -> int:
+        return int(self.chunks.shape[0])
+
+    def to(self, device) -> "RowSplit":
+        return dataclasses.replace(self, rows=self.rows.to(device),
+                                   chunk_ptr=self.chunk_ptr.to(device),
+                                   chunks=self.chunks.to(device))
+
+    def kernel_args(self, partials: torch.Tensor) -> tuple:
+        """The plan's arguments of the kernels' C entry points (``long_t,
+        rows, chunk_ptr, n_long, chunks, n_chunks, partials``), with the (C, D)
+        float32 ``partials`` buffer the chunks are summed into."""
+        return (self.t, self.rows.data_ptr(), self.chunk_ptr.data_ptr(), self.num_long,
+                self.chunks.data_ptr(), self.num_chunks, partials.data_ptr())
+
+    def check(self, indptr: torch.Tensor, num_edges: int, what: str) -> None:
+        """Raise ``ValueError`` unless the plan has this CSR's row and edge
+        counts and lies on its device (shapes only: no read of the card).
+
+        The rows themselves are not compared, as that would read ``indptr``
+        back: a plan of another CSR with the same counts passes, and the
+        kernels then leave every long row it does not list unwritten."""
+        if (self.num_rows, self.num_edges) != (indptr.numel() - 1, num_edges):
+            raise ValueError(
+                f"{what}: the row split is for {self.num_rows} rows and {self.num_edges} edges, "
+                f"the CSR has {indptr.numel() - 1} rows and {num_edges} edges"
+            )
+        if any(t.device != indptr.device for t in (self.rows, self.chunk_ptr, self.chunks)):
+            raise ValueError(f"{what}: the row split lies on another device than indptr")
+
+
+def row_split(indptr, t: int = SPLIT_T, device=None) -> RowSplit:
+    """The plan of the CSR with row offsets ``indptr`` (a numpy array or a
+    tensor; a tensor on the card is copied to the host, one sync)."""
+    if t < 1:
+        raise ValueError(f"row split needs t >= 1, got {t}")
+    if isinstance(indptr, torch.Tensor):
+        device = indptr.device if device is None else device
+        indptr = indptr.cpu().numpy()
+    ip = np.asarray(indptr, dtype=np.int64)
+    deg = np.diff(ip)
+    rows = np.flatnonzero(deg > t)
+    n_chunks = (deg[rows] + t - 1) // t
+    chunk_ptr = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum(n_chunks, out=chunk_ptr[1:])
+    owner = np.repeat(np.arange(len(rows)), n_chunks)
+    begin = ip[rows][owner] + (np.arange(int(chunk_ptr[-1])) - chunk_ptr[owner]) * t
+    end = np.minimum(begin + t, ip[rows + 1][owner])
+
+    def to(a):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+        return a if device is None else a.to(device)
+
+    return RowSplit(t=int(t), num_rows=len(ip) - 1, num_edges=int(ip[-1]),
+                    rows=to(rows.astype(np.int64)), chunk_ptr=to(chunk_ptr),
+                    chunks=to(np.stack([begin, end], axis=1).reshape(-1, 2)))

@@ -2,7 +2,17 @@
 
 ``csr_spmm`` launches the hand-written CUDA kernel in ``csrc/csr_spmm.cu``
 for CUDA tensors and uses ``csr_spmm_plain`` only for CPU tensors.
-``csr_spmm.launches`` counts the kernel's launches.
+``csr_spmm.launches`` counts the calls that launch the kernel and
+``csr_spmm.combines`` the combine launches among them (the row split).
+
+Long rows are split: every row of more than ``T`` edges (the plan's ``t``;
+``graph/split.py:SPLIT_T`` = 512 for a graph's CSRs) is cut into chunks of
+at most ``T`` edges, each summed by one warp of the same launch into a
+(C, D) partials buffer; a second, small launch adds each long row's chunks in
+ascending chunk order, applies mean's ``1/deg`` of the whole row, and writes
+the row once. No atomics decide the order, so two runs are bitwise equal.
+``T`` bounds the longest walk any warp makes: one warp per row walked the
+reverse reddit CSR's 212,102-edge row alone.
 
 Counterpart of ``dgl_tpu/kernels/lane_spmm.py:lane_spmm``.
 """
@@ -14,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..graph.split import RowSplit, row_split
 from .build import load
 from .seg_sum import csr_rows
 
@@ -70,8 +81,9 @@ def _kernel_fn():
     fn = load("csr_spmm").csr_spmm_f32
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int, p, p, p, p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, p]
+        ll = ctypes.c_longlong
+        fn.argtypes = [p, ctypes.c_int, p, p, p, p, ll, ctypes.c_int, ctypes.c_int, ll, p, p, ll,
+                       p, ll, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -83,14 +95,25 @@ def csr_spmm(
     w: Optional[torch.Tensor] = None,
     *,
     mean: bool = False,
+    split: Optional[RowSplit] = None,
 ) -> torch.Tensor:
     """``out[r] = Σ_{j in row r} w[j] · x[indices[j]]`` (``w`` = 1 when None),
     divided by ``max(deg_r, 1)`` when ``mean``; float32 in and out.
 
     ``indptr`` (R+1,) int32/int64, ``indices`` (E,) int32, ``x`` (N, D),
     ``w`` (E,) in CSR order. Returns (R, D).
+
+    ``split``: the CSR's row split (``graph.split`` / ``graph.reverse.split``
+    for a graph's CSRs), on the device of ``indptr``. One whose row or edge
+    count differs raises ``ValueError`` before any launch; one of another CSR
+    with the same counts is not caught, and leaves the rows of more than
+    ``split.t`` edges that it does not list undefined. Without one, a launch
+    on the card builds it from ``indptr``: a copy of ``indptr`` to the host,
+    which waits for the card. The package's ops always pass the graph's plan.
     """
     _check(indptr, indices, x, w)
+    if split is not None:
+        split.check(indptr, indices.numel(), "csr_spmm")
     if x.device.type == "cpu":
         return csr_spmm_plain(indptr, indices, x, w, mean=mean)
     if x.device.type != "cuda":
@@ -99,17 +122,23 @@ def csr_spmm(
     out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
     if n_rows == 0 or d == 0:
         return out
+    if split is None:
+        split = row_split(indptr)
+    partials = torch.empty((split.num_chunks, d), dtype=torch.float32, device=x.device)
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
         err = fn(
             indptr.data_ptr(), int(indptr.dtype == torch.int64), indices.data_ptr(),
             None if w is None else w.data_ptr(), x.data_ptr(), out.data_ptr(),
-            n_rows, d, int(mean), torch.cuda.current_stream(x.device).cuda_stream,
+            n_rows, d, int(mean), *split.kernel_args(partials),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"csr_spmm kernel launch failed with CUDA error {err}")
     csr_spmm.launches += 1
+    csr_spmm.combines += int(split.num_long > 0)
     return out
 
 
 csr_spmm.launches = 0
+csr_spmm.combines = 0

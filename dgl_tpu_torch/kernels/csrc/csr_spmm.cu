@@ -32,10 +32,18 @@
 //     then all row loads), to hide the two dependent L2 latencies;
 //   * wide rows (D = 602 for the hoisted precompute) run as feature tiles of
 //     L·kTile vectors, so the accumulators stay in registers for any D;
-//   * the lane groups are combined with warp shuffles and written once.
-// Known limit: a row is one warp, so a hub row is serial. The reverse CSR
-// of the synthetic reddit graph has a row of about 212,000 edges; splitting
-// such rows across warps is later work.
+//   * the lane groups are combined with warp shuffles and written once;
+//   * long rows are split (lanes.cuh, "The row split"): a row of more than
+//     T edges (graph/split.py: SPLIT_T = 512, the fastest of 256, 512 and
+//     1024 on reddit's reverse CSR) is cut into chunks of at most T edges,
+//     each one warp's work in the first blocks of the same launch, summed
+//     into a partials buffer; one small combine launch adds each long row's
+//     chunks in ascending order, applies the mean's 1 / deg of the whole
+//     row and writes it. The edge weight is applied per edge as for any
+//     row. Without the split one warp walked the reverse reddit CSR's
+//     212,102-edge row alone, and the launch took 22× its forward's time;
+//     T bounds any warp's walk at T edges while rows of at most T edges
+//     keep the per-row code.
 
 #include "lanes.cuh"
 
@@ -45,25 +53,18 @@ using namespace warp_csr;
 
 constexpr int kTile = 4;  // vectors per lane per feature tile
 
-template <int V, typename IdxT>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-csr_spmm_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ indices,
-                const float* __restrict__ w, const float* __restrict__ x,
-                float* __restrict__ out, int64_t n_rows, int d, int lanes, int mean) {
-  const int64_t row = warp_row();
-  if (row >= n_rows) return;  // uniform across the warp
+// The warp's sum of edges [start, end), times `scale`, written to orow.
+template <int V>
+__device__ __forceinline__ void spmm_range(const int32_t* __restrict__ indices,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ x, float* __restrict__ orow,
+                                           int64_t start, int64_t end, int d, int lanes,
+                                           float scale) {
   const int lane = threadIdx.x % kWarp;
   const int groups = kWarp / lanes;  // edges taken at once
   const int slot = lane / lanes;
   const int col = lane % lanes;
-  const int64_t start = static_cast<int64_t>(indptr[row]);
-  const int64_t end = static_cast<int64_t>(indptr[row + 1]);
   const int nvec = d / V;
-  float scale = 1.f;
-  if (mean) {
-    const int64_t deg = end - start;
-    scale = 1.f / static_cast<float>(deg > 1 ? deg : 1);
-  }
   const int64_t stride = static_cast<int64_t>(groups) * kUnroll;
 
   for (int c0 = 0; c0 < nvec; c0 += lanes * kTile) {
@@ -102,7 +103,6 @@ csr_spmm_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ ind
 
     group_sum<kTile, V>(acc, lanes);
     if (slot == 0) {
-      float* orow = out + row * d;
 #pragma unroll
       for (int t = 0; t < kTile; ++t) {
         const int c = c0 + col + t * lanes;
@@ -117,41 +117,87 @@ csr_spmm_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ ind
   }
 }
 
+// The first n_chunk_blocks blocks sum the long rows' chunks into `partials`;
+// the others take one row per warp and write the rows of at most long_t edges.
+template <int V, typename IdxT>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+csr_spmm_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ indices,
+                const float* __restrict__ w, const float* __restrict__ x,
+                float* __restrict__ out, int64_t n_rows, int d, int lanes, int mean,
+                int64_t long_t, const int64_t* __restrict__ chunks, int64_t n_chunks,
+                int64_t n_chunk_blocks, float* __restrict__ partials) {
+  int64_t item;
+  if (warp_item(n_chunk_blocks, item)) {
+    if (item >= n_chunks) return;  // uniform across the warp
+    spmm_range<V>(indices, w, x, partials + item * d, chunks[2 * item], chunks[2 * item + 1], d,
+                  lanes, 1.f);
+    return;
+  }
+  const int64_t row = item;
+  if (row >= n_rows) return;  // uniform across the warp
+  const int64_t start = static_cast<int64_t>(indptr[row]);
+  const int64_t end = static_cast<int64_t>(indptr[row + 1]);
+  const int64_t deg = end - start;
+  if (deg > long_t) return;  // a long row: its chunks and the combine write it
+  float scale = 1.f;
+  if (mean) scale = 1.f / static_cast<float>(deg > 1 ? deg : 1);
+  spmm_range<V>(indices, w, x, out + row * d, start, end, d, lanes, scale);
+}
+
 template <typename IdxT>
 void dispatch(const IdxT* indptr, const int32_t* indices, const float* w, const float* x,
-              float* out, int64_t n_rows, int d, int mean, cudaStream_t stream) {
-  const int vw = vec_width(d, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out));
+              float* out, int64_t n_rows, int d, int mean, int64_t long_t, const int64_t* rows,
+              const int64_t* chunk_ptr, int64_t n_long, const int64_t* chunks, int64_t n_chunks,
+              float* partials, cudaStream_t stream) {
+  const int vw = vec_width(d, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
+                                  reinterpret_cast<uintptr_t>(partials));
   const int lanes = lanes_for(d, vw);
-  const dim3 grid = grid_for(n_rows), block = block_dim();
+  const int64_t cb = chunk_blocks(n_chunks);
+  const dim3 grid(static_cast<unsigned>(cb + grid_for(n_rows).x)), block = block_dim();
   if (vw == 4) {
     csr_spmm_kernel<4, IdxT><<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows, d,
-                                                         lanes, mean);
+                                                         lanes, mean, long_t, chunks, n_chunks, cb,
+                                                         partials);
   } else if (vw == 2) {
     csr_spmm_kernel<2, IdxT><<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows, d,
-                                                         lanes, mean);
+                                                         lanes, mean, long_t, chunks, n_chunks, cb,
+                                                         partials);
   } else {
     csr_spmm_kernel<1, IdxT><<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows, d,
-                                                         lanes, mean);
+                                                         lanes, mean, long_t, chunks, n_chunks, cb,
+                                                         partials);
   }
+  combine_chunks(vw, partials, rows, chunk_ptr, chunks, out, n_long, d, mean, stream);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Pointers are device pointers;
-// `w` may be null. Returns cudaGetLastError() after the launch.
+// `w` may be null. The row split (graph/split.py): rows of more than long_t
+// edges are the n_long `rows`, whose chunks [chunks[2k], chunks[2k+1]) are
+// chunk_ptr[i]..chunk_ptr[i+1]; `partials` holds n_chunks × d floats. Launches
+// the kernel, then the combine when n_long > 0; returns cudaGetLastError().
 extern "C" int csr_spmm_f32(const void* indptr, int indptr_is_int64, const void* indices,
-                            const void* w, const void* x, void* out, long long n_rows,
-                            int d, int mean, void* stream) {
+                            const void* w, const void* x, void* out, long long n_rows, int d,
+                            int mean, long long long_t, const void* rows, const void* chunk_ptr,
+                            long long n_long, const void* chunks, long long n_chunks,
+                            void* partials, void* stream) {
   if (n_rows <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   const auto* idx = static_cast<const int32_t*>(indices);
   const auto* wp = static_cast<const float*>(w);
   const auto* xp = static_cast<const float*>(x);
   auto* op = static_cast<float*>(out);
+  const auto* rp = static_cast<const int64_t*>(rows);
+  const auto* cp = static_cast<const int64_t*>(chunk_ptr);
+  const auto* ch = static_cast<const int64_t*>(chunks);
+  auto* pp = static_cast<float*>(partials);
   auto s = static_cast<cudaStream_t>(stream);
   if (indptr_is_int64) {
-    dispatch(static_cast<const int64_t*>(indptr), idx, wp, xp, op, n_rows, d, mean, s);
+    dispatch(static_cast<const int64_t*>(indptr), idx, wp, xp, op, n_rows, d, mean, long_t, rp, cp,
+             n_long, ch, n_chunks, pp, s);
   } else {
-    dispatch(static_cast<const int32_t*>(indptr), idx, wp, xp, op, n_rows, d, mean, s);
+    dispatch(static_cast<const int32_t*>(indptr), idx, wp, xp, op, n_rows, d, mean, long_t, rp, cp,
+             n_long, ch, n_chunks, pp, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

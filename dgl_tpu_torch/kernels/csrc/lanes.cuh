@@ -90,4 +90,112 @@ inline dim3 grid_for(int64_t n_rows, unsigned y = 1) {
 
 inline dim3 block_dim() { return dim3(kWarp * kWarpsPerBlock); }
 
+// ---- The row split (dgl_tpu_torch/graph/split.py) ---------------------------
+//
+// A row of more than T edges would keep one warp for its whole length, and a
+// launch lasts as long as its longest row (reddit's reverse CSR: 212,102
+// edges). The host lists such rows once per CSR, each cut into chunks of at
+// most T edges in ascending edge order: `chunks` holds each chunk's
+// [begin, end) edge offsets (int64 pairs), `chunk_ptr` each long row's first
+// chunk and `rows` the long rows. A kernel's launch gives its first
+// chunk_blocks(C) blocks to the chunks, one warp each, which sums its chunk
+// into row k of a partials buffer (C, D), float32, with the lane layout
+// above; its other blocks take the rows, and a warp whose row has more than T
+// edges leaves at once. The chunk blocks come first, so the longest work
+// starts first. combine_chunks_kernel then adds each long row's partials in
+// ascending chunk order, scales the sum and writes the row once. No atomics
+// decide an order: two runs are bitwise equal.
+
+inline int64_t chunk_blocks(int64_t n_chunks) {
+  return (n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
+}
+
+// This warp's work item: a chunk (returns true) in the first `n_chunk_blocks`
+// blocks, else a row (or the first of its rows); uniform across the block.
+__device__ __forceinline__ bool warp_item(int64_t n_chunk_blocks, int64_t& item) {
+  const int64_t b = blockIdx.x;
+  const bool is_chunk = b < n_chunk_blocks;
+  item = (is_chunk ? b : b - n_chunk_blocks) * kWarpsPerBlock + threadIdx.x / kWarp;
+  return is_chunk;
+}
+
+constexpr int kCombineUnroll = 8;  // chunks in flight per lane group
+
+// One warp per long row: out[rows[i]] = scale · Σ_k partials[k] over the row's
+// chunks k in ascending order, scale = 1 / deg (mean) or 1. The lane groups
+// load kCombineUnroll·groups chunks at once (group g holds chunk kb + u·groups
+// + g); every lane then adds them in ascending k through shuffles, so the
+// order of the additions does not depend on the lane layout.
+template <int V>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+combine_chunks_kernel(const float* __restrict__ partials, const int64_t* __restrict__ rows,
+                      const int64_t* __restrict__ chunk_ptr, const int64_t* __restrict__ chunks,
+                      float* __restrict__ out, int64_t n_long, int d, int lanes, int mean) {
+  const int64_t i = warp_row();
+  if (i >= n_long) return;  // uniform across the warp
+  const int lane = threadIdx.x % kWarp;
+  const int groups = kWarp / lanes;
+  const int slot = lane / lanes;
+  const int col = lane % lanes;
+  const int64_t k0 = chunk_ptr[i], k1 = chunk_ptr[i + 1];
+  float scale = 1.f;
+  if (mean) {  // the whole row's degree: its first chunk's begin to its last chunk's end
+    const int64_t deg = chunks[2 * (k1 - 1) + 1] - chunks[2 * k0];
+    scale = 1.f / static_cast<float>(deg > 1 ? deg : 1);
+  }
+  const int nvec = d / V;
+  const int64_t step = static_cast<int64_t>(groups) * kCombineUnroll;
+  float* orow = out + rows[i] * d;
+  for (int c0 = 0; c0 < nvec; c0 += lanes) {
+    const int c = c0 + col;
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.f;
+    for (int64_t kb = k0; kb < k1; kb += step) {
+      float v[kCombineUnroll][V];
+#pragma unroll
+      for (int u = 0; u < kCombineUnroll; ++u) {
+        const int64_t k = kb + static_cast<int64_t>(u) * groups + slot;
+        if (k < k1 && c < nvec) {
+          load_vec<V>(partials + k * d + static_cast<int64_t>(c) * V, v[u]);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < V; ++kk) v[u][kk] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kCombineUnroll; ++u)
+        for (int g = 0; g < groups; ++g)
+#pragma unroll
+          for (int kk = 0; kk < V; ++kk)
+            acc[kk] += __shfl_sync(0xffffffffu, v[u][kk], g * lanes + col);
+    }
+    if (slot == 0 && c < nvec) {
+      float r[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) r[k] = acc[k] * scale;
+      store_vec<V>(orow + static_cast<int64_t>(c) * V, r);
+    }
+  }
+}
+
+// The combine launch of a split CSR (nothing to do without long rows).
+inline void combine_chunks(int vw, const float* partials, const int64_t* rows,
+                           const int64_t* chunk_ptr, const int64_t* chunks, float* out,
+                           int64_t n_long, int d, int mean, cudaStream_t stream) {
+  if (n_long <= 0) return;
+  const int lanes = lanes_for(d, vw);
+  const dim3 grid = grid_for(n_long), block = block_dim();
+  if (vw == 4) {
+    combine_chunks_kernel<4><<<grid, block, 0, stream>>>(partials, rows, chunk_ptr, chunks, out,
+                                                         n_long, d, lanes, mean);
+  } else if (vw == 2) {
+    combine_chunks_kernel<2><<<grid, block, 0, stream>>>(partials, rows, chunk_ptr, chunks, out,
+                                                         n_long, d, lanes, mean);
+  } else {
+    combine_chunks_kernel<1><<<grid, block, 0, stream>>>(partials, rows, chunk_ptr, chunks, out,
+                                                         n_long, d, lanes, mean);
+  }
+}
+
 }  // namespace warp_csr

@@ -4,7 +4,16 @@ denominators and the backward of ``spread_dst``.
 
 ``seg_sum`` launches the hand-written CUDA kernel in ``csrc/seg_sum.cu`` for
 CUDA tensors and uses ``seg_sum_plain`` only for CPU tensors.
-``seg_sum.launches`` counts the kernel's launches.
+``seg_sum.launches`` counts the calls that launch the kernel and
+``seg_sum.combines`` the combine launches among them (the row split).
+
+Long rows are split as in K1 (``kernels/csr_spmm.py``): every row of more
+than ``T`` edges (the plan's ``t``; ``graph/split.py:SPLIT_T`` = 512 for a
+graph's CSRs) is cut into chunks of at most ``T`` edges, each summed by one warp of
+the same launch; a second, small launch adds each long row's chunks in
+ascending chunk order and writes the row once. No atomics decide the order,
+so two runs are bitwise equal and small-integer sums exact. Each warp of the
+rest takes two consecutive rows (``kRowsPerWarp`` in the source).
 
 Counterpart of ``dgl_tpu/kernels/piece_reduce.py:segment_sum_mxu``. Its
 backward, ``grad_msg[j] = gout[dst[j]]``, is a row gather (an XLA op in the
@@ -14,9 +23,11 @@ JAX package, ``index_select`` here); ``ops/gather.py`` pairs the two.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from ..graph.split import RowSplit, row_split
 from .build import load
 
 __all__ = ["seg_sum", "seg_sum_plain", "csr_rows"]
@@ -55,18 +66,30 @@ def _kernel_fn():
     fn = load("seg_sum").seg_sum_f32
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int, p, p, ctypes.c_longlong, ctypes.c_int, p]
+        ll = ctypes.c_longlong
+        fn.argtypes = [p, ctypes.c_int, p, p, ll, ctypes.c_int, ll, p, p, ll, p, ll, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def seg_sum(indptr: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
+def seg_sum(indptr: torch.Tensor, msg: torch.Tensor,
+            split: Optional[RowSplit] = None) -> torch.Tensor:
     """``out[r] = Σ_{j in [indptr[r], indptr[r+1])} msg[j]``; float32 in and out.
 
     ``indptr`` (R+1,) int32/int64, ``msg`` (E, W) in CSR order with
     ``E == indptr[-1]``. Returns (R, W); an empty row gives 0.
+
+    ``split``: the CSR's row split (``graph.split`` / ``graph.reverse.split``
+    for a graph's CSRs), on the device of ``indptr``. One whose row or edge
+    count differs raises ``ValueError`` before any launch; one of another CSR
+    with the same counts is not caught, and leaves the rows of more than
+    ``split.t`` edges that it does not list undefined. Without one, a launch
+    on the card builds it from ``indptr``: a copy of ``indptr`` to the host,
+    which waits for the card. The package's ops always pass the graph's plan.
     """
     _check(indptr, msg)
+    if split is not None:
+        split.check(indptr, msg.shape[0], "seg_sum")
     if msg.device.type == "cpu":
         return seg_sum_plain(indptr, msg)
     if msg.device.type != "cuda":
@@ -75,16 +98,22 @@ def seg_sum(indptr: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n_rows, w), dtype=torch.float32, device=msg.device)
     if n_rows == 0 or w == 0:
         return out.zero_()
+    if split is None:
+        split = row_split(indptr)
+    partials = torch.empty((split.num_chunks, w), dtype=torch.float32, device=msg.device)
     fn = _kernel_fn()
     with torch.cuda.device(msg.device):
         err = fn(
             indptr.data_ptr(), int(indptr.dtype == torch.int64), msg.data_ptr(), out.data_ptr(),
-            n_rows, w, torch.cuda.current_stream(msg.device).cuda_stream,
+            n_rows, w, *split.kernel_args(partials),
+            torch.cuda.current_stream(msg.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"seg_sum kernel launch failed with CUDA error {err}")
     seg_sum.launches += 1
+    seg_sum.combines += int(split.num_long > 0)
     return out
 
 
 seg_sum.launches = 0
+seg_sum.combines = 0

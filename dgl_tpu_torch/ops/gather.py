@@ -34,11 +34,11 @@ def gather_dst(g: Graph, v: torch.Tensor) -> torch.Tensor:
     return v.index_select(0, g.dst)
 
 
-def _seg_sum_rows(indptr: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
-    """K2 over any trailing shape: (E, ...) → (R, ...)."""
+def _seg_sum_rows(g: Graph, msg: torch.Tensor) -> torch.Tensor:
+    """K2 over the dst CSR of ``g``, any trailing shape: (E, ...) → (N_dst, ...)."""
     tail = tuple(msg.shape[1:])
-    out = seg_sum(indptr, msg.reshape(msg.shape[0], -1).contiguous())
-    return out.reshape((indptr.numel() - 1,) + tail)
+    out = seg_sum(g.indptr, msg.reshape(msg.shape[0], -1).contiguous(), split=g.split)
+    return out.reshape((g.num_dst_nodes,) + tail)
 
 
 class _GatherSrcRows(torch.autograd.Function):
@@ -51,7 +51,8 @@ class _GatherSrcRows(torch.autograd.Function):
     def backward(ctx, ge):
         rev = ctx.g.reverse
         flat = ge.reshape(ge.shape[0], -1).contiguous()
-        return csr_spmm(rev.indptr, rev.eid, flat).reshape((-1,) + tuple(ge.shape[1:])), None
+        grad_x = csr_spmm(rev.indptr, rev.eid, flat, split=rev.split)
+        return grad_x.reshape((-1,) + tuple(ge.shape[1:])), None
 
 
 class _SpreadDst(torch.autograd.Function):
@@ -62,14 +63,14 @@ class _SpreadDst(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ge):
-        return _seg_sum_rows(ctx.g.indptr, ge), None
+        return _seg_sum_rows(ctx.g, ge), None
 
 
 class _SegSumDst(torch.autograd.Function):
     @staticmethod
     def forward(ctx, msg, g):
         ctx.g = g
-        return _seg_sum_rows(g.indptr, msg)
+        return _seg_sum_rows(g, msg)
 
     @staticmethod
     def backward(ctx, gout):

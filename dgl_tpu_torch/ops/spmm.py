@@ -52,7 +52,7 @@ class _CopyU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, g: Graph, mean: bool) -> torch.Tensor:
         ctx.g, ctx.mean = g, mean
-        return csr_spmm(g.indptr, g.src, x.contiguous(), mean=mean)
+        return csr_spmm(g.indptr, g.src, x.contiguous(), mean=mean, split=g.split)
 
     @staticmethod
     def backward(ctx, g_out: torch.Tensor):
@@ -60,7 +60,7 @@ class _CopyU(torch.autograd.Function):
         if ctx.mean:
             g_out = g_out * _inv_deg(g, g_out.dtype).unsqueeze(1)
         rev = g.reverse
-        grad_x = csr_spmm(rev.indptr, rev.src, g_out.contiguous())
+        grad_x = csr_spmm(rev.indptr, rev.src, g_out.contiguous(), split=rev.split)
         return grad_x, None, None
 
 

@@ -1,7 +1,8 @@
 """K1 (csr_spmm): the plain version against a numpy oracle, the wrapper's
 checks, and, on a CUDA card, K1, K2 (seg_sum), both K3 passes
 (gat_attention_fwd / _bwd) and P1 and P2 (row_gather_async / _smem) against
-their plain versions.
+their plain versions; K1 and K2 also on a CSR whose rows straddle the row
+split (graph/split.py), against the plain version and exact integer sums.
 
 This file imports no JAX, so the card's tests can run where JAX is absent:
     python -m pytest --noconftest tests/test_torch_kernel.py -m cuda
@@ -133,6 +134,69 @@ def test_seg_sum_matches_plain_on_card():
         assert torch.equal(got, seg_sum(ip, msg))
         ints = torch.randint(-4, 5, msg.shape, device=dev).float()  # exact in any order
         assert torch.equal(seg_sum(ip.int(), ints), seg_sum_plain(ip, ints.double()).float())
+
+
+def _split_csr(rng, n_src):
+    """A CSR whose rows straddle the split T (rows of T - 1 to 2T + 1 edges),
+    with short, empty and one 10^5-edge row, and its row split."""
+    from dgl_tpu_torch.graph.split import SPLIT_T, row_split
+
+    t = SPLIT_T
+    degrees = np.concatenate([[0, t - 1, t, t + 1, 2 * t, 2 * t + 1, 100_000],
+                              rng.integers(0, 3 * t, 400), rng.integers(0, 20, 2000)])
+    indptr = np.zeros(len(degrees) + 1, np.int64)
+    np.cumsum(degrees, out=indptr[1:])
+    idx = rng.integers(0, n_src, int(indptr[-1])).astype(np.int32)
+    return indptr, idx, row_split(indptr)
+
+
+@pytest.mark.cuda
+def test_split_k1_matches_plain_and_exact_sums_on_card():
+    dev = _card()
+    rng = np.random.default_rng(6)
+    indptr, indices, plan = _split_csr(rng, 2000)
+    plan = plan.to(dev)
+    idx = torch.from_numpy(indices).to(dev)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, len(indices)).astype(np.float32)).to(dev)
+    short = torch.from_numpy(np.diff(indptr) <= 1000).to(dev)
+    for ip in (torch.from_numpy(indptr).to(dev), torch.from_numpy(indptr).int().to(dev)):
+        for d in (1, 16, 41, 602):
+            x = torch.from_numpy(rng.normal(1.0, 1.0, (2000, d)).astype(np.float32)).to(dev)
+            for mean in (False, True):
+                for ww in (None, w):
+                    before, combines = csr_spmm.launches, csr_spmm.combines
+                    got = csr_spmm(ip, idx, x, ww, mean=mean, split=plan)
+                    assert (csr_spmm.launches, csr_spmm.combines) == (before + 1, combines + 1)
+                    want = csr_spmm_plain(ip, idx, x, ww, mean=mean)
+                    torch.testing.assert_close(got[short], want[short], rtol=1e-4, atol=1e-4)
+                    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-2)
+                    assert torch.equal(got, csr_spmm(ip, idx, x, ww, mean=mean, split=plan))
+            ints = torch.from_numpy(rng.integers(-4, 5, (2000, d)).astype(np.float32)).to(dev)
+            exact = csr_spmm_plain(ip, idx, ints.double()).float()  # exact in any order
+            assert torch.equal(csr_spmm(ip, idx, ints, split=plan), exact)
+
+
+@pytest.mark.cuda
+def test_split_k2_matches_plain_and_exact_sums_on_card():
+    dev = _card()
+    rng = np.random.default_rng(7)
+    indptr, _, plan = _split_csr(rng, 1)
+    plan = plan.to(dev)
+    e = int(indptr[-1])
+    short = torch.from_numpy(np.diff(indptr) <= 1000).to(dev)
+    for ip in (torch.from_numpy(indptr).to(dev), torch.from_numpy(indptr).int().to(dev)):
+        for w in (1, 3, 6, 16, 41, 64, 66):  # every vector width and feature tile
+            msg = torch.from_numpy(rng.normal(1.0, 1.0, (e, w)).astype(np.float32)).to(dev)
+            before, combines = seg_sum.launches, seg_sum.combines
+            got = seg_sum(ip, msg, split=plan)
+            assert (seg_sum.launches, seg_sum.combines) == (before + 1, combines + 1)
+            want = seg_sum_plain(ip, msg)
+            torch.testing.assert_close(got[short], want[short], rtol=1e-4, atol=1e-3)
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-1)
+            assert torch.equal(got, seg_sum(ip, msg, split=plan))
+            ints = torch.from_numpy(rng.integers(-4, 5, (e, w)).astype(np.float32)).to(dev)
+            assert torch.equal(seg_sum(ip, ints, split=plan),
+                               seg_sum_plain(ip, ints.double()).float())
 
 
 @pytest.mark.cuda
