@@ -32,10 +32,11 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      the hoisted precompute, its combine once per backward launch (the
      reverse CSR's long rows), and both modes must agree on the first
      step's loss;
-  6. gat_random: K3 (gat_attention_fwd, gat_attention_bwd) and K2 (seg_sum)
-     on random CSRs with empty rows and 10^5-edge hub rows in both
-     directions, H in {1, 4, 8}, D in {8, 16, 41}, keep in {1.0, 0.82}, on
-     v and g around 1. Every output row is held to a float64 run of the
+  6. gat_random: K3 (gat_attention_fwd, gat_attention_bwd, each with the
+     row split of the CSR it walks) and K2 (seg_sum) on random CSRs with
+     empty rows and 10^5-edge hub rows in both directions, H in {1, 4, 8},
+     D in {8, 16, 41}, keep in {1.0, 0.82}, on v and g around 1. Every
+     output row is held to a float64 run of the
      plain version within the bound (2n + 8 + 4A)·u·Σ|term| (n terms,
      A = |a_src| + |a_dst| + |shift|, which the rounding of each term's
      logit and exp scales with), rows of at most HUB_DEG terms to the
@@ -43,18 +44,25 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      see check_k3_exact) and K2 also run on inputs whose sums are exact and
      must match bit for bit on every row, hub rows included; two runs of
      each kernel are bitwise equal; K2 also on the CSRs around the split, W
-     in {1, 16, 41, 64, 602};
+     in {1, 16, 41, 64, 602}; both K3 passes on graphs whose two CSRs both
+     have the rows around the split (H in {1, 4}, D in {16, 40, 41}, keep in
+     {1, 0.82}, int32 and int64 indptr, the same checks) and a mismatched
+     plan refused by each before any launch;
   7. gat_reddit: K3 forward and b2 on reddit with self-loops (H = 1,
      D = 16, reddit's attention dropout) and K2 at (E, 16) over the dst and
      the reverse CSR: the same checks, CUDA-event medians of the kernel, the
      plain version and, for K2, torch.segment_reduce and index_add_ (its
      row ids made outside the timed calls; K3 has no single PyTorch call to
-     compare with), K2 at T = 256, 512 and 1024 and at 1, 2 and 4 rows per
-     warp, and the bytes bounds; seg_sum_dst's forward and backward under
-     set_sync_debug_mode("error"); gather_src_rows' adjoint timed as one K1
-     launch and as index_select + K2 (reddit at W = 16, pubmed at W = 64); a
-     fused GATConv's forward and backward allocate no more on reddit than
-     on its self-loops alone;
+     compare with), the combine launches of the timed K3 calls counted, the
+     T sweep (256, 512, 1024) of K2 and of each K3 pass whose CSR has a row
+     over 256 edges, and the bytes bounds; K3's checks and times also at
+     arxiv's shapes (bidirected with self-loops, H = 4, D = 16 and the last
+     layer's D = 40, long rows in both CSRs); a fused GATConv's forward and
+     backward, and seg_sum_dst's, under set_sync_debug_mode("error");
+     gather_src_rows' adjoint timed as
+     one K1 launch and as index_select + K2 (reddit at W = 16, pubmed at
+     W = 64); a fused GATConv's forward and backward allocate no more on
+     reddit than on its self-loops alone;
   8. row_gather: P1 (row_gather_async) and P2 (row_gather_smem) held bit
      for bit to x[idx] in float32 and bfloat16, int32 and int64 indices,
      ragged e, rows of 2 B to 40 KB, misaligned x, P2 up to its 227 KB
@@ -64,24 +72,28 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      the P1 and P2 counters set to 0 before it and read after it, every line
      with maxerr 0 but P2's refusal at the default shape; CUDA-event medians
      of P1, index_select and a write-only fill of the same output on the
-     index streams of K1 forward and backward, K3 forward and pubmed's
-     gather_src_rows, and the probe's default, with gather_floor_ms (P1 less
-     the fill) beside the kernel that gathers them; P2 against P1 and
+     index streams of K1 forward and backward, K3 forward and b2 and
+     pubmed's gather_src_rows, and the probe's default, with gather_floor_ms
+     (P1 less the fill) beside the kernel that gathers them; P2 against P1 and
      index_select at (2708, 16) on reddit's indices mod 2708;
-  9. gat_main: the GAT driver at full size, reddit (fused form) then pubmed
-     (edge form), each run with every launch counter set to 0 before it and
-     read after it. reddit: K3 forward and b2 exactly 3 per step each, K2
-     and K1 none, the training's peak device memory above the graph and
-     data printed and held below one (E, 16) float32 buffer; pubmed: K3
-     none, K2 exactly 9 per step plus one per edge-softmax rescue, K1 3 per
-     step (see phase_gat_main), K1's combine once per K1 launch (pubmed's
-     reverse CSR has long rows) and K2's none. Losses finite and falling;
-  10. kernels: one line listing every ported kernel with its numbers, K1's
-     and K2's with T, chunks and combine launches.
+  9. gat_main: main_gat at full width, reddit and ogbn-arxiv (fused
+     form, heads (1, 1, 1) and (4, 4, 4)) then pubmed (edge form), each run
+     with every launch and combine counter set to 0 before it and read
+     after it. reddit and arxiv: K3 forward and b2 exactly 3 per step each,
+     K2 and K1 none, the combines their graphs' plans give (see
+     phase_gat_main); reddit's training peak device memory above the graph
+     and data held below one (E, 16) float32 buffer; pubmed: K3 none, K2
+     exactly 9 per step plus one per edge-softmax rescue, K1 3 per step,
+     K1's combine once per K1 launch (pubmed's reverse CSR has long rows)
+     and K2's none. Losses finite and falling;
+  10. kernels: one line listing every ported kernel with its numbers, K1's,
+     K2's and K3's with T, long rows, chunks and combine launches, K3's at
+     arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor.
 The last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import statistics
@@ -264,7 +276,7 @@ def _csr_of(degrees, n_src, rng, dev):
     return torch.from_numpy(indptr).to(dev), torch.from_numpy(idx).to(dev)
 
 
-def _refuses_mismatched_plan(fn, ip, *args):
+def _refuses_mismatched_plan(fn, ip, *args, **kw):
     """A plan for one row fewer, and one for one edge fewer, raise ValueError
     before any launch."""
     from dgl_tpu_torch.graph.split import row_split
@@ -276,7 +288,7 @@ def _refuses_mismatched_plan(fn, ip, *args):
     for b in bad:
         before = fn.launches
         try:
-            fn(ip, *args, split=row_split(b, device=ip.device))
+            fn(ip, *args, split=row_split(b, device=ip.device), **kw)
         except ValueError:
             pass
         else:
@@ -575,8 +587,8 @@ def check_k3_fwd(what, g, v, a_s, a_d, kw, acc):
     float64; returns the kernel's outputs."""
     from dgl_tpu_torch.kernels.gat_attention import gat_attention_fwd, gat_attention_fwd_plain
 
-    got = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, **kw)
-    again = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, **kw)
+    got = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
+    again = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"{what}: two K3 forward runs differ")
     plain = gat_attention_fwd_plain(g.indptr, g.src, v, a_s, a_d, **kw)
@@ -597,8 +609,8 @@ def check_k3_bwd(what, g, g_out, node, a_s, kw, acc):
 
     rev = g.reverse
     args = (rev.indptr, rev.src, rev.eid)
-    got = gat_attention_bwd(*args, g_out, node, a_s, **kw)
-    again = gat_attention_bwd(*args, g_out, node, a_s, **kw)
+    got = gat_attention_bwd(*args, g_out, node, a_s, split=rev.split, **kw)
+    again = gat_attention_bwd(*args, g_out, node, a_s, split=rev.split, **kw)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"{what}: two K3 b2 runs differ")
     plain = gat_attention_bwd_plain(*args, g_out, node, a_s, **kw)
@@ -640,9 +652,10 @@ def check_k3_exact(what, g, h, d, gen):
     seed = torch.randint(-(2**31), 2**31 - 1, (1,), dtype=torch.int32, device=dev, generator=gen)
     for keep in (1.0, 0.5):
         kw = dict(negative_slope=0.2, keep=keep, seed=seed)
-        got = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, **kw)
+        got = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
         want = gat_attention_fwd_plain(g.indptr, g.src, v.double(), a_s.double(), a_d.double(), **kw)
-        got += gat_attention_bwd(rev.indptr, rev.src, rev.eid, g_out, node, a_s, **kw)
+        got += gat_attention_bwd(rev.indptr, rev.src, rev.eid, g_out, node, a_s, split=rev.split,
+                                 **kw)
         want += gat_attention_bwd_plain(rev.indptr, rev.src, rev.eid, g_out.double(), node.double(),
                                         a_s.double(), **kw)
         names = ("out", "w1", "inv_s", "w1s", "shift", "grad_v", "w2", "w3")
@@ -669,6 +682,55 @@ def check_k2(what, indptr, msg, ints, acc, split):
     check(f"{what} K2 integer", seg_sum(indptr, ints, split=split), indptr,
           (seg_sum_plain(indptr, i64), seg_sum_plain(indptr, i64.abs())), exact=True)
     return got
+
+
+def _with_indptr_dtype(g, dtype):
+    """The graph with both CSRs' indptr in ``dtype`` (the plans unchanged)."""
+    rev = dataclasses.replace(g.reverse, indptr=g.reverse.indptr.to(dtype))
+    return dataclasses.replace(g, indptr=g.indptr.to(dtype), reverse=rev)
+
+
+def check_split_k3(rng, dev, acc):
+    """Both K3 passes on graphs whose dst CSR and reverse CSR both have the
+    row lengths of _split_degrees (each node sends as many edges as it
+    receives), H in {1, 4}, D in {16, 40, 41} (lane groups of 4, 16 and
+    32: 40 is arxiv's last layer), keep in {1, 0.82}, int32 and int64
+    indptr: float64 bounds, the plain version, exact sums
+    (check_k3_exact) and two runs bitwise equal; then a plan that does not
+    match indptr, refused by both passes before any launch. Returns the
+    number of cases."""
+    from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch.graph.split import SPLIT_T
+    from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = 0
+    for name, degrees in _split_degrees(rng, SPLIT_T).items():
+        n = len(degrees)
+        dst = np.repeat(np.arange(n), degrees)
+        g0 = from_edges(rng.permutation(dst), dst, n, device=dev)
+        for h in (1, 4):
+            for d in (16, 40, 41):
+                v, g_out = (1.0 + torch.randn(n, h, d, device=dev, generator=gen) for _ in range(2))
+                a_s, a_d = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
+                for dtype in (torch.int32, torch.int64):
+                    g = _with_indptr_dtype(g0, dtype)
+                    what = f"split {name} H={h} D={d} {dtype}"
+                    check_k3_exact(what, g, h, d, gen)
+                    for keep in (1.0, 0.82):
+                        seed = torch.randint(-(2**31), 2**31 - 1, (1,), dtype=torch.int32,
+                                             device=dev, generator=gen)
+                        kw = dict(negative_slope=0.2, keep=keep, seed=seed)
+                        out, _, inv_s, _, shift = check_k3_fwd(f"{what} keep={keep}", g, v, a_s,
+                                                               a_d, kw, acc["fwd"])
+                        node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
+                        check_k3_bwd(f"{what} keep={keep}", g, g_out, node, a_s, kw, acc["bwd"])
+                        cases += 1
+        kw = dict(negative_slope=0.2)
+        _refuses_mismatched_plan(gat_attention_fwd, g0.indptr, g0.src, v, a_s, a_d, **kw)
+        _refuses_mismatched_plan(gat_attention_bwd, g0.reverse.indptr, g0.reverse.src,
+                                 g0.reverse.eid, g_out, node, a_s, **kw)
+    return cases
 
 
 def check_split_k2(rng, dev, acc):
@@ -727,6 +789,7 @@ def phase_gat_random():
                 ints = torch.randint(-4, 5, (g.num_edges, w), device=dev, generator=gen).float()
                 check_k2(f"{what} {side}", gg.indptr, msg, ints, k2, gg.split)
     split_cases = check_split_k2(np.random.default_rng(4), dev, k2)
+    k3_split_cases = check_split_k3(np.random.default_rng(6), dev, k3)
     torch.cuda.synchronize()
     emit("gat_random", cases=cases, nodes=n, edges=g.num_edges,
          max_in_degree=int(g.in_degrees().max()), max_out_degree=int(g.out_degrees().max()),
@@ -735,18 +798,91 @@ def phase_gat_random():
          k3_fwd_max_bound_used=k3["fwd"][2], k3_bwd_max_abs_err=k3["bwd"][0],
          k3_bwd_max_abs_err_f64=k3["bwd"][1], k3_bwd_max_bound_used=k3["bwd"][2],
          k2_max_abs_err=k2[0], k2_max_abs_err_f64=k2[1], k2_max_bound_used=k2[2],
-         k2_split_cases=split_cases, rtol=RTOL, atol=ATOL, hub_deg=HUB_DEG, deterministic=True,
-         **_split_fields(g))
+         k2_split_cases=split_cases, k3_split_cases=k3_split_cases, rtol=RTOL, atol=ATOL,
+         hub_deg=HUB_DEG, deterministic=True, **_split_fields(g))
 
 
 def _gat_graph(name, dev):
+    """The graph main_gat builds: made bidirected where its dataset table
+    says so (ogbn-arxiv), then self-loops on every graph."""
     from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch.benchmarks.node_classification.main_gat import DATASET_CFG
     from dgl_tpu_torch.data import load_node_dataset
     from dgl_tpu_torch.graph import transforms
 
     data = load_node_dataset(name)
-    src, dst = transforms.add_self_loops(data.src, data.dst, data.num_nodes)
+    src, dst = data.src, data.dst
+    if DATASET_CFG[name]["bidirect"]:
+        src, dst = transforms.to_bidirected(src, dst, data.num_nodes)
+    src, dst = transforms.add_self_loops(src, dst, data.num_nodes)
     return from_edges(src, dst, data.num_nodes, device=dev)
+
+
+def timed_combines(wrapper, call, per_call, reps, warmup):
+    """``call``'s median ms and the combine launches of its timed and
+    warm-up calls, which must be ``per_call`` each."""
+    before = wrapper.combines
+    ms = median_ms(call, reps=reps, warmup=warmup)
+    combines = wrapper.combines - before
+    if combines != per_call * (reps + warmup):
+        raise AssertionError(f"{wrapper.__name__}: {combines} combine launches in {reps + warmup} "
+                             f"calls; want {per_call} a call")
+    return ms, combines
+
+
+def k3_shape(name, g, h, d, gen, keep):
+    """Both K3 passes on graph ``g`` at H = h, D = d: check_k3_exact, the
+    float64 checks, CUDA-event medians of each pass with its combines
+    counted, the plain versions' times and the bytes bounds; b2's T sweep."""
+    from dgl_tpu_torch.kernels.gat_attention import (
+        B2_COMBINES, gat_attention_bwd, gat_attention_bwd_plain, gat_attention_fwd,
+        gat_attention_fwd_plain)
+
+    dev = g.indptr.device
+    rev = g.reverse
+    n, e = g.num_dst_nodes, g.num_edges
+    check_k3_exact(name, g, h, d, gen)
+    # v and g around 1 (see _inputs): a hub row's sums stay far from 0
+    v, g_out = (1.0 + torch.randn(n, h, d, device=dev, generator=gen) for _ in range(2))
+    a_s, a_d = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
+    kw = dict(negative_slope=0.2, keep=keep, seed=torch.tensor([20260], dtype=torch.int32,
+                                                                device=dev))
+    res = {}
+    acc = [0.0, 0.0, 0.0]
+    out, _, inv_s, _, shift = check_k3_fwd(name, g, v, a_s, a_d, kw, acc)
+    fwd_args = (g.indptr, g.src, v, a_s, a_d)
+    bound, by = k3_fwd_bound(n, n, e, h, d)
+    ms, combines = timed_combines(
+        gat_attention_fwd, lambda: gat_attention_fwd(*fwd_args, split=g.split, **kw),
+        int(g.split.num_long > 0), reps=30, warmup=3)
+    res["gat_attention_fwd"] = {
+        "ms": ms, "combines_timed": combines,
+        "plain_ms": median_ms(lambda: gat_attention_fwd_plain(*fwd_args, **kw), reps=5, warmup=1),
+        "library_ms": None, "bound_ms": bound, "bound_by": by,
+        "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
+        "max_row_nnz": int(g.in_degrees().max()),
+        "split_T": g.split.t, "long_rows": g.split.num_long, "chunks": g.split.num_chunks,
+        "t_sweep": t_sweep(lambda p: gat_attention_fwd(*fwd_args, split=p, **kw), g.indptr),
+    }
+    acc = [0.0, 0.0, 0.0]
+    node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
+    del out, inv_s, shift
+    check_k3_bwd(name, g, g_out, node, a_s, kw, acc)
+    bwd_args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
+    bound, by = k3_bwd_bound(n, n, e, h, d, dropout=keep < 1.0)
+    ms, combines = timed_combines(
+        gat_attention_bwd, lambda: gat_attention_bwd(*bwd_args, split=rev.split, **kw),
+        B2_COMBINES * int(rev.split.num_long > 0), reps=20, warmup=2)
+    res["gat_attention_bwd"] = {
+        "ms": ms, "combines_timed": combines,
+        "plain_ms": median_ms(lambda: gat_attention_bwd_plain(*bwd_args, **kw), reps=5, warmup=1),
+        "library_ms": None, "bound_ms": bound, "bound_by": by,
+        "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
+        "max_row_nnz": int(rev.in_degrees().max()),
+        "split_T": rev.split.t, "long_rows": rev.split.num_long, "chunks": rev.split.num_chunks,
+        "t_sweep": t_sweep(lambda p: gat_attention_bwd(*bwd_args, split=p, **kw), rev.indptr),
+    }
+    return res
 
 
 def adjoint_times(g, w, gen):
@@ -805,9 +941,29 @@ def fused_memory(g, gen):
     return {"extra_bytes": extra, "limit_bytes": limit, "edges": g.num_edges, "nodes": n}
 
 
+def fused_conv_no_host_sync(g, gen):
+    """A fused GATConv's forward and backward (training mode: feature and
+    attention dropout) under set_sync_debug_mode("error"): both K3 passes
+    take the graph's plans, so nothing reads back from the card."""
+    from dgl_tpu_torch.kernels.gat_attention import gat_attention_fwd
+    from dgl_tpu_torch.nn import GATConv
+
+    dev = g.indptr.device
+    n = g.num_dst_nodes
+    conv = GATConv(16, 16, 1, feat_drop=0.18, attn_drop=0.18, fused=True, device=dev,
+                   generator=torch.Generator().manual_seed(5))
+    x = (1.0 + torch.randn(n, 16, device=dev, generator=gen)).requires_grad_()
+    v, a = torch.ones(n, 1, 16, device=dev), torch.zeros(n, 1, device=dev)
+    before = gat_attention_fwd.launches
+    no_host_sync(lambda: conv(g, x, generator=gen).sum().backward(),
+                 # no plan: built from indptr, a sync
+                 lambda: gat_attention_fwd(g.indptr, g.src, v, a, a, negative_slope=0.2))
+    if x.grad is None or gat_attention_fwd.launches != before + 1:
+        raise AssertionError("the fused GATConv ran no K3 forward or gave no gradient under the "
+                             "sync check")
+
+
 def phase_gat_reddit():
-    from dgl_tpu_torch.kernels.gat_attention import (
-        gat_attention_bwd, gat_attention_bwd_plain, gat_attention_fwd, gat_attention_fwd_plain)
     from dgl_tpu_torch.kernels.seg_sum import csr_rows, seg_sum, seg_sum_plain
     from dgl_tpu_torch.ops import seg_sum_dst
 
@@ -818,38 +974,16 @@ def phase_gat_reddit():
     rev = g.reverse
     n, e, h, d = g.num_dst_nodes, g.num_edges, 1, 16
     gen = torch.Generator(device=dev).manual_seed(2)
-    check_k3_exact("reddit", g, h, d, gen)
-    # v and g around 1 (see _inputs): the reverse hub row's sums stay far from 0
-    v, g_out = (1.0 + torch.randn(n, h, d, device=dev, generator=gen) for _ in range(2))
-    a_s, a_d = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
-    seed = torch.tensor([20260], dtype=torch.int32, device=dev)
-    kw = dict(negative_slope=0.2, keep=REDDIT_KEEP, seed=seed)
-    res = {}
-
-    acc = [0.0, 0.0, 0.0]
-    out, w1, inv_s, w1s, shift = check_k3_fwd("reddit", g, v, a_s, a_d, kw, acc)
-    fwd_args = (g.indptr, g.src, v, a_s, a_d)
-    bound, by = k3_fwd_bound(n, n, e, h, d)
-    res["gat_attention_fwd"] = {
-        "ms": median_ms(lambda: gat_attention_fwd(*fwd_args, **kw), reps=30, warmup=3),
-        "plain_ms": median_ms(lambda: gat_attention_fwd_plain(*fwd_args, **kw), reps=5, warmup=1),
-        "library_ms": None, "bound_ms": bound, "bound_by": by,
-        "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
-        "max_row_nnz": int(g.in_degrees().max()),
-    }
-    acc = [0.0, 0.0, 0.0]
-    node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
-    check_k3_bwd("reddit", g, g_out, node, a_s, kw, acc)
-    bwd_args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
-    bound, by = k3_bwd_bound(n, n, e, h, d, dropout=True)
-    res["gat_attention_bwd"] = {
-        "ms": median_ms(lambda: gat_attention_bwd(*bwd_args, **kw), reps=20, warmup=2),
-        "plain_ms": median_ms(lambda: gat_attention_bwd_plain(*bwd_args, **kw), reps=5, warmup=1),
-        "library_ms": None, "bound_ms": bound, "bound_by": by,
-        "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
-        "max_row_nnz": int(rev.in_degrees().max()),
-    }
-    del v, out, w1, node
+    res = k3_shape("reddit", g, h, d, gen, REDDIT_KEEP)
+    fused_conv_no_host_sync(g, gen)
+    # arxiv's 4-head shapes, D = 16 and the last layer's D = 40 (lane groups
+    # of 4 and of 16): its dst CSR has long rows too, which the forward splits
+    arxiv = _gat_graph("ogbn-arxiv", dev)
+    res_arxiv = k3_shape("ogbn-arxiv", arxiv, 4, 16, gen, REDDIT_KEEP)
+    res_arxiv40 = k3_shape("ogbn-arxiv D=40", arxiv, 4, 40, gen, REDDIT_KEEP)
+    arxiv_fields = {"nodes": arxiv.num_dst_nodes, "edges": arxiv.num_edges, "heads": 4,
+                    "d": [16, 40], **_split_fields(arxiv)}
+    del arxiv
     msg = 1.0 + torch.randn(e, d, device=dev, generator=gen)
     ints = torch.randint(-4, 5, (e, d), device=dev, generator=gen).float()
     for side, gg in (("fwd", g), ("rev", rev)):
@@ -892,14 +1026,20 @@ def phase_gat_reddit():
                "pubmed": adjoint_times(_gat_graph("pubmed", dev), 64, gen)}
     memory = fused_memory(g, gen)
     emit("gat_reddit", nodes=n, edges=e, heads=h, d=d, keep=REDDIT_KEEP, load_s=load_s,
-         gather_adjoint=adjoint, fused_memory=memory, no_host_sync=True, **_split_fields(g),
+         gather_adjoint=adjoint, fused_memory=memory, no_host_sync=True,
+         fused_conv_no_host_sync=True, **_split_fields(g),
          seg_sum_fwd_index_add_ms=res["seg_sum_fwd"]["index_add_ms"],
          seg_sum_rev_index_add_ms=res["seg_sum_rev"]["index_add_ms"],
          seg_sum_fwd_library_ms=res["seg_sum_fwd"]["library_ms"],
          seg_sum_rev_library_ms=res["seg_sum_rev"]["library_ms"],
          k3_library="none: no single PyTorch call computes the fused attention",
-         **{f"{k}_ms": r["ms"] for k, r in res.items()}, detail=res)
-    return res, g
+         **{f"{k}_ms": r["ms"] for k, r in res.items()},
+         **{f"{k}_ms_arxiv": r["ms"] for k, r in res_arxiv.items()},
+         **{f"{k}_ms_arxiv_d40": r["ms"] for k, r in res_arxiv40.items()},
+         k3_b2_t_sweep=res["gat_attention_bwd"]["t_sweep"],
+         k3_fwd_t_sweep_arxiv=res_arxiv["gat_attention_fwd"]["t_sweep"],
+         arxiv=arxiv_fields, detail=res, detail_arxiv=res_arxiv, detail_arxiv_d40=res_arxiv40)
+    return res, res_arxiv, res_arxiv40, g
 
 
 # -- P1 and P2: the row gather ----------------------------------------------
@@ -1019,6 +1159,9 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
                    red["bwd"]["kernel_ms"]),
         "k3_fwd": (gat_graph.src, gat_graph.num_src_nodes, 16, "K3 forward",
                    gred["gat_attention_fwd"]["ms"]),
+        # b2 gathers g's rows by each reverse slot's original dst
+        "k3_b2": (gat_graph.reverse.src, gat_graph.num_dst_nodes, 16, "K3 b2",
+                  gred["gat_attention_bwd"]["ms"]),
         "gather_src_rows": (pubmed.src, pubmed.num_src_nodes, 64, "gather_src_rows (index_select)",
                             None),
         "tool_default": (tool_idx, 169343, 256, None, None),
@@ -1082,7 +1225,7 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
          probe=probe, gather_floor=floors, smem_2708x16=smem,
          **{f"gather_floor_ms_{k}": f["gather_floor_ms"] for k, f in floors.items()})
     default = floors["tool_default"]
-    return {
+    return floors, {
         "row_gather_async": {
             "launches": launches["default"]["row_gather_async"], "max_abs_err": max(
                 ln["maxerr"] for ln in probe["default"]["lines"] if ln["name"] == "row_gather_async"),
@@ -1104,8 +1247,13 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
 
 
 def phase_gat_main():
-    """The GAT driver's two paths, each with every counter set to 0 just
+    """main_gat's three paths, each with every counter set to 0 just
     before it and read just after it.
+
+    reddit and ogbn-arxiv run the fused form: one K3 forward and one b2 call
+    a layer and step, no K1 or K2. A forward call combines once when the dst
+    CSR has long rows (arxiv's), a b2 call B2_COMBINES times when the
+    reverse CSR has (both graphs').
 
     pubmed runs the edge form; its launches per step, from the code
     (ops/gather.py, ops/softmax.py, nn/conv.py), for each of its 3 layers:
@@ -1125,45 +1273,52 @@ def phase_gat_main():
     """
     from dgl_tpu_torch.benchmarks.node_classification import main_gat
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
-    from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
+    from dgl_tpu_torch.kernels.gat_attention import B2_COMBINES, gat_attention_bwd, gat_attention_fwd
     from dgl_tpu_torch.kernels.seg_sum import seg_sum
     from dgl_tpu_torch.ops.softmax import edge_softmax
 
     counters = {"csr_spmm": csr_spmm, "gat_attention_fwd": gat_attention_fwd,
                 "gat_attention_bwd": gat_attention_bwd, "seg_sum": seg_sum}
-    steps = {"reddit": 8, "pubmed": 30}
+    steps = {"reddit": 8, "ogbn-arxiv": 10, "pubmed": 30}
     res, launches, rescues, combines = {}, {}, {}, {}
-    for ds in ("reddit", "pubmed"):
+    for ds in steps:
         torch.cuda.synchronize()
         for fn in counters.values():
-            fn.launches = 0
-        csr_spmm.combines = seg_sum.combines = 0
+            fn.launches = fn.combines = 0
         edge_softmax.rescues = 0
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             r = main_gat.run(ds, epochs=steps[ds], runs=1, device="cuda")
         launches[ds] = {k: fn.launches for k, fn in counters.items()}
-        combines[ds] = {"csr_spmm": csr_spmm.combines, "seg_sum": seg_sum.combines}
+        combines[ds] = {k: fn.combines for k, fn in counters.items()}
         rescues[ds] = edge_softmax.rescues
         res[ds] = r
         if "Training time/epoch" not in log.getvalue():
             raise AssertionError(f"{ds}: the driver printed no 'Training time/epoch' line")
-    s = steps["reddit"]
-    want_reddit = {"csr_spmm": 0, "gat_attention_fwd": 3 * s, "gat_attention_bwd": 3 * s,
-                   "seg_sum": 0}
-    s = steps["pubmed"]
-    want_pubmed = {"csr_spmm": 3 * s, "gat_attention_fwd": 0, "gat_attention_bwd": 0,
-                   "seg_sum": 9 * s + rescues["pubmed"]}
-    if launches["reddit"] != want_reddit or launches["pubmed"] != want_pubmed:
-        raise AssertionError(f"launches {launches}; want reddit {want_reddit}, pubmed {want_pubmed}")
+    # the plans of the graphs main_gat built, built again here
+    graphs = {ds: _gat_graph(ds, torch.device("cuda")) for ds in steps}
+    plans = {ds: _split_fields(gg) for ds, gg in graphs.items()}
+    want_l, want_c = {}, {}
+    for ds in ("reddit", "ogbn-arxiv"):
+        s, gg = steps[ds], graphs[ds]
+        want_l[ds] = {"csr_spmm": 0, "gat_attention_fwd": 3 * s, "gat_attention_bwd": 3 * s,
+                      "seg_sum": 0}
+        want_c[ds] = {"csr_spmm": 0, "gat_attention_fwd": 3 * s * int(gg.split.num_long > 0),
+                      "gat_attention_bwd": B2_COMBINES * 3 * s * int(gg.reverse.split.num_long > 0),
+                      "seg_sum": 0}
+    s, pub = steps["pubmed"], graphs["pubmed"]
+    want_l["pubmed"] = {"csr_spmm": 3 * s, "gat_attention_fwd": 0, "gat_attention_bwd": 0,
+                        "seg_sum": 9 * s + rescues["pubmed"]}
     # K1's launches (the gather adjoint) run over pubmed's reverse CSR, whose
     # long rows each take a combine; K2 runs over the dst CSR, which has none
-    pub = _gat_graph("pubmed", torch.device("cuda"))
-    want = {"reddit": {"csr_spmm": 0, "seg_sum": 0},
-            "pubmed": {"csr_spmm": 3 * s * int(pub.reverse.split.num_long > 0),
-                       "seg_sum": (9 * s + rescues["pubmed"]) * int(pub.split.num_long > 0)}}
-    if combines != want:
-        raise AssertionError(f"combine launches {combines}; want {want}")
+    want_c["pubmed"] = {"csr_spmm": 3 * s * int(pub.reverse.split.num_long > 0),
+                        "gat_attention_fwd": 0, "gat_attention_bwd": 0,
+                        "seg_sum": (9 * s + rescues["pubmed"]) * int(pub.split.num_long > 0)}
+    del graphs, pub
+    if launches != want_l:
+        raise AssertionError(f"launches {launches}; want {want_l}")
+    if combines != want_c:
+        raise AssertionError(f"combine launches {combines}; want {want_c}")
     for ds in res:
         losses = res[ds]["losses"][0]
         tail = statistics.mean(losses[-5:])
@@ -1178,22 +1333,25 @@ def phase_gat_main():
                              f"{res['reddit']['setup_bytes']} B of its graph and data: an (E, 16) "
                              f"buffer ({edge_buffer} B) or more")
     emit("gat_main", device=res["reddit"]["device"], synthetic=res["reddit"]["synthetic"],
-         reddit_epoch_s=res["reddit"]["epoch_s"], pubmed_epoch_s=res["pubmed"]["epoch_s"],
-         reddit_epochs_s=res["reddit"]["epochs_s"], pubmed_epochs_s=res["pubmed"]["epochs_s"],
-         reddit_setup_s=res["reddit"]["setup_s"], pubmed_setup_s=res["pubmed"]["setup_s"],
-         reddit_losses=res["reddit"]["losses"][0], pubmed_losses=res["pubmed"]["losses"][0],
+         **{f"{k}_epoch_s": res[ds]["epoch_s"] for ds, k in _GAT_KEYS.items()},
+         **{f"{k}_epochs_s": res[ds]["epochs_s"] for ds, k in _GAT_KEYS.items()},
+         **{f"{k}_setup_s": res[ds]["setup_s"] for ds, k in _GAT_KEYS.items()},
+         **{f"{k}_losses": res[ds]["losses"][0] for ds, k in _GAT_KEYS.items()},
          steps=steps, launches=launches, combines=combines, pubmed_rescues=rescues["pubmed"],
-         pubmed_split=_split_fields(pub),
-         pubmed_k2_per_step_derived=9, pubmed_k1_per_step_derived=3,
+         splits=plans, pubmed_k2_per_step_derived=9, pubmed_k1_per_step_derived=3,
          reddit_setup_bytes=res["reddit"]["setup_bytes"],
          reddit_train_peak_bytes=res["reddit"]["train_peak_bytes"],
          reddit_train_extra_bytes=train_extra["reddit"],
          reddit_train_extra_floats_per_node=train_extra["reddit"] / (4 * n),
+         arxiv_train_extra_bytes=train_extra["ogbn-arxiv"],
          pubmed_setup_bytes=res["pubmed"]["setup_bytes"],
          pubmed_train_peak_bytes=res["pubmed"]["train_peak_bytes"],
          reddit_edge_buffer_bytes=edge_buffer,
-         reddit_edges=e, pubmed_edges=res["pubmed"]["num_edges"])
+         **{f"{k}_edges": res[ds]["num_edges"] for ds, k in _GAT_KEYS.items()})
     return launches, combines
+
+
+_GAT_KEYS = {"reddit": "reddit", "ogbn-arxiv": "arxiv", "pubmed": "pubmed"}
 
 
 def _kernel_entry(name, source, replaces, launches, r, **extra):
@@ -1217,8 +1375,8 @@ def main():
     red, red_graph = phase_reddit()
     launches, combines = phase_main()
     phase_gat_random()
-    gred, gat_graph = phase_gat_reddit()
-    rows = phase_row_gather(red, red_graph, gred, gat_graph)
+    gred, gred_arxiv, gred_arxiv40, gat_graph = phase_gat_reddit()
+    floors, rows = phase_row_gather(red, red_graph, gred, gat_graph)
     del red_graph, gat_graph
     glaunch, gcombines = phase_gat_main()
     both = lambda key: red["fwd"][key] + red["bwd"][key]  # noqa: E731
@@ -1257,13 +1415,29 @@ def main():
             "library_ms_bwd": red["bwd"]["library_ms"],
         },
         # K3's two passes on reddit with self-loops, H = 1, D = 16, with
-        # dropout; launches from the reddit GAT run of gat_main
-        _kernel_entry("gat_attention_fwd", "dgl_tpu_torch/kernels/csrc/gat_attention.cu",
-                      "dgl_tpu/kernels/lane_attention.py:234", glaunch["reddit"]["gat_attention_fwd"],
-                      gred["gat_attention_fwd"], **{"pass": "fwd"}),
-        _kernel_entry("gat_attention_bwd", "dgl_tpu_torch/kernels/csrc/gat_attention.cu",
-                      "dgl_tpu/kernels/lane_attention.py:234", glaunch["reddit"]["gat_attention_bwd"],
-                      gred["gat_attention_bwd"], **{"pass": "b2"}),
+        # dropout, the row split of the CSR each walks (the dst CSR, the
+        # reverse CSR); launches and combines from the reddit GAT run of
+        # gat_main, arxiv's (H = 4, D = 16; the last layer's D = 40) beside them
+        *(_kernel_entry(name, "dgl_tpu_torch/kernels/csrc/gat_attention.cu",
+                        "dgl_tpu/kernels/lane_attention.py:234", glaunch["reddit"][name], gred[name],
+                        **{"pass": p}, split_T=gred[name]["split_T"],
+                        long_rows=gred[name]["long_rows"], chunks=gred[name]["chunks"],
+                        combines=gcombines["reddit"][name],
+                        launches_arxiv=glaunch["ogbn-arxiv"][name],
+                        combines_arxiv=gcombines["ogbn-arxiv"][name],
+                        long_rows_arxiv=gred_arxiv[name]["long_rows"],
+                        chunks_arxiv=gred_arxiv[name]["chunks"], ms_arxiv=gred_arxiv[name]["ms"],
+                        plain_ms_arxiv=gred_arxiv[name]["plain_ms"],
+                        bound_ms_arxiv=gred_arxiv[name]["bound_ms"],
+                        max_abs_err_arxiv=gred_arxiv[name]["max_abs_err"],
+                        ms_arxiv_d40=gred_arxiv40[name]["ms"],
+                        plain_ms_arxiv_d40=gred_arxiv40[name]["plain_ms"],
+                        bound_ms_arxiv_d40=gred_arxiv40[name]["bound_ms"],
+                        max_abs_err_arxiv_d40=gred_arxiv40[name]["max_abs_err"], **extra)
+          for name, p, extra in (
+              ("gat_attention_fwd", "fwd", {}),
+              ("gat_attention_bwd", "b2", {"gather_floor_ms": floors["k3_b2"]["gather_floor_ms"],
+                                           "t_sweep": gred["gat_attention_bwd"]["t_sweep"]}))),
         # K2 at (E, 16) on reddit with self-loops over the dst CSR, the only
         # CSR the edge form runs it over (forward sums and spread_dst's
         # adjoint); launches from the pubmed GAT run of gat_main. The

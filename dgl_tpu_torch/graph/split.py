@@ -19,6 +19,7 @@ rows and their chunks.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,12 +63,14 @@ class RowSplit:
                                    chunk_ptr=self.chunk_ptr.to(device),
                                    chunks=self.chunks.to(device))
 
-    def kernel_args(self, partials: torch.Tensor) -> tuple:
+    def kernel_args(self, partials: Optional[torch.Tensor]) -> tuple:
         """The plan's arguments of the kernels' C entry points (``long_t,
         rows, chunk_ptr, n_long, chunks, n_chunks, partials``), with the (C, D)
-        float32 ``partials`` buffer the chunks are summed into."""
+        float32 ``partials`` buffer the chunks are summed into; ``None`` (a
+        null pointer, which no kernel reads) for a plan with no chunks."""
         return (self.t, self.rows.data_ptr(), self.chunk_ptr.data_ptr(), self.num_long,
-                self.chunks.data_ptr(), self.num_chunks, partials.data_ptr())
+                self.chunks.data_ptr(), self.num_chunks,
+                None if partials is None else partials.data_ptr())
 
     def check(self, indptr: torch.Tensor, num_edges: int, what: str) -> None:
         """Raise ``ValueError`` unless the plan has this CSR's row and edge

@@ -119,6 +119,23 @@ __device__ __forceinline__ bool warp_item(int64_t n_chunk_blocks, int64_t& item)
   return is_chunk;
 }
 
+// The long row i that owns chunk k (chunk_ptr[i] <= k < chunk_ptr[i + 1]), by
+// binary search of chunk_ptr: for a kernel whose chunk needs its row's own
+// operands (K3's a_dst or a_src). The same for every lane of the warp.
+__device__ __forceinline__ int64_t chunk_owner(const int64_t* __restrict__ chunk_ptr,
+                                               int64_t n_long, int64_t k) {
+  int64_t lo = 0, hi = n_long;
+  while (hi - lo > 1) {
+    const int64_t mid = (lo + hi) / 2;
+    if (chunk_ptr[mid] <= k) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
 constexpr int kCombineUnroll = 8;  // chunks in flight per lane group
 
 // One warp per long row: out[rows[i]] = scale · Σ_k partials[k] over the row's

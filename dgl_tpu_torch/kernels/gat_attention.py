@@ -2,10 +2,11 @@
 
 ``gat_attention(g, v, a_src, a_dst)`` computes, for every head,
 ``out[d] = Σ_{s→d} drop(softmax_d(leaky_relu(a_src[s] + a_dst[d]))) · v[s]``
-as a ``torch.autograd.Function``: its forward is one launch of
-``gat_attention_fwd`` over the dst CSR, its backward one launch of
-``gat_attention_bwd`` (the "b2" pass) over the reverse CSR plus the N-wide
-closed forms of ``_lane_gat_bwd``::
+as a ``torch.autograd.Function``: its forward is one call of
+``gat_attention_fwd`` over the dst CSR with the graph's row split
+(``g.split``), its backward one call of ``gat_attention_bwd`` (the "b2"
+pass) over the reverse CSR with its split (``g.reverse.split``) plus the
+N-wide closed forms of ``_lane_gat_bwd``::
 
     C          = Σ_D g · out
     grad_a_dst = Σ_D g · w1 − C · w1s
@@ -13,10 +14,21 @@ closed forms of ``_lane_gat_bwd``::
 
 Each pass wrapper launches its hand-written CUDA kernel
 (``csrc/gat_attention.cu``) for CUDA tensors and uses its plain version
-(``*_plain``: gathers, ``exp`` and ``index_add_``) only for CPU tensors;
-``gat_attention_fwd.launches`` and ``gat_attention_bwd.launches`` count the
-kernels' launches. ``gat_attention_plain`` is the whole function written
-with gathers and differentiated by autograd, the yardstick of the tests.
+(``*_plain``: gathers, ``exp`` and ``index_add_``, the unsplit definition)
+only for CPU tensors; ``gat_attention_fwd.launches`` and
+``gat_attention_bwd.launches`` count the calls that launch a pass,
+``.combines`` the combine launches among them.
+
+Long rows are split as in K1 (``kernels/csr_spmm.py``): every row of more
+than ``T`` edges is cut into chunks of at most ``T`` edges, each run by one
+warp of the pass's launch. b2's chunk sums are linear, and three combine
+launches (``grad_v``, ``w2``, ``w3``) add each long row's chunks in
+ascending order. A forward chunk keeps its own shift ``sh_k`` (its chunk's
+maximum); one combine launch takes the row's shift ``sh = max_k sh_k``,
+scales each chunk by ``exp(sh_k − sh)`` and adds them in ascending order.
+No atomics decide an order, so two runs are bitwise equal.
+``gat_attention_plain`` is the whole function written with gathers and
+differentiated by autograd, the yardstick of the tests.
 
 Attention dropout is the JAX package's stateless hash of the
 forward-canonical edge id (``keep_mask``), so masks agree bit for bit with
@@ -37,6 +49,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..graph.split import RowSplit, row_split
 from ..ops.segment import segment_max
 from .build import load
 from .seg_sum import csr_rows
@@ -52,6 +65,7 @@ __all__ = [
 ]
 
 _U32 = 0xFFFFFFFF
+B2_COMBINES = 3  # combine launches of a b2 call with long rows: grad_v, w2, w3
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -183,14 +197,30 @@ def _check(name, indptr, index_arrays, floats, seed, keep) -> None:
 
 
 def _fn(name: str, n_ptrs_before_dims: int):
+    """The C entry point: indptr and its type, the pass's pointers, its sizes
+    and dropout, the row split (``RowSplit.kernel_args``), two more partials
+    buffers and the stream."""
     fn = getattr(load("gat_attention"), name)
     if fn.argtypes is None:
-        p = ctypes.c_void_p
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
         fn.argtypes = ([p, ctypes.c_int] + [p] * n_ptrs_before_dims
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, p,
-                          ctypes.c_uint, ctypes.c_float, p])
+                       + [ll, ctypes.c_int, ctypes.c_int, ctypes.c_float, p, ctypes.c_uint,
+                          ctypes.c_float]
+                       + [ll, p, p, ll, p, ll, p] + [p, p, p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _partials(chunks: int, dev, *shapes):
+    """The chunks' float32 partials buffers, or ``None`` each (null
+    pointers, which the kernels never read) for a plan with no chunks."""
+    if not chunks:
+        return (None,) * len(shapes)
+    return tuple(torch.empty(s, dtype=torch.float32, device=dev) for s in shapes)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _drop_args(keep: float, seed):
@@ -202,17 +232,28 @@ def _drop_args(keep: float, seed):
 
 def gat_attention_fwd(
     indptr, src, v, a_src, a_dst, *, negative_slope: float, keep: float = 1.0,
-    seed: Optional[torch.Tensor] = None,
+    seed: Optional[torch.Tensor] = None, split: Optional[RowSplit] = None,
 ):
     """The forward pass over the dst CSR (``indptr`` (N_dst+1,), ``src`` (E,)
     int32, ``v`` (N_src, H, D), ``a_src`` (N_src, H), ``a_dst`` (N_dst, H)).
     Returns ``out`` and ``w1`` (N_dst, H, D), ``inv_s``, ``w1s`` and
-    ``shift`` (N_dst, H); every one is 0 on an empty row."""
+    ``shift`` (N_dst, H); every one is 0 on an empty row.
+
+    ``split``: the CSR's row split (``g.split`` for a graph's dst CSR), on
+    the device of ``indptr``, checked as ``csr_spmm`` checks it: one whose
+    row or edge count differs raises ``ValueError`` before any launch; one
+    of another CSR with the same counts is not caught, and leaves the rows
+    of more than ``split.t`` edges that it does not list undefined. Without
+    one, a launch on the card builds it from ``indptr`` (a host sync). The
+    package's ops always pass the graph's plan.
+    """
     _check("gat_attention_fwd", indptr, [src], [v, a_src, a_dst], seed, keep)
     n, (n_src, heads, d) = indptr.numel() - 1, v.shape
     if a_src.shape != (n_src, heads) or a_dst.shape != (n, heads):
         raise ValueError(f"gat_attention_fwd: a_src {tuple(a_src.shape)} / a_dst "
                          f"{tuple(a_dst.shape)} do not match v {tuple(v.shape)} and {n} rows")
+    if split is not None:
+        split.check(indptr, src.numel(), "gat_attention_fwd")
     if v.device.type == "cpu":
         return gat_attention_fwd_plain(indptr, src, v, a_src, a_dst, negative_slope=negative_slope,
                                        keep=keep, seed=seed)
@@ -221,32 +262,43 @@ def gat_attention_fwd(
                          for _ in range(3))
     if n == 0 or d == 0 or heads == 0:
         return out, w1, inv_s, w1s, shift
+    if split is None:
+        split = row_split(indptr)
+    c = split.num_chunks
+    # the chunks' unnormalised sums and (shift, s, w1su)
+    pnum, pw1u, pscal = _partials(c, v.device, (c, heads, d), (c, heads, d), (3, c, heads))
     seed_ptr, thresh, scale = _drop_args(keep, seed)
     with torch.cuda.device(v.device):
         err = _fn("gat_fwd_f32", 9)(
             indptr.data_ptr(), int(indptr.dtype == torch.int64), src.data_ptr(), v.data_ptr(),
             a_src.data_ptr(), a_dst.data_ptr(), out.data_ptr(), w1.data_ptr(), inv_s.data_ptr(),
             w1s.data_ptr(), shift.data_ptr(), n, heads, d, negative_slope, seed_ptr, thresh,
-            scale, torch.cuda.current_stream(v.device).cuda_stream,
+            scale, *split.kernel_args(pnum), _ptr(pw1u), _ptr(pscal),
+            torch.cuda.current_stream(v.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"gat_attention_fwd kernel launch failed with CUDA error {err}")
     gat_attention_fwd.launches += 1
+    gat_attention_fwd.combines += int(split.num_long > 0)
     return out, w1, inv_s, w1s, shift
 
 
 gat_attention_fwd.launches = 0
+gat_attention_fwd.combines = 0
 
 
 def gat_attention_bwd(
     indptr, dst, eid, g, node, a_src, *, negative_slope: float, keep: float = 1.0,
-    seed: Optional[torch.Tensor] = None,
+    seed: Optional[torch.Tensor] = None, split: Optional[RowSplit] = None,
 ):
     """The b2 pass over the reverse CSR (``indptr`` (N_src+1,), ``dst`` and
     ``eid`` (E,) int32: each slot's original dst and forward-canonical id),
     with ``g`` (N_dst, H, D) the output cotangent, ``node`` (N_dst, H, 4)
     the packed a_dst, shift, inv_s and C, and ``a_src`` (N_src, H). Returns
-    ``grad_v``, ``w2`` (N_src, H, D) and ``w3`` (N_src, H)."""
+    ``grad_v``, ``w2`` (N_src, H, D) and ``w3`` (N_src, H).
+
+    ``split``: the reverse CSR's row split (``g.reverse.split``), as for
+    ``gat_attention_fwd``."""
     _check("gat_attention_bwd", indptr, [dst, eid], [g, node, a_src], seed, keep)
     n, (n_dst, heads, d) = indptr.numel() - 1, g.shape
     if node.shape != (n_dst, heads, 4) or a_src.shape != (n, heads):
@@ -254,6 +306,8 @@ def gat_attention_bwd(
                          f"{tuple(a_src.shape)} do not match g {tuple(g.shape)} and {n} rows")
     if eid.shape != dst.shape:
         raise ValueError("gat_attention_bwd: dst and eid differ in length")
+    if split is not None:
+        split.check(indptr, dst.numel(), "gat_attention_bwd")
     if g.device.type == "cpu":
         return gat_attention_bwd_plain(indptr, dst, eid, g, node, a_src,
                                        negative_slope=negative_slope, keep=keep, seed=seed)
@@ -263,28 +317,36 @@ def gat_attention_bwd(
     w3 = torch.empty((n, heads), dtype=torch.float32, device=g.device)
     if n == 0 or d == 0 or heads == 0:
         return grad_v, w2, w3
+    if split is None:
+        split = row_split(indptr)
+    c = split.num_chunks
+    pgv, pw2, pw3 = _partials(c, g.device, (c, heads, d), (c, heads, d), (c, heads))
     seed_ptr, thresh, scale = _drop_args(keep, seed)
     with torch.cuda.device(g.device):
         err = _fn("gat_b2_f32", 8)(
             indptr.data_ptr(), int(indptr.dtype == torch.int64), dst.data_ptr(), eid.data_ptr(),
             g.data_ptr(), node.data_ptr(), a_src.data_ptr(), grad_v.data_ptr(), w2.data_ptr(),
             w3.data_ptr(), n, heads, d, negative_slope, seed_ptr, thresh, scale,
+            *split.kernel_args(pgv), _ptr(pw2), _ptr(pw3),
             torch.cuda.current_stream(g.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"gat_attention_bwd kernel launch failed with CUDA error {err}")
     gat_attention_bwd.launches += 1
+    gat_attention_bwd.combines += B2_COMBINES * int(split.num_long > 0)
     return grad_v, w2, w3
 
 
 gat_attention_bwd.launches = 0
+gat_attention_bwd.combines = 0
 
 
 class _GATAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, a_src, a_dst, g, negative_slope, keep, seed):
         out, w1, inv_s, w1s, shift = gat_attention_fwd(
-            g.indptr, g.src, v, a_src, a_dst, negative_slope=negative_slope, keep=keep, seed=seed
+            g.indptr, g.src, v, a_src, a_dst, negative_slope=negative_slope, keep=keep, seed=seed,
+            split=g.split,
         )
         ctx.save_for_backward(v, a_src, a_dst, out, w1, inv_s, w1s, shift)
         ctx.g, ctx.negative_slope, ctx.keep, ctx.seed = g, negative_slope, keep, seed
@@ -300,7 +362,7 @@ class _GATAttention(torch.autograd.Function):
         rev = ctx.g.reverse
         grad_v, w2, w3 = gat_attention_bwd(
             rev.indptr, rev.src, rev.eid, g_out, node, a_src,
-            negative_slope=ctx.negative_slope, keep=ctx.keep, seed=ctx.seed,
+            negative_slope=ctx.negative_slope, keep=ctx.keep, seed=ctx.seed, split=rev.split,
         )
         grad_a_src = (v * w2).sum(-1) - w3
         return grad_v, grad_a_src, grad_a_dst, None, None, None, None

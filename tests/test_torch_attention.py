@@ -13,6 +13,10 @@ a_dst:
 * without dropout, one head, against the JAX package's edge form of the
   same function (``edge_softmax`` and ``gspmm(copy_e, sum)``).
 
+The merges that the kernels' row split performs (a forward chunk's own
+shift, b2's linear sums) are pinned in float64 against the unsplit plain
+passes.
+
 Tolerances as ``tests/test_attention_kernel.py`` states them: 2e-5 on
 values, 5e-4 on gradients (sums of up to ~100 terms of size ~10 in another
 order, under another softmax shift).
@@ -32,10 +36,13 @@ from dgl_tpu.ops import edge_softmax as jax_edge_softmax
 from dgl_tpu.ops import gspmm as jax_gspmm
 
 import dgl_tpu_torch
+from dgl_tpu_torch.graph.split import row_split
 from dgl_tpu_torch.kernels.gat_attention import (
     gat_attention,
     gat_attention_bwd,
+    gat_attention_bwd_plain,
     gat_attention_fwd,
+    gat_attention_fwd_plain,
     gat_attention_plain,
     keep_mask,
 )
@@ -129,3 +136,67 @@ def test_gat_passes_on_cpu_take_plain_versions_and_check_inputs():
         gat_attention(gt, v.double(), a, a)
     with pytest.raises(ValueError, match="do not match"):
         gat_attention(gt, v[:5], a, a)
+
+
+def _chunks(plan):
+    """Each long row with its chunks' [begin, end) pairs, in ascending order."""
+    ptr, chunks = plan.chunk_ptr.tolist(), plan.chunks.tolist()
+    return [(r, chunks[ptr[i]:ptr[i + 1]]) for i, r in enumerate(plan.rows.tolist())]
+
+
+@pytest.mark.parametrize("keep", [1.0, 0.82])
+@pytest.mark.parametrize("heads,d", [(2, 3), (4, 40)])  # (4, 40): arxiv's last layer
+def test_split_merges_match_the_unsplit_passes(heads, d, keep):
+    """The algebra of K3's combines, in float64. Both CSRs are cut at t = 4;
+    each chunk of a long row runs through the plain pass alone, with its
+    global edge ids for the dropout hash (the forward's chunk is the second
+    row of a CSR whose first row holds the edges before it), and the chunks
+    are merged as the kernels merge them: the forward takes sh = max_k sh_k
+    and adds f_k·(num_k, w1u_k, s_k, w1su_k), f_k = exp(sh_k − sh), in
+    ascending chunk order; b2 adds its chunks' sums in ascending order. All
+    eight outputs of every long row match the unsplit plain passes."""
+    rng = np.random.default_rng(11)
+    n, t = 12, 4
+    src = np.concatenate([rng.integers(0, n, 50), np.full(11, 5), rng.integers(0, n, 13)])
+    dst = np.concatenate([rng.integers(0, n, 50), rng.integers(0, n, 11), np.full(13, 3)])
+    g = dgl_tpu_torch.from_edges(src, dst, n, device="cpu")
+    rev = g.reverse
+    v, gout = (torch.from_numpy(rng.standard_normal((n, heads, d))) for _ in range(2))
+    a_s, a_d, c = (torch.from_numpy(2 * rng.standard_normal((n, heads))) for _ in range(3))
+    kw = dict(negative_slope=0.2, keep=keep, seed=torch.tensor([SEED], dtype=torch.int32))
+    tol = dict(rtol=1e-12, atol=1e-12)
+
+    fwd = gat_attention_fwd_plain(g.indptr, g.src, v, a_s, a_d, **kw)
+    long_fwd = _chunks(row_split(g.indptr, t))
+    assert len(long_fwd) >= 2 and max(len(ch) for _, ch in long_fwd) >= 3
+    for r, chunks in long_fwd:
+        parts = []
+        for b, e in chunks:
+            ip = torch.tensor([0, b, e], dtype=torch.int64)
+            o, w1, inv_s, w1s, sh = (x[1] for x in gat_attention_fwd_plain(
+                ip, g.src[:e], v, a_s, a_d[[r, r]], **kw))
+            s_k = 1.0 / inv_s  # the chunk's unnormalised sums
+            parts.append((sh, o * s_k[:, None], w1 * s_k[:, None], s_k, w1s * s_k))
+        sh = torch.stack([p[0] for p in parts]).amax(0)
+        num, w1u, s_, w1su = (torch.zeros_like(x) for x in parts[0][1:])
+        for sh_k, num_k, w1u_k, s_k, w1su_k in parts:
+            f = torch.exp(sh_k - sh)
+            num, w1u = num + f[:, None] * num_k, w1u + f[:, None] * w1u_k
+            s_, w1su = s_ + f * s_k, w1su + f * w1su_k
+        merged = (num / s_[:, None], w1u / s_[:, None], 1.0 / s_, w1su / s_, sh)
+        for name, got, want in zip(("out", "w1", "inv_s", "w1s", "shift"), merged, fwd):
+            torch.testing.assert_close(got, want[r], **tol, msg=f"forward {name}, row {r}")
+
+    node = torch.stack([a_d, fwd[4], fwd[2], c], -1)
+    bwd = gat_attention_bwd_plain(rev.indptr, rev.src, rev.eid, gout, node, a_s, **kw)
+    long_rev = _chunks(row_split(rev.indptr, t))
+    assert len(long_rev) >= 2 and max(len(ch) for _, ch in long_rev) >= 3
+    for r, chunks in long_rev:
+        merged = None
+        for b, e in chunks:
+            ip = torch.tensor([0, e - b], dtype=torch.int64)
+            part = [x[0] for x in gat_attention_bwd_plain(
+                ip, rev.src[b:e], rev.eid[b:e], gout, node, a_s[r:r + 1], **kw)]
+            merged = part if merged is None else [m + p for m, p in zip(merged, part)]
+        for name, got, want in zip(("grad_v", "w2", "w3"), merged, bwd):
+            torch.testing.assert_close(got, want[r], **tol, msg=f"b2 {name}, row {r}")

@@ -1,8 +1,9 @@
 """K1 (csr_spmm): the plain version against a numpy oracle, the wrapper's
 checks, and, on a CUDA card, K1, K2 (seg_sum), both K3 passes
 (gat_attention_fwd / _bwd) and P1 and P2 (row_gather_async / _smem) against
-their plain versions; K1 and K2 also on a CSR whose rows straddle the row
-split (graph/split.py), against the plain version and exact integer sums.
+their plain versions; K1, K2 and both K3 passes also on a CSR whose rows
+straddle the row split (graph/split.py), against the plain version and
+exact sums.
 
 This file imports no JAX, so the card's tests can run where JAX is absent:
     python -m pytest --noconftest tests/test_torch_kernel.py -m cuda
@@ -226,6 +227,87 @@ def test_gat_attention_passes_match_plain_on_card(heads, d, keep):
     for got, want in zip(bwd, gat_attention_bwd_plain(*args, **kw)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert all(torch.equal(a, b) for a, b in zip(bwd, gat_attention_bwd(*args, **kw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [1.0, 0.82])
+@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("d", [16, 40])  # lane groups of 4 and 16; 40: arxiv's last layer
+def test_split_k3_matches_plain_and_exact_sums_on_card(d, heads, keep):
+    """Both K3 passes over one CSR whose rows straddle T (a 10^5-edge row
+    among them), read as the dst CSR by the forward and as the reverse CSR
+    by b2: against the float64 plain version, on exact-sum inputs (every
+    logit equal; keep 1 and 0.5 scale exactly), and two runs bitwise
+    equal; one launch and its combines each."""
+    from dgl_tpu_torch.kernels.gat_attention import B2_COMBINES
+
+    dev = _card()
+    rng = np.random.default_rng(8 + heads)
+    n_src = 2000
+    indptr, indices, plan = _split_csr(rng, n_src)
+    plan = plan.to(dev)
+    n, e = len(indptr) - 1, len(indices)
+    idx = torch.from_numpy(indices).to(dev)
+    eid = torch.from_numpy(rng.permutation(e).astype(np.int32)).to(dev)
+    short = torch.from_numpy(np.diff(indptr) <= 1000).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(heads)
+    seed = torch.tensor([91], dtype=torch.int32, device=dev)
+    v = 1.0 + torch.randn(n_src, heads, d, device=dev, generator=gen)
+    a_s = torch.randn(n_src, heads, device=dev, generator=gen)
+    a_d = torch.randn(n, heads, device=dev, generator=gen)
+    # b2 over the same CSR read as a reverse CSR: its n rows are sources,
+    # its indices the n_src destinations whose node rows it reads
+    g_out = 1.0 + torch.randn(n_src, heads, d, device=dev, generator=gen)
+    node = torch.stack([torch.randn(n_src, heads, device=dev, generator=gen),
+                        torch.full((n_src, heads), 3.0, device=dev),
+                        torch.rand(n_src, heads, device=dev, generator=gen),
+                        torch.randn(n_src, heads, device=dev, generator=gen)], -1)
+    a_s_rev = torch.randn(n, heads, device=dev, generator=gen)
+
+    def hold(got, want, what):
+        for i, (x, w) in enumerate(zip(got, want)):
+            w = w.float()
+            torch.testing.assert_close(x[short], w[short], rtol=1e-4, atol=1e-4,
+                                       msg=f"{what} output {i}, rows of at most 1000 edges")
+            torch.testing.assert_close(x, w, rtol=1e-3, atol=1e-2, msg=f"{what} output {i}")
+
+    for ip in (torch.from_numpy(indptr).to(dev), torch.from_numpy(indptr).int().to(dev)):
+        kw = dict(negative_slope=0.2, keep=keep, seed=seed)
+        counts = (gat_attention_fwd.launches, gat_attention_fwd.combines)
+        fwd = gat_attention_fwd(ip, idx, v, a_s, a_d, split=plan, **kw)
+        assert (gat_attention_fwd.launches, gat_attention_fwd.combines) == (
+            counts[0] + 1, counts[1] + 1)
+        hold(fwd, gat_attention_fwd_plain(ip, idx, v.double(), a_s.double(), a_d.double(), **kw),
+             "forward")
+        assert all(torch.equal(a, b) for a, b in
+                   zip(fwd, gat_attention_fwd(ip, idx, v, a_s, a_d, split=plan, **kw)))
+        counts = (gat_attention_bwd.launches, gat_attention_bwd.combines)
+        bwd = gat_attention_bwd(ip, idx, eid, g_out, node, a_s_rev, split=plan, **kw)
+        assert (gat_attention_bwd.launches, gat_attention_bwd.combines) == (
+            counts[0] + 1, counts[1] + B2_COMBINES)
+        hold(bwd, gat_attention_bwd_plain(ip, idx, eid, g_out.double(), node.double(),
+                                          a_s_rev.double(), **kw), "b2")
+        assert all(torch.equal(a, b) for a, b in
+                   zip(bwd, gat_attention_bwd(ip, idx, eid, g_out, node, a_s_rev, split=plan, **kw)))
+        # exact sums: every logit 1 (p = 1, α = 1), small integers, keep 1 or 0.5
+        ints = lambda *shape: torch.randint(-4, 5, shape, device=dev, generator=gen).float()  # noqa: E731
+        ones = torch.ones(n_src, heads, device=dev)
+        vi, gi = ints(n_src, heads, d), ints(n_src, heads, d)
+        node_i = torch.stack([torch.zeros_like(ones), ones, ones, ints(n_src, heads)], -1)
+        for k in (1.0, 0.5):
+            kwi = dict(negative_slope=0.2, keep=k, seed=seed)
+            got = gat_attention_fwd(ip, idx, vi, ones, torch.zeros(n, heads, device=dev),
+                                    split=plan, **kwi)
+            want = gat_attention_fwd_plain(ip, idx, vi.double(), ones.double(),
+                                           torch.zeros(n, heads, device=dev, dtype=torch.float64),
+                                           **kwi)
+            got += gat_attention_bwd(ip, idx, eid, gi, node_i, torch.ones(n, heads, device=dev),
+                                     split=plan, **kwi)
+            want += gat_attention_bwd_plain(ip, idx, eid, gi.double(), node_i.double(),
+                                            torch.ones(n, heads, device=dev, dtype=torch.float64),
+                                            **kwi)
+            for i, (x, w) in enumerate(zip(got, want)):
+                assert torch.equal(x, w.float()), f"exact output {i}, keep {k}"
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """The row split (``dgl_tpu_torch/graph/split.py``): the plan of a CSR's
-long rows that K1 and K2 take, built on the host with the graph.
+long rows that K1, K2 and both K3 passes take, built on the host with the
+graph.
 
 The plan must cover every edge of every long row exactly once, in
 ascending order, in chunks of at most T edges, and list no row of at most
@@ -16,6 +17,7 @@ import torch
 import dgl_tpu_torch
 from dgl_tpu_torch.graph.split import SPLIT_T, RowSplit, row_split
 from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
 from dgl_tpu_torch.kernels.seg_sum import seg_sum
 
 
@@ -83,13 +85,16 @@ def test_plan_of_a_tensor_matches_the_plan_of_its_numpy_array():
 
 def test_kernel_args_follow_the_c_entry_points_order():
     """``long_t, rows, chunk_ptr, n_long, chunks, n_chunks, partials``, as
-    ``csr_spmm_f32`` and ``seg_sum_f32`` take them."""
+    ``csr_spmm_f32``, ``seg_sum_f32`` and K3's entry points take them; a
+    plan with no chunks may pass a null partials pointer."""
     plan = row_split(_indptr([2, 9, 0, 17]), 4)
     partials = torch.empty(plan.num_chunks, 3)
     assert plan.kernel_args(partials) == (
         4, plan.rows.data_ptr(), plan.chunk_ptr.data_ptr(), 2,
         plan.chunks.data_ptr(), plan.num_chunks, partials.data_ptr())
     assert plan.num_chunks == 3 + 5
+    short = row_split(_indptr([2, 3]), 4)
+    assert short.kernel_args(None)[5:] == (0, None)
 
 
 def test_from_edges_builds_a_plan_for_both_csrs_and_to_carries_them():
@@ -120,7 +125,8 @@ def test_empty_graph_has_empty_plans():
         assert gg.split.num_rows == 3
 
 
-@pytest.mark.parametrize("wrapper", ["csr_spmm", "seg_sum"])
+@pytest.mark.parametrize("wrapper", ["csr_spmm", "seg_sum", "gat_attention_fwd",
+                                     "gat_attention_bwd"])
 @pytest.mark.parametrize("mismatch", ["rows", "edges"])
 def test_wrappers_refuse_a_plan_that_does_not_match_indptr(wrapper, mismatch):
     indptr = _indptr([3, 0, 2 * SPLIT_T + 1, 5])
@@ -131,15 +137,24 @@ def test_wrappers_refuse_a_plan_that_does_not_match_indptr(wrapper, mismatch):
     else:
         bad = row_split(np.concatenate([indptr[:-1], indptr[-1:] - 1]))
     good = row_split(indptr)
+    idx = torch.zeros(e, dtype=torch.int32)
+    kw = dict(negative_slope=0.2)
     if wrapper == "csr_spmm":
-        idx = torch.zeros(e, dtype=torch.int32)
         x = torch.ones(4, 3)
         call = lambda plan: csr_spmm(ip, idx, x, split=plan)  # noqa: E731
         fn = csr_spmm
-    else:
+    elif wrapper == "seg_sum":
         msg = torch.ones(e, 3)
         call = lambda plan: seg_sum(ip, msg, split=plan)  # noqa: E731
         fn = seg_sum
+    elif wrapper == "gat_attention_fwd":
+        v, a = torch.ones(4, 2, 3), torch.zeros(4, 2)
+        call = lambda plan: gat_attention_fwd(ip, idx, v, a, a, split=plan, **kw)  # noqa: E731
+        fn = gat_attention_fwd
+    else:
+        g, node, a = torch.ones(4, 2, 3), torch.ones(4, 2, 4), torch.zeros(4, 2)
+        call = lambda plan: gat_attention_bwd(ip, idx, idx, g, node, a, split=plan, **kw)  # noqa: E731
+        fn = gat_attention_bwd
     before = fn.launches
     with pytest.raises(ValueError, match="row split"):
         call(bad)
@@ -149,9 +164,12 @@ def test_wrappers_refuse_a_plan_that_does_not_match_indptr(wrapper, mismatch):
 
 def test_every_op_hands_the_kernels_the_graphs_own_plan(monkeypatch):
     """gspmm (copy_u both ways, copy_e), gather_src_rows, spread_dst,
-    seg_sum_dst and edge_softmax call K1 and K2 with the plan of the CSR
-    they run over, so no path of the package reaches the wrappers' branch
-    that builds a plan from indptr."""
+    seg_sum_dst and edge_softmax call K1 and K2, and a fused GATConv's
+    forward and backward call K3's two passes, with the plan of the CSR they
+    run over, so no path of the package reaches the wrappers' branch that
+    builds a plan from indptr."""
+    from dgl_tpu_torch.kernels import gat_attention as gat_mod
+    from dgl_tpu_torch.nn import GATConv
     from dgl_tpu_torch.ops import edge_softmax, gather_src_rows, spread_dst
     from dgl_tpu_torch.ops import gather as gather_mod
     from dgl_tpu_torch.ops import spmm as spmm_mod
@@ -175,16 +193,23 @@ def test_every_op_hands_the_kernels_the_graphs_own_plan(monkeypatch):
     monkeypatch.setattr(spmm_mod, "csr_spmm", spy(csr_spmm))
     monkeypatch.setattr(gather_mod, "csr_spmm", spy(csr_spmm))
     monkeypatch.setattr(gather_mod, "seg_sum", spy(seg_sum))
+    monkeypatch.setattr(gat_mod, "gat_attention_fwd", spy(gat_attention_fwd))
+    monkeypatch.setattr(gat_mod, "gat_attention_bwd", spy(gat_attention_bwd))
 
     x = torch.randn(n, 4, requires_grad=True)
     e = torch.randn(g.num_edges, 2, 3, requires_grad=True)
     logits = torch.randn(g.num_edges, 2, requires_grad=True)
     v = torch.randn(n, 2, requires_grad=True)
+    conv = GATConv(4, 3, 2, attn_drop=0.3, fused=True, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
     total = (dgl_tpu_torch.gspmm(g, "copy_u", "mean", x=x).sum()
              + dgl_tpu_torch.gspmm(g, "copy_e", "sum", e=e).sum()
              + gather_src_rows(g, x).sum() + spread_dst(g, v).sum()
-             + (edge_softmax(g, logits) * torch.randn(g.num_edges, 2)).sum())
+             + (edge_softmax(g, logits) * torch.randn(g.num_edges, 2)).sum()
+             + conv(g, x, generator=torch.Generator().manual_seed(1)).sum())
     total.backward()
     assert ("csr_spmm", "dst") in seen and ("csr_spmm", "reverse") in seen
     assert ("seg_sum", "dst") in seen
     assert {s for s in seen if s[0] == "seg_sum"} == {("seg_sum", "dst")}
+    assert {s for s in seen if s[0].startswith("gat")} == {
+        ("gat_attention_fwd", "dst"), ("gat_attention_bwd", "reverse")}
