@@ -86,9 +86,29 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      exactly 9 per step plus one per edge-softmax rescue, K1 3 per step,
      K1's combine once per K1 launch (pubmed's reverse CSR has long rows)
      and K2's none. Losses finite and falling;
-  10. kernels: one line listing every ported kernel with its numbers, K1's,
+  10. sage_main: main_sage at full width on ogbn-arxiv (3 layers, hidden
+     256, BN, bidirected; 10 epochs) and the full ogbn-products graph (3
+     layers, hidden 64, bidirected; 5 epochs), each hoisted and with
+     --no-precompute, arxiv also with lowering="scatter", every counter set
+     to 0 before a run and read after it: K1's launches and combines as
+     derived from the code (sage_k1_launches), none under scatter; losses
+     finite and falling; the first step's loss equal across the modes.
+     Then K1 at every width those runs give it (arxiv D = 40, 128, 256;
+     products D = 47, 64, 100), forward on the dst CSR and backward on the
+     reverse CSR, held to float64 sums and timed beside torch.sparse.mm and
+     its bound; load_s, setup_s, precompute_s, memory and each CSR's split;
+  11. gc_main: main_gcn at full width on ENZYMES (600 graphs, 5 epochs),
+     ogbg-molhiv (41,127 graphs, 3 epochs, fused and scatter) and ogbg-ppa
+     (cut to 2,000 graphs, 3 epochs), batch 64, every counter set to 0
+     before a run and read after it: K1's and K2's launches per step as
+     derived from the code (gc_per_step), no combine; losses finite and
+     falling; one molhiv epoch profiled (the device's idle share); K2's mean
+     and sum readouts on a molhiv batch at D = 256 against the plain version
+     and float64 sums; one molhiv step under set_sync_debug_mode("error");
+  12. kernels: one line listing every ported kernel with its numbers, K1's,
      K2's and K3's with T, long rows, chunks and combine launches, K3's at
-     arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor.
+     arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
+     K1's at the SAGE widths and K1's and K2's launches on the new paths.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -96,6 +116,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -811,8 +832,9 @@ def _gat_graph(name, dev):
     from dgl_tpu_torch.graph import transforms
 
     data = load_node_dataset(name)
-    src, dst = data.src, data.dst
-    if DATASET_CFG[name]["bidirect"]:
+    src = torch.from_numpy(np.asarray(data.src, np.int64)).to(dev)
+    dst = torch.from_numpy(np.asarray(data.dst, np.int64)).to(dev)
+    if DATASET_CFG[name]["bidirect"]:  # on the card, as main_gat does
         src, dst = transforms.to_bidirected(src, dst, data.num_nodes)
     src, dst = transforms.add_self_loops(src, dst, data.num_nodes)
     return from_edges(src, dst, data.num_nodes, device=dev)
@@ -1354,6 +1376,380 @@ def phase_gat_main():
 _GAT_KEYS = {"reddit": "reddit", "ogbn-arxiv": "arxiv", "pubmed": "pubmed"}
 
 
+# -- SAGE on arxiv and products: the suite's driver, K1 at new widths -------
+
+SAGE_EPOCHS = {"ogbn-arxiv": 10, "ogbn-products": 5}
+SAGE_LOSS_ATOL = 1e-4  # first-step loss: hoisted vs unhoisted, scatter vs fused
+
+
+def sage_k1_launches(in_feats, hidden, classes, layers, hoisted):
+    """K1's launches in one training step of GraphSAGE, from the code
+    (nn/conv.py:SAGEConv, ops/spmm.py): a layer with out < in projects first
+    and aggregates at out, else it aggregates its input at in; each
+    aggregation is one forward launch over the dst CSR and, where what it
+    aggregates needs a gradient, one backward launch over the reverse CSR.
+    Layer 1's input is data, so aggregated first it has no backward; hoisted,
+    layer 1 aggregates nothing (x_agg is one launch before training).
+    Returns [(layer, "fwd" | "bwd", D), ...]."""
+    out = []
+    for i in range(layers):
+        d_in = in_feats if i == 0 else hidden
+        d_out = classes if i == layers - 1 else hidden
+        if i == 0 and hoisted:
+            continue
+        project_first = d_out < d_in
+        width = d_out if project_first else d_in
+        out.append((i, "fwd", width))
+        if project_first or i > 0:
+            out.append((i, "bwd", width))
+    return out
+
+
+def _sage_graph(name, dev):
+    """The graph main_sage builds: bidirected where its table says so, no
+    self-loops; and the dataset."""
+    from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch.benchmarks.node_classification.main_sage import DATASET_CFG
+    from dgl_tpu_torch.data import load_node_dataset
+    from dgl_tpu_torch.graph import transforms
+
+    data = load_node_dataset(name)
+    src = torch.from_numpy(np.asarray(data.src, np.int64)).to(dev)
+    dst = torch.from_numpy(np.asarray(data.dst, np.int64)).to(dev)
+    if DATASET_CFG[name]["bidirect"]:  # on the card, as main_sage does
+        src, dst = transforms.to_bidirected(src, dst, data.num_nodes)
+    return from_edges(src, dst, data.num_nodes, device=dev), data
+
+
+def reference64_sparse(indptr, indices, x, n_src, mean):
+    """Float64 sums of a CSR SpMM and of its absolute terms through a
+    float64 torch.sparse.mm: no (E, D) buffer, so it serves products."""
+    crow, col = indptr.long(), indices.long()
+    a = torch.sparse_csr_tensor(crow, col, torch.ones(col.numel(), dtype=torch.float64,
+                                                      device=x.device),
+                                size=(indptr.numel() - 1, n_src), check_invariants=False)
+    x64 = x.double()
+    want, mag = torch.sparse.mm(a, x64), torch.sparse.mm(a, x64.abs())
+    if mean:
+        inv = 1.0 / (indptr[1:] - indptr[:-1]).clamp(min=1).double().unsqueeze(1)
+        want, mag = want * inv, mag * inv
+    return want, mag
+
+
+def k1_width(name, gg, d, mean, gen, plain, by_eid=False):
+    """K1 over one CSR at width d: held to float64 sums (and to the plain
+    version where ``plain``), CUDA-event medians of the kernel, the plain
+    version and torch.sparse.mm at the same shape, and the bytes bound.
+    ``by_eid``: the CSR's eid is the index into (E, d) rows, as
+    gather_src_rows' adjoint launches K1 over the reverse CSR."""
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
+
+    n_rows, e = gg.num_dst_nodes, gg.num_edges
+    idx, n_src = (gg.eid, e) if by_eid else (gg.src, gg.num_src_nodes)
+    x = 1.0 + torch.randn(n_src, d, device=gg.indptr.device, generator=gen)
+    kern = lambda: csr_spmm(gg.indptr, idx, x, mean=mean, split=gg.split)  # noqa: E731
+    got = kern()
+    if not torch.equal(got, kern()):
+        raise AssertionError(f"{name} D={d}: two K1 runs differ")
+    p = csr_spmm_plain(gg.indptr, idx, x, mean=mean) if plain else None
+    err, err64, used = check(f"{name} D={d}", got, gg.indptr,
+                             reference64_sparse(gg.indptr, idx, x, n_src, mean), p)
+    del got, p
+    a = torch.sparse_csr_tensor(gg.indptr.long(), idx.long(),
+                                torch.ones(e, device=x.device), size=(n_rows, n_src),
+                                check_invariants=False)
+    bound, by = spmm_bound(n_rows, n_src, e, d, 4)
+    return {"d": d, "mean": mean, "ms": median_ms(kern, reps=20, warmup=3),
+            "plain_ms": (median_ms(lambda: csr_spmm_plain(gg.indptr, idx, x, mean=mean),
+                                   reps=5, warmup=1) if plain else None),
+            "library_ms": median_ms(lambda: torch.sparse.mm(a, x), reps=20, warmup=3),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err, "max_abs_err_f64": err64,
+            "max_bound_used": used}
+
+
+def phase_sage_main():
+    """main_sage on ogbn-arxiv (3 layers, hidden 256, BN, bidirected) and
+    full ogbn-products (3 layers, hidden 64, bidirected), each hoisted and
+    unhoisted, arxiv also with lowering="scatter", every counter set to 0
+    before a run and read after it. K1's launches are sage_k1_launches per
+    step (+1 hoisted), scatter's none; each launch over a CSR with long rows
+    combines once. Losses finite and falling; the modes agree on the first
+    step's loss. Then K1 at each width the runs launched it, forward (mean,
+    dst CSR) and backward (sum, reverse CSR), against float64 sums,
+    torch.sparse.mm and its bound (the plain version on arxiv only: on
+    products its (E, D) buffer is 32–50 GB)."""
+    from dgl_tpu_torch.benchmarks.node_classification import main_sage
+    from dgl_tpu_torch.data import NODE_DATASET_STATS
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    res, launches, combines, want_l, want_c, plans, widths = {}, {}, {}, {}, {}, {}, {}
+    for ds, epochs in SAGE_EPOCHS.items():
+        cfg = main_sage.DATASET_CFG[ds]
+        _, _, feat, classes = NODE_DATASET_STATS[ds]
+        modes = {"hoisted": (True, "fused"), "unhoisted": (False, "fused")}
+        if ds == "ogbn-arxiv":
+            modes["scatter"] = (False, "scatter")
+        for mode, (hoist, lowering) in modes.items():
+            torch.cuda.synchronize()
+            csr_spmm.launches = csr_spmm.combines = 0
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                r = main_sage.run(ds, epochs=epochs, runs=1, device="cuda", precompute=hoist,
+                                  lowering=lowering)
+            r["run_s"] = time.perf_counter() - t0
+            launches[(ds, mode)], combines[(ds, mode)] = csr_spmm.launches, csr_spmm.combines
+            if "Training time/epoch" not in log.getvalue():
+                raise AssertionError(f"{ds} {mode}: no 'Training time/epoch' line")
+            res[(ds, mode)] = r
+            torch.cuda.empty_cache()
+        g, _ = _sage_graph(ds, dev)
+        plans[ds] = _split_fields(g)
+        fwd_long, rev_long = int(g.split.num_long > 0), int(g.reverse.split.num_long > 0)
+        for mode, (hoist, lowering) in modes.items():
+            steps = len(res[(ds, mode)]["losses"][0])
+            per_step = sage_k1_launches(feat, cfg["hidden"], classes, cfg["layers"], hoist)
+            n_fwd = sum(side == "fwd" for _, side, _ in per_step) * steps + int(hoist)
+            n_bwd = sum(side == "bwd" for _, side, _ in per_step) * steps
+            if lowering == "scatter":
+                n_fwd = n_bwd = 0
+            want_l[(ds, mode)] = n_fwd + n_bwd
+            want_c[(ds, mode)] = n_fwd * fwd_long + n_bwd * rev_long
+        ds_widths = sorted({d for _, _, d in sage_k1_launches(feat, cfg["hidden"], classes,
+                                                               cfg["layers"], False)}
+                           | {feat})
+        widths[ds] = {}
+        for d in ds_widths:
+            widths[ds][d] = {
+                "fwd": k1_width(f"{ds} fwd", g, d, True, gen, plain=ds == "ogbn-arxiv"),
+                "bwd": k1_width(f"{ds} bwd", g.reverse, d, False, gen, plain=ds == "ogbn-arxiv"),
+            }
+        del g
+        torch.cuda.empty_cache()
+    if launches != want_l:
+        raise AssertionError(f"K1 launches {launches}; want {want_l}")
+    if combines != want_c:
+        raise AssertionError(f"K1 combines {combines}; want {want_c}")
+    for key, r in res.items():
+        losses = r["losses"][0]
+        if not statistics.mean(losses[-3:]) < losses[0]:
+            raise AssertionError(f"{key} loss did not fall: {losses}")
+    for ds in SAGE_EPOCHS:
+        first = {mode: r["losses"][0][0] for (d, mode), r in res.items() if d == ds}
+        if max(abs(v - first["unhoisted"]) for v in first.values()) > SAGE_LOSS_ATOL:
+            raise AssertionError(f"{ds}: first-step losses differ: {first}")
+    key = lambda ds, mode: f"{ds.removeprefix('ogbn-')}_{mode}"  # noqa: E731
+    fields = ("run_s", "load_s", "setup_s", "precompute_s", "epoch_s", "epochs_s", "setup_bytes",
+              "train_peak_bytes", "num_edges")
+    emit("sage_main", seconds=time.perf_counter() - t_phase, device=res[("ogbn-arxiv", "hoisted")]["device"],
+         synthetic=res[("ogbn-arxiv", "hoisted")]["synthetic"], epochs=SAGE_EPOCHS,
+         **{key(*k): {f: r[f] for f in fields} | {"losses": r["losses"][0],
+                                                  "launches": launches[k], "combines": combines[k]}
+            for k, r in res.items()},
+         splits=plans, first_step_atol=SAGE_LOSS_ATOL,
+         k1_widths={ds: {str(d): w for d, w in v.items()} for ds, v in widths.items()})
+    return launches, combines, widths
+
+
+# -- graph classification: GCN on ENZYMES, molhiv and ppa ------------------
+
+GC_RUNS = {  # key: (dataset, lowering, num_graphs, epochs)
+    "enzymes": ("ENZYMES", "fused", None, 5),
+    "molhiv": ("ogbg-molhiv", "fused", None, 3),
+    "molhiv_scatter": ("ogbg-molhiv", "scatter", None, 3),
+    "ppa": ("ogbg-ppa", "fused", 2000, 3),
+}
+GC_PROFILE_STEPS = 64  # molhiv's profiled window: its idle share, not a whole epoch's trace
+
+
+def gc_per_step(dataset, lowering):
+    """K1 and K2 launches in one training step, from the code (nn/conv.py,
+    ops/sddmm.py, graph/batch.py). ENZYMES: 4 GCNConv, each a forward K1
+    and, as W x needs a gradient, a backward K1; the mean readout one K2 (its
+    backward is a row gather). molhiv and ppa: 5 GCNConvEdge, each
+    gsddmm(copy_u)'s adjoint, one K1, and fused one K2 for gspmm(copy_e,
+    sum) (backward a row gather; scatter: index_add_, no kernel); the
+    readout one K2. norm = gsddmm(mul, c, c) needs no gradient: no launch."""
+    if dataset == "ENZYMES":
+        return {"csr_spmm": 8, "seg_sum": 1}
+    return {"csr_spmm": 5, "seg_sum": 6 if lowering == "fused" else 1}
+
+
+def _gc_long_rows(dataset, num_graphs):
+    """The longest row any batch's CSRs or readout can hold: a batch is a
+    block-diagonal union, so its rows are its members' in- and out-degree
+    rows and its readout rows their node counts."""
+    from dgl_tpu_torch.data import load_graph_dataset
+
+    data = load_graph_dataset(dataset, num_graphs=num_graphs)
+    return max(max(np.bincount(d, minlength=n).max(), np.bincount(s, minlength=n).max(), n)
+               for s, d, n in data.graphs)
+
+
+def _gc_batch(dataset, with_edge_feats):
+    """The first batch of 64 graphs, unshuffled, on the card."""
+    from dgl_tpu_torch.data import load_graph_dataset
+    from dgl_tpu_torch.sampling import GraphBatchLoader
+
+    data = load_graph_dataset(dataset, num_graphs=64)
+    batch, _, _, _ = next(iter(GraphBatchLoader(
+        data.graphs, data.node_feats, data.labels, 64, shuffle=False, device="cuda",
+        edge_feats=data.edge_feats if with_edge_feats else None)))
+    return batch
+
+
+def gc_kernel_checks(gen):
+    """K1 and K2 at graph classification's own shapes, on one batch of 64
+    graphs, each held to the plain version and to float64 sums, and timed
+    beside the plain version, a library call and the bound. K2 on a molhiv
+    batch at D = 256: the mean and sum readouts (the batch's node ranges)
+    and gspmm(copy_e, sum) ((E, 256) over the dst CSR; also on small
+    integers, bit for bit). K1 on the same batch at D = 256: the
+    gsddmm(copy_u) adjoint (the reverse CSR indexed by eid, what GCNConvEdge
+    launches) and a copy_u sum over the dst CSR; and on an ENZYMES batch at
+    D = 128 GCNConv's forward (dst CSR) and backward (reverse CSR). Returns
+    the K2 fields and {dataset: {d: {side: k1_width}}}."""
+    from dgl_tpu_torch.graph import readout
+    from dgl_tpu_torch.kernels.seg_sum import csr_rows, seg_sum, seg_sum_plain
+
+    batch = _gc_batch("ogbg-molhiv", True)
+    ip = batch.graph_indptr
+    x = 1.0 + torch.randn(batch.graph.num_dst_nodes, 256, device=ip.device, generator=gen)
+    acc = [0.0, 0.0, 0.0]
+    cnt = (ip[1:] - ip[:-1]).clamp(min=1).double().unsqueeze(1)
+    for op in ("sum", "mean"):
+        scale = 1.0 if op == "sum" else 1.0 / cnt
+        want = (seg_sum_plain(ip, x.double()) * scale, seg_sum_plain(ip, x.double().abs()) * scale)
+        plain = seg_sum_plain(ip, x) * (1.0 if op == "sum" else (1.0 / cnt).float())
+        _merge(acc, [check(f"molhiv readout {op}", readout(batch, x, op), ip, want, plain,
+                           slack=(2, 8))])
+    g = batch.graph
+    msg = 1.0 + torch.randn(g.num_edges, 256, device=ip.device, generator=gen)
+    ints = torch.randint(-4, 5, (g.num_edges, 256), device=ip.device, generator=gen).float()
+    acc_e = [0.0, 0.0, 0.0]
+    check_k2("molhiv copy_e", g.indptr, msg, ints, acc_e, g.split)
+    times = {}
+    for name, (indptr, m, split) in {"readout": (ip, x, batch.graph_split),
+                                     "copy_e": (g.indptr, msg, g.split)}.items():
+        rows = csr_rows(indptr, m.shape[0])
+        n_rows = indptr.numel() - 1
+        bound, by = k2_bound(n_rows, m.shape[0], 256)
+        times[name] = {
+            "rows": n_rows, "edges": m.shape[0],
+            "ms": median_ms(lambda: seg_sum(indptr, m, split=split), reps=30, warmup=3),
+            "plain_ms": median_ms(lambda: seg_sum_plain(indptr, m), reps=30, warmup=3),
+            "index_add_ms": median_ms(
+                lambda: torch.zeros(n_rows, 256, device=ip.device).index_add_(0, rows, m),
+                reps=30, warmup=3),
+            "bound_ms": bound, "bound_by": by}
+    enz = _gc_batch("ENZYMES", False).graph
+    k1 = {"molhiv": {256: {"fwd": k1_width("molhiv batch fwd", g, 256, False, gen, plain=True),
+                           "bwd": k1_width("molhiv batch adjoint", g.reverse, 256, False, gen,
+                                           plain=True, by_eid=True)}},
+          "enzymes": {128: {"fwd": k1_width("ENZYMES batch fwd", enz, 128, False, gen, plain=True),
+                            "bwd": k1_width("ENZYMES batch bwd", enz.reverse, 128, False, gen,
+                                            plain=True)}}}
+    k2 = {"graphs": batch.num_graphs, "nodes": g.num_dst_nodes, "edges": g.num_edges, "d": 256,
+          "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
+          "copy_e_max_abs_err": acc_e[0], "copy_e_max_abs_err_f64": acc_e[1],
+          "copy_e_max_bound_used": acc_e[2], "k2_times": times}
+    return k2, k1
+
+
+def gc_step_no_host_sync():
+    """One molhiv training step, its batch's copies to the card included,
+    under set_sync_debug_mode("error")."""
+    from dgl_tpu_torch.benchmarks.graph_classification.main_gcn import make_train_step
+    from dgl_tpu_torch.data import load_graph_dataset
+    from dgl_tpu_torch.models import GCNMolClassifier
+    from dgl_tpu_torch.sampling import GraphBatchLoader
+
+    dev = torch.device("cuda")
+    data = load_graph_dataset("ogbg-molhiv", num_graphs=256)
+    loader = GraphBatchLoader(data.graphs, data.node_feats, data.labels, 64,
+                              edge_feats=data.edge_feats, device=dev)
+    model = GCNMolClassifier(256, 1, device=dev, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3), "ogbg-molhiv",
+                           torch.Generator(device=dev).manual_seed(0))
+    it = iter(loader)
+    step(*next(it))  # warm-up: lazy allocations and the optimiser's state
+    loss = []
+    no_host_sync(lambda: loss.append(step(*next(it))),
+                 lambda: loss[0].item())
+    if not math.isfinite(loss[0].item()):
+        raise AssertionError("the molhiv step under the sync check gave a non-finite loss")
+
+
+def phase_gc_main():
+    """main_gcn on ENZYMES (600 graphs), molhiv (41,127 graphs, fused and
+    scatter) and ppa (cut to 2,000 graphs), batch 64, every counter set to 0
+    before a run and read after it: K1 and K2 launches gc_per_step per
+    step, no combine (no batch holds a row over T: _gc_long_rows); losses
+    finite and falling. molhiv fused also profiles GC_PROFILE_STEPS further
+    steps (the device's idle share). Then gc_kernel_checks and one molhiv
+    step under the sync check."""
+    from dgl_tpu_torch.benchmarks.graph_classification import main_gcn
+    from dgl_tpu_torch.graph.split import SPLIT_T
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+    from dgl_tpu_torch.kernels.seg_sum import seg_sum
+
+    t_phase = time.perf_counter()
+    counters = {"csr_spmm": csr_spmm, "seg_sum": seg_sum}
+    res, launches, combines, want_l, longest = {}, {}, {}, {}, {}
+    for key, (ds, lowering, num_graphs, epochs) in GC_RUNS.items():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = fn.combines = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            r = main_gcn.run(ds, batch_size=64, epochs=epochs, runs=1, lowering=lowering,
+                             num_graphs=num_graphs, device="cuda",
+                             profile_steps=GC_PROFILE_STEPS if key == "molhiv" else 0)
+        r["run_s"] = time.perf_counter() - t0
+        launches[key] = {k: fn.launches for k, fn in counters.items()}
+        combines[key] = {k: fn.combines for k, fn in counters.items()}
+        if "Training time/epoch" not in log.getvalue():
+            raise AssertionError(f"{key}: no 'Training time/epoch' line")
+        res[key] = r
+        want_l[key] = {k: n * r["steps"] for k, n in gc_per_step(ds, lowering).items()}
+        if ds not in longest:
+            longest[ds] = _gc_long_rows(ds, num_graphs)
+        torch.cuda.empty_cache()
+    if max(longest.values()) > SPLIT_T:
+        raise AssertionError(f"a batch could hold a row over T = {SPLIT_T}: {longest}")
+    want_c = {key: {k: 0 for k in counters} for key in GC_RUNS}
+    if launches != want_l:
+        raise AssertionError(f"launches {launches}; want {want_l}")
+    if combines != want_c:
+        raise AssertionError(f"combine launches {combines}; want {want_c}")
+    for key, r in res.items():
+        losses = r["losses"][0]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{key} loss did not fall: {losses}")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    readout, k1 = gc_kernel_checks(gen)
+    gc_step_no_host_sync()
+    prof = res["molhiv"]["profile"]
+    emit("gc_main", seconds=time.perf_counter() - t_phase, device=res["molhiv"]["device"],
+         synthetic=res["molhiv"]["synthetic"],
+         **{key: {"run_s": r["run_s"], "load_s": r["load_s"], "graphs": r["num_graphs"],
+                  "steps": r["steps"],
+                  "epoch_s": r["epoch_s"], "epochs_s": r["epochs_s"], "losses": r["losses"][0],
+                  "launches": launches[key], "combines": combines[key]}
+            for key, r in res.items()},
+         per_step_derived={key: gc_per_step(ds, lw) for key, (ds, lw, _, _) in GC_RUNS.items()},
+         longest_row=longest, readout=readout, no_host_sync=True,
+         k1_widths={ds: {str(d): w for d, w in v.items()} for ds, v in k1.items()},
+         molhiv_profile={k: prof[k] for k in ("steps", "wall_ms_per_step", "device_busy_ms_per_step",
+                                              "device_idle_share")},
+         molhiv_profile_kernels=prof["kernels"][:12])
+    return launches, combines, readout, k1
+
+
 def _kernel_entry(name, source, replaces, launches, r, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1379,7 +1775,14 @@ def main():
     floors, rows = phase_row_gather(red, red_graph, gred, gat_graph)
     del red_graph, gat_graph
     glaunch, gcombines = phase_gat_main()
+    slaunch, scombines, widths = phase_sage_main()
+    claunch, ccombines, readout, gc_k1 = phase_gc_main()
     both = lambda key: red["fwd"][key] + red["bwd"][key]  # noqa: E731
+    sage_keys = {"arxiv": "ogbn-arxiv", "products": "ogbn-products"}
+    k1_widths = {f"{k}_{ds.removeprefix('ogbn-')}_d{d}_{side}": w[side][k]
+                 for ds, by_d in (widths | gc_k1).items() for d, w in by_d.items()
+                 for side in ("fwd", "bwd")
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
     k2f, k2r = gred["seg_sum_fwd"], gred["seg_sum_rev"]
     print(json.dumps({"kernels": [
         {
@@ -1413,6 +1816,21 @@ def main():
             "ms_bwd": red["bwd"]["kernel_ms"],
             "library_ms_fwd": red["fwd"]["library_ms"],
             "library_ms_bwd": red["bwd"]["library_ms"],
+            # the SAGE driver's runs (unhoisted, hoisted, arxiv's scatter)
+            # and the GCN driver's (K1: the GCNConv aggregations and the
+            # gsddmm(copy_u) adjoints), with their combines
+            **{f"launches_sage_{k}{m}": slaunch[(ds, mode)] for k, ds in sage_keys.items()
+               for mode, m in (("unhoisted", ""), ("hoisted", "_hoisted"), ("scatter", "_scatter"))
+               if (ds, mode) in slaunch},
+            **{f"combines_sage_{k}{m}": scombines[(ds, mode)] for k, ds in sage_keys.items()
+               for mode, m in (("unhoisted", ""), ("hoisted", "_hoisted"))},
+            **{f"launches_gcn_{k}": v["csr_spmm"] for k, v in claunch.items()},
+            **{f"combines_gcn_{k}": v["csr_spmm"] for k, v in ccombines.items()},
+            # at each SAGE width: forward (mean, dst CSR) and backward (sum,
+            # reverse CSR), plain_ms on arxiv only; on one batch of 64 graphs:
+            # molhiv D = 256 (fwd a dst-CSR sum, bwd the gsddmm(copy_u)
+            # adjoint by eid) and ENZYMES D = 128 (GCNConv's two sums)
+            **k1_widths,
         },
         # K3's two passes on reddit with self-loops, H = 1, D = 16, with
         # dropout, the row split of the CSR each walks (the dst CSR, the
@@ -1465,6 +1883,17 @@ def main():
             "library_ms_rev": k2r["library_ms"],
             "index_add_ms_rev": k2r["index_add_ms"],
             "max_abs_err_rev": k2r["max_abs_err"],
+            # the GCN driver's runs (gspmm(copy_e, sum) and the readouts)
+            **{f"launches_gcn_{k}": v["seg_sum"] for k, v in claunch.items()},
+            **{f"combines_gcn_{k}": v["seg_sum"] for k, v in ccombines.items()},
+            # the mean and sum readouts and gspmm(copy_e, sum) on a molhiv
+            # batch at D = 256
+            "max_abs_err_readout": readout["max_abs_err"],
+            "max_abs_err_f64_readout": readout["max_abs_err_f64"],
+            "max_abs_err_copy_e": readout["copy_e_max_abs_err"],
+            "max_abs_err_f64_copy_e": readout["copy_e_max_abs_err_f64"],
+            **{f"{k}_{shape}": t[k] for shape, t in readout["k2_times"].items()
+               for k in ("ms", "plain_ms", "index_add_ms", "bound_ms")},
         },
         # P1 at the probe's default shape, launches from the probe's default
         # run; P2 where x fits, launches from the probe's run at (2708, 16)

@@ -1,9 +1,10 @@
 """Shared plumbing of the port's benchmark drivers.
 
 Counterpart of ``benchmarks/common.py``: masked loss and accuracy over the
-train/val/test masks, the data-statistics banner, and the reference's
-``Logger`` (``node_classification/utils.py``), whose ``Final Train`` /
-``Final Test`` lines the suite's harness parses. Adam with coupled L2
+train/val/test masks, integer-label cross-entropy, the rank ROC-AUC, the
+data-statistics banner, and the reference's ``Logger``
+(``node_classification/utils.py``), whose ``Final Train`` / ``Final Test``
+lines the suite's harness parses. Adam with coupled L2
 (``adam_l2``) is ``torch.optim.Adam(weight_decay=wd)`` and needs no helper.
 """
 
@@ -15,12 +16,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["masked_softmax_ce", "masked_accuracy", "print_data_stats", "Logger"]
+__all__ = ["softmax_ce_int", "masked_softmax_ce", "masked_accuracy", "roc_auc",
+           "print_data_stats", "Logger"]
+
+
+def softmax_ce_int(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row cross-entropy of ``logits`` against integer ``labels``."""
+    return F.cross_entropy(logits, labels, reduction="none")
 
 
 def masked_softmax_ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy over the rows where ``mask`` is set."""
-    ce = F.cross_entropy(logits, labels, reduction="none")
+    ce = softmax_ce_int(logits, labels)
     m = mask.to(ce.dtype)
     return torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
 
@@ -29,6 +36,21 @@ def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tens
     m = mask.to(torch.float32)
     hit = (logits.argmax(-1) == labels).to(torch.float32) * m
     return torch.sum(hit) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def roc_auc(scores, labels) -> float:
+    """Binary ROC-AUC by the rank statistic, tied scores given their average
+    rank; nan when one class is absent."""
+    scores = np.asarray(scores, dtype=np.float64).ravel()
+    labels = np.asarray(labels).ravel()
+    pos, neg = scores[labels == 1], scores[labels == 0]
+    if len(pos) == 0 or len(neg) == 0:
+        return float("nan")
+    allv = np.concatenate([pos, neg])
+    uniq, counts = np.unique(allv, return_counts=True)
+    avg_rank = np.cumsum(counts) - (counts - 1) / 2.0
+    r_pos = avg_rank[np.searchsorted(uniq, allv)][: len(pos)].sum()
+    return float((r_pos - len(pos) * (len(pos) + 1) / 2.0) / (len(pos) * len(neg)))
 
 
 def print_data_stats(data) -> None:
@@ -46,11 +68,11 @@ def print_data_stats(data) -> None:
 
 class Logger:
     """Per-run (train, valid, test) results; the test number reported is the
-    one at the best validation epoch, scaled by 100."""
+    one at the best validation epoch, times ``scale`` (100 for accuracies,
+    as the node drivers and ENZYMES print them; 1 for the ogbg drivers)."""
 
-    scale = 100.0
-
-    def __init__(self, runs: int):
+    def __init__(self, runs: int, scale: float = 100.0):
+        self.scale = scale
         self.results = [[] for _ in range(runs)]
 
     def add_result(self, run: int, result: Sequence[float]) -> None:

@@ -61,11 +61,13 @@ def _prepare(name: str, cfg: dict, seed: int, dev: torch.device):
     print_data_stats(data)
     t0 = time.perf_counter()
     n = data.num_nodes
-    src, dst = np.asarray(data.src), np.asarray(data.dst)
-    if cfg["bidirect"]:
+    src = torch.from_numpy(np.asarray(data.src, np.int64)).to(dev)
+    dst = torch.from_numpy(np.asarray(data.dst, np.int64)).to(dev)
+    if cfg["bidirect"]:  # on the device, as from_edges sorts there
         src, dst = transforms.to_bidirected(src, dst, n)
     src, dst = transforms.add_self_loops(src, dst, n)
     g = from_edges(src, dst, n, device=dev)
+    del src, dst
     x = torch.from_numpy(np.asarray(data.features, np.float32)).to(dev)
     y = torch.from_numpy(np.asarray(data.labels)).to(dev)
     masks = {k: torch.from_numpy(np.asarray(getattr(data, f"{k}_mask"))).to(dev)

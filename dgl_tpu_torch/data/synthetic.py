@@ -1,9 +1,10 @@
-"""Synthetic node-classification datasets with reference-matched statistics.
+"""Synthetic datasets with reference-matched statistics.
 
-A numpy-only copy of the node part of ``dgl_tpu/data/synthetic.py``: for the
-same ``(name, seed, homophily, noise, scale, structure_required)`` it returns
+A numpy-only copy of ``dgl_tpu/data/synthetic.py``: for the same ``(name,
+seed, homophily, noise, scale, structure_required)`` (node classification)
+or ``(name, seed, num_graphs)`` (graph classification) it returns
 bit-identical arrays, so the port and the JAX package train on the same
-graph. No dataset can be downloaded here, so the benchmark runs on graphs
+data. No dataset can be downloaded here, so the benchmark runs on graphs
 generated to match each dataset's structural statistics (node count, edge
 count, feature width, class count, power-law degree skew), with a planted
 learnable signal (homophilous edges and class-informative features).
@@ -14,14 +15,17 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 __all__ = [
     "NodeClassificationData",
+    "GraphClassificationData",
     "synthetic_node_classification",
+    "synthetic_graph_classification",
     "NODE_DATASET_STATS",
+    "GRAPH_DATASET_STATS",
 ]
 
 # name: (num_nodes, num_edges, feat_dim, num_classes)
@@ -45,6 +49,13 @@ _COMMUNITY_STRUCTURE = {
     "ogbn-arxiv": (32, 0.45),
 }
 
+# name: (num_graphs, avg_nodes, avg_edges, feat_desc, num_classes)
+GRAPH_DATASET_STATS = {
+    "ENZYMES": (600, 33, 62, 18, 6),
+    "ogbg-molhiv": (41_127, 26, 28, "mol", 2),
+    "ogbg-ppa": (158_100, 244, 2266, "ppa", 37),
+}
+
 
 @dataclasses.dataclass
 class NodeClassificationData:
@@ -60,6 +71,20 @@ class NodeClassificationData:
     num_classes: int
     edge_feat: Optional[np.ndarray] = None  # (E, R) e.g. proteins relations
     synthetic: bool = True
+
+
+@dataclasses.dataclass
+class GraphClassificationData:
+    name: str
+    graphs: List[Tuple[np.ndarray, np.ndarray, int]]  # (src, dst, num_nodes)
+    node_feats: List[np.ndarray]
+    edge_feats: List[Optional[np.ndarray]]
+    labels: np.ndarray
+    num_classes: int
+    synthetic: bool = True
+    # OGB's scaffold/species splits (graph indices) when the real data ships
+    # them; None: the drivers' random 80/10/10 split with numpy seed 42
+    splits: Optional[Dict[str, np.ndarray]] = None
 
 
 def _powerlaw_targets(rng, n: int, e: int, alpha: float = 0.8) -> np.ndarray:
@@ -228,3 +253,50 @@ def synthetic_node_classification(
             save["ef"] = edge_feat
         np.savez(path, **save)
     return data
+
+
+def synthetic_graph_classification(
+    name: str, seed: int = 0, num_graphs: Optional[int] = None
+) -> GraphClassificationData:
+    """Graphs of Poisson node and edge counts around the dataset's means: a
+    ring plus random chords whose targets the class narrows; ENZYMES has
+    class-shifted float features, molhiv integer atom and bond categories
+    (the first atom column class-shifted), ppa a class pattern in its 7
+    float edge features and one constant node feature."""
+    if name not in GRAPH_DATASET_STATS:
+        raise ValueError(f"unknown dataset {name!r}; known: {sorted(GRAPH_DATASET_STATS)}")
+    total, avg_n, avg_e, feat, c = GRAPH_DATASET_STATS[name]
+    if num_graphs is None:
+        num_graphs = total
+    rng = np.random.default_rng(seed)
+    graphs, node_feats, edge_feats, labels = [], [], [], []
+    ys = rng.integers(0, c, size=num_graphs)
+    for i in range(num_graphs):
+        y = ys[i]
+        n = max(3, int(rng.poisson(avg_n)))
+        e = max(2, int(rng.poisson(avg_e)))
+        base = np.arange(n)
+        src = np.concatenate([base, rng.integers(0, n, size=e)])
+        dst = np.concatenate([(base + 1) % n, rng.integers(0, max(1, n // (1 + y % 4)), size=e)])
+        graphs.append((src.astype(np.int64), dst.astype(np.int64), n))
+        if feat == "mol":
+            nf = np.stack(
+                [rng.integers(0, hi, size=n) for hi in (40, 4, 8, 8, 6, 4, 4, 2, 2)], axis=1,
+            ).astype(np.int32)
+            nf[:, 0] = rng.integers(0, 30, size=n) + (y % 2) * 10
+            ef = np.stack([rng.integers(0, hi, size=len(src)) for hi in (5, 6, 2)],
+                          axis=1).astype(np.int32)
+        elif feat == "ppa":
+            nf = np.zeros((n, 1), dtype=np.int32)
+            proto = np.sin(np.arange(7) * (1 + y))
+            ef = (proto + 0.8 * rng.standard_normal((len(src), 7))).astype(np.float32)
+        else:
+            means = np.linspace(-1, 1, c)[y]
+            nf = (means + 0.7 * rng.standard_normal((n, feat))).astype(np.float32)
+            ef = None
+        node_feats.append(nf)
+        edge_feats.append(ef)
+        labels.append(y)
+    return GraphClassificationData(
+        name, graphs, node_feats, edge_feats, np.asarray(labels, dtype=np.int64), c
+    )

@@ -7,6 +7,7 @@ Counterpart of ``dgl_tpu/models/sage.py:GraphSAGE`` (full-graph part):
   layers.
 Dropout masks come from the ``generator`` passed to ``forward``; the
 initial weights from the CPU ``generator`` passed to the constructor.
+``lowering`` goes to every layer's ``gspmm`` (``ops/spmm.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ class GraphSAGE(nn.Module):
         dropout: float = 0.5,
         batch_norm: bool = False,
         *,
+        lowering: str = "fused",
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -51,6 +53,7 @@ class GraphSAGE(nn.Module):
                 aggr,
                 feat_drop=dropout if (last and not batch_norm) else 0.0,
                 activation=None if (last or batch_norm) else F.relu,
+                lowering=lowering,
                 device="cpu",
                 generator=generator,
             ))

@@ -1,7 +1,8 @@
 """Graph convolution layers over ``dgl_tpu_torch.ops``.
 
-Counterpart of ``dgl_tpu/nn/conv.py``; the port has ``SAGEConv`` and
-``GATConv``.
+Counterpart of ``dgl_tpu/nn/conv.py``; the port has ``SAGEConv``,
+``GATConv``, ``GCNConv`` and ``GCNConvEdge``. ``lowering`` (``fused`` or
+``scatter``) is handed to every ``gspmm`` a layer calls (``ops/spmm.py``).
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ from ..device import DeviceLike, resolve_device
 from ..graph.graph import Graph
 from ..kernels.gat_attention import gat_attention
 from ..ops import edge_softmax, gather_dst, gather_src_rows, gspmm
+from ..ops.sddmm import gsddmm
 from .init import relu_gain, xavier_uniform_
 
-__all__ = ["SAGEConv", "GATConv", "dropout"]
+__all__ = ["SAGEConv", "GATConv", "GCNConv", "GCNConvEdge", "dropout"]
 
 
 def dropout(
@@ -57,6 +59,7 @@ class SAGEConv(nn.Module):
         feat_drop: float = 0.0,
         activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
         *,
+        lowering: str = "fused",
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -66,6 +69,7 @@ class SAGEConv(nn.Module):
         dev = resolve_device(device)
         self.in_feats, self.out_feats = in_feats, out_feats
         self.aggr, self.feat_drop, self.activation = aggr, feat_drop, activation
+        self.lowering = lowering
         self.fc_self = nn.utils.skip_init(nn.Linear, in_feats, out_feats, bias=False)
         self.fc_neigh = nn.utils.skip_init(nn.Linear, in_feats, out_feats, bias=False)
         self.fc_neigh_bias = nn.Parameter(torch.zeros(out_feats))
@@ -91,9 +95,9 @@ class SAGEConv(nn.Module):
         if x_agg is not None:
             h_neigh = self.fc_neigh(x_agg)
         elif self.out_feats < self.in_feats:
-            h_neigh = gspmm(g, "copy_u", self.aggr, x=self.fc_neigh(x))
+            h_neigh = gspmm(g, "copy_u", self.aggr, x=self.fc_neigh(x), lowering=self.lowering)
         else:
-            h_neigh = self.fc_neigh(gspmm(g, "copy_u", self.aggr, x=x))
+            h_neigh = self.fc_neigh(gspmm(g, "copy_u", self.aggr, x=x, lowering=self.lowering))
         out = self.fc_self(x) + h_neigh + self.fc_neigh_bias
         if self.activation is not None:
             out = self.activation(out)
@@ -214,3 +218,55 @@ class GATConv(nn.Module):
         alpha = edge_softmax(g, logits, dst_bound=bound)
         alpha = dropout(alpha, self.attn_drop, self.training, generator)
         return gspmm(g, "copy_e", "sum", e=z_e * alpha.unsqueeze(-1))
+
+
+class GCNConv(nn.Module):
+    """Symmetric-degree-normalised GCN (the reference's ENZYMES layer,
+    ``main_dgl_enzymes_gcn.py:16-39``): ``deg = in_deg + 1``, then
+    ``deg^{-1/2} · Σ_{u→v} deg_u^{-1/2} (W x)_u``, a K1 ``copy_u`` sum between
+    the two scalings; no self-loop term, no bias. ``fc`` is xavier-uniform
+    with the relu gain.
+    """
+
+    def __init__(self, in_feats: int, out_feats: int, *, lowering: str = "fused",
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.lowering = lowering
+        self.fc = nn.utils.skip_init(nn.Linear, in_feats, out_feats, bias=False)
+        xavier_uniform_(self.fc.weight, relu_gain(), generator)
+        self.to(resolve_device(device))
+
+    def forward(self, g: Graph, x: torch.Tensor) -> torch.Tensor:
+        h = self.fc(x)
+        dis = (g.in_degrees().to(h.dtype) + 1.0).rsqrt().unsqueeze(1)
+        return gspmm(g, "copy_u", "sum", x=h * dis, lowering=self.lowering) * dis
+
+
+class GCNConvEdge(nn.Module):
+    """GCN with edge features and a root embedding (the reference's
+    ogbg-molhiv / ogbg-ppa layer, ``main_dgl_molhiv_gcn.py:20-52``): message
+    ``norm · relu(h_src + w_edge)`` with ``norm = c_src · c_dst``,
+    ``c = (deg + 1)^{-1/2}``, summed by ``gspmm(copy_e, sum)`` (K2), plus the
+    self term ``relu(h + root_emb) / (deg + 1)``; ``h = W x``. ``w_edge``
+    (E, out) is the encoded edge features in canonical order. ``h_src`` is
+    ``gsddmm(copy_u)``, whose adjoint is one K1 launch. ``fc`` is
+    xavier-uniform with the relu gain, ``root_emb`` standard normal.
+    """
+
+    def __init__(self, in_feats: int, out_feats: int, *, lowering: str = "fused",
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.lowering = lowering
+        self.fc = nn.utils.skip_init(nn.Linear, in_feats, out_feats, bias=False)
+        xavier_uniform_(self.fc.weight, relu_gain(), generator)
+        self.root_emb = nn.Parameter(torch.empty(1, out_feats).normal_(generator=generator))
+        self.to(resolve_device(device))
+
+    def forward(self, g: Graph, x: torch.Tensor, w_edge: torch.Tensor) -> torch.Tensor:
+        h = self.fc(x)
+        deg = (g.in_degrees().to(h.dtype) + 1.0).unsqueeze(1)
+        c = deg.rsqrt()
+        norm = gsddmm(g, "mul", c, c)  # (E, 1)
+        msg = norm * F.relu(gsddmm(g, "copy_u", h) + w_edge)
+        agg = gspmm(g, "copy_e", "sum", e=msg, lowering=self.lowering)
+        return agg + F.relu(h + self.root_emb) / deg

@@ -11,7 +11,8 @@ direction is a scatter-add with atomics:
   cotangents are read where they lie, with no permuted copy. The JAX
   package permutes them and sums with K2 (``_seg_sum_by_dst``);
 * ``spread_dst(g, v)`` = ``v[dst[j]]``; backward: K2 over the dst CSR;
-* ``seg_sum_dst(g, msg)`` = K2 over the dst CSR; backward: ``gather_dst``.
+* ``seg_sum_dst(g, msg)`` = K2 over the dst CSR (``ops/segment.py:
+  segment_sum`` by dst); backward: the row gather by dst.
 
 ``gather_dst`` is the plain row gather; autograd differentiates it.
 Edge arrays are in the graph's canonical (dst-sorted) order, any trailing
@@ -24,7 +25,7 @@ import torch
 
 from ..graph.graph import Graph
 from ..kernels.csr_spmm import csr_spmm
-from ..kernels.seg_sum import seg_sum
+from .segment import _seg_sum_rows, segment_sum
 
 __all__ = ["gather_dst", "gather_src_rows", "spread_dst", "seg_sum_dst"]
 
@@ -32,13 +33,6 @@ __all__ = ["gather_dst", "gather_src_rows", "spread_dst", "seg_sum_dst"]
 def gather_dst(g: Graph, v: torch.Tensor) -> torch.Tensor:
     """``v[dst[j]]`` for every edge."""
     return v.index_select(0, g.dst)
-
-
-def _seg_sum_rows(g: Graph, msg: torch.Tensor) -> torch.Tensor:
-    """K2 over the dst CSR of ``g``, any trailing shape: (E, ...) → (N_dst, ...)."""
-    tail = tuple(msg.shape[1:])
-    out = seg_sum(g.indptr, msg.reshape(msg.shape[0], -1).contiguous(), split=g.split)
-    return out.reshape((g.num_dst_nodes,) + tail)
 
 
 class _GatherSrcRows(torch.autograd.Function):
@@ -63,18 +57,7 @@ class _SpreadDst(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ge):
-        return _seg_sum_rows(ctx.g, ge), None
-
-
-class _SegSumDst(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, msg, g):
-        ctx.g = g
-        return _seg_sum_rows(g, msg)
-
-    @staticmethod
-    def backward(ctx, gout):
-        return gather_dst(ctx.g, gout), None
+        return _seg_sum_rows(ge, ctx.g.indptr, ctx.g.split), None
 
 
 def gather_src_rows(g: Graph, x: torch.Tensor) -> torch.Tensor:
@@ -96,4 +79,4 @@ def seg_sum_dst(g: Graph, msg: torch.Tensor) -> torch.Tensor:
     launch) whose backward is ``gather_dst``."""
     if msg.shape[0] != g.num_edges:
         raise ValueError(f"edge messages must have {g.num_edges} rows, got {tuple(msg.shape)}")
-    return _SegSumDst.apply(msg, g)
+    return segment_sum(msg, g.dst, g.indptr, g.split)

@@ -15,6 +15,14 @@ reverse CSR, as ``_lane_copy_u_bwd`` does in the JAX package. ``copy_e``:
 one K2 launch (``ops/gather.py:seg_sum_dst``) over edge features in
 canonical order, any trailing shape; mean scales its result by
 ``1/max(deg, 1)``; the backward is a row gather by dst.
+
+``lowering="scatter"`` is a second lowering the caller names, the PyG twin
+(``dgl_tpu/ops/spmm.py:604-626``, the JAX package's
+``DGL_TPU_LOWERING=scatter``): the (E, ...) messages are built with
+``index_select`` (``copy_u``) or taken as given (``copy_e``), reduced with a
+plain ``index_add_`` by dst, mean scaled by ``1/max(deg, 1)``, and autograd
+differentiates the gather into a scatter. No K1 or K2 runs and the reverse
+CSR is not used. It changes ``gspmm`` only.
 """
 
 from __future__ import annotations
@@ -64,12 +72,22 @@ class _CopyU(torch.autograd.Function):
         return grad_x, None, None
 
 
+def _scatter(g: Graph, msg: torch.Tensor, mean: bool) -> torch.Tensor:
+    out = torch.zeros((g.num_dst_nodes,) + tuple(msg.shape[1:]), dtype=msg.dtype,
+                      device=msg.device).index_add_(0, g.dst, msg)
+    if mean:
+        out = out * _inv_deg(g, out.dtype).reshape((-1,) + (1,) * (out.dim() - 1))
+    return out
+
+
 def gspmm(
     g: Graph,
     op: str,
     reduce: str,
     x: Optional[torch.Tensor] = None,
     e: Optional[torch.Tensor] = None,
+    *,
+    lowering: str = "fused",
 ) -> torch.Tensor:
     """Generalized SpMM; the port serves ``copy_u``/``copy_lhs`` and
     ``copy_e``/``copy_rhs`` with ``sum``/``mean``.
@@ -80,6 +98,7 @@ def gspmm(
       reduce: ``sum`` or ``mean``.
       x: (num_src_nodes, D) float32 source-node features.
       e: (num_edges, ...) float32 edge features in canonical order.
+      lowering: ``fused`` (K1 / K2) or ``scatter`` (the PyG twin, above).
     Returns:
       (num_dst_nodes, D) or (num_dst_nodes, ...) aggregated features.
     """
@@ -91,9 +110,13 @@ def gspmm(
         raise NotImplementedError(f"spmm reduce {reduce!r} is ported in {_LATER_REDUCES[reduce]}")
     if reduce not in ("sum", "mean"):
         raise ValueError(f"unknown spmm reduce: {reduce!r}")
+    if lowering not in ("fused", "scatter"):
+        raise ValueError(f"unknown spmm lowering: {lowering!r}")
     if op in _COPY_E:
         if e is None:
             raise ValueError(f"spmm op {op!r} requires edge features e")
+        if lowering == "scatter":
+            return _scatter(g, e, reduce == "mean")
         out = seg_sum_dst(g, e)
         if reduce == "mean":
             out = out * _inv_deg(g, out.dtype).reshape((-1,) + (1,) * (out.dim() - 1))
@@ -104,6 +127,8 @@ def gspmm(
         raise ValueError(
             f"x must be (num_src_nodes={g.num_src_nodes}, D), got {tuple(x.shape)}"
         )
+    if lowering == "scatter":
+        return _scatter(g, x.index_select(0, g.src), reduce == "mean")
     if g.reverse is None:
         raise ValueError("gspmm needs the graph's reverse for its backward")
     return _CopyU.apply(x, g, reduce == "mean")

@@ -102,9 +102,12 @@ def event_times_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) ->
     return [start.elapsed_time(end) for start, end in events]
 
 
-def device_profile(step: Callable[[], object], epochs: int, device: torch.device) -> dict:
-    """Run ``epochs`` more steps under ``torch.profiler``: per-epoch wall
-    time, device busy time and the kernels by device time."""
+def device_profile(step: Callable[[], object], epochs: int, device: torch.device,
+                   unit: str = "epoch") -> dict:
+    """Run ``step`` ``epochs`` more times under ``torch.profiler``: wall
+    time, device busy time and the kernels by device time, each per call of
+    ``step``, which the keys name ``unit`` (a full-graph epoch is one
+    step; a graph-classification driver profiles single train steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,13 +123,14 @@ def device_profile(step: Callable[[], object], epochs: int, device: torch.device
         wall_ms = (time.perf_counter() - t0) * 1e3 / epochs
     # device-side events only: the CPU ops that launched them carry the
     # same time again
+    per = f"per_{unit}"
     rows = [
-        {"name": ev.key, "calls_per_epoch": ev.count / epochs,
-         "device_ms_per_epoch": ev.self_device_time_total / 1e3 / epochs}
+        {"name": ev.key, f"calls_{per}": ev.count / epochs,
+         f"device_ms_{per}": ev.self_device_time_total / 1e3 / epochs}
         for ev in prof.key_averages()
         if ev.device_type == DeviceType.CUDA and ev.count > 0
     ]
-    rows.sort(key=lambda r: -r["device_ms_per_epoch"])
-    busy_ms = sum(r["device_ms_per_epoch"] for r in rows)
-    return {"epochs": epochs, "wall_ms_per_epoch": wall_ms, "device_busy_ms_per_epoch": busy_ms,
+    rows.sort(key=lambda r: -r[f"device_ms_{per}"])
+    busy_ms = sum(r[f"device_ms_{per}"] for r in rows)
+    return {f"{unit}s": epochs, f"wall_ms_{per}": wall_ms, f"device_busy_ms_{per}": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels": rows}

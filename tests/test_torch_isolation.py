@@ -71,3 +71,16 @@ def test_importing_every_module_loads_no_jax():
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 30, r.stdout
+
+
+def test_scan_covers_the_sage_driver_and_graph_classification():
+    """The walk reaches the SAGE driver and every module of graph
+    classification, the new ``sampling`` subpackage included."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("dgl_tpu_torch/benchmarks/node_classification/main_sage.py",
+                "dgl_tpu_torch/benchmarks/graph_classification/main_gcn.py",
+                "dgl_tpu_torch/graph/batch.py", "dgl_tpu_torch/sampling/dataloader.py",
+                "dgl_tpu_torch/nn/pooling.py", "dgl_tpu_torch/nn/encoders.py",
+                "dgl_tpu_torch/models/gcn_graph.py", "dgl_tpu_torch/ops/sddmm.py",
+                "dgl_tpu_torch/ops/segment.py"):
+        assert rel in scanned, rel

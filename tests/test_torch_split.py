@@ -172,6 +172,7 @@ def test_every_op_hands_the_kernels_the_graphs_own_plan(monkeypatch):
     from dgl_tpu_torch.nn import GATConv
     from dgl_tpu_torch.ops import edge_softmax, gather_src_rows, spread_dst
     from dgl_tpu_torch.ops import gather as gather_mod
+    from dgl_tpu_torch.ops import segment as segment_mod
     from dgl_tpu_torch.ops import spmm as spmm_mod
 
     rng = np.random.default_rng(5)
@@ -192,7 +193,7 @@ def test_every_op_hands_the_kernels_the_graphs_own_plan(monkeypatch):
 
     monkeypatch.setattr(spmm_mod, "csr_spmm", spy(csr_spmm))
     monkeypatch.setattr(gather_mod, "csr_spmm", spy(csr_spmm))
-    monkeypatch.setattr(gather_mod, "seg_sum", spy(seg_sum))
+    monkeypatch.setattr(segment_mod, "seg_sum", spy(seg_sum))
     monkeypatch.setattr(gat_mod, "gat_attention_fwd", spy(gat_attention_fwd))
     monkeypatch.setattr(gat_mod, "gat_attention_bwd", spy(gat_attention_bwd))
 

@@ -1,8 +1,10 @@
-"""The port's copy of the edge-list transforms against
-``dgl_tpu.graph.transforms``: the same arrays, bit for bit, dtype included."""
+"""The port's copy of the edge-list transforms, on CPU tensors, against
+``dgl_tpu.graph.transforms`` on the same numpy arrays: the same arrays, bit
+for bit, dtype included."""
 
 import numpy as np
 import pytest
+import torch
 
 from dgl_tpu.graph import transforms as jt
 
@@ -20,23 +22,28 @@ def _edges(seed, n=60, e=400, dtype=np.int64):
 
 def _same(a, b):
     for x, y in zip(a, b):
+        x = x.numpy()
         assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
 
 
 @pytest.mark.parametrize("dtype", [np.int64, np.int32])
 @pytest.mark.parametrize("name", ["to_bidirected", "add_self_loops", "coalesce"])
 def test_transform_matches_jax_package(name, dtype):
     src, dst, n = _edges(3, dtype=dtype)
-    _same(getattr(tt, name)(src, dst, n), getattr(jt, name)(src, dst, n))
+    _same(getattr(tt, name)(*_t(src, dst), n), getattr(jt, name)(src, dst, n))
 
 
 def test_remove_self_loops_matches_jax_package():
     src, dst, _ = _edges(4)
-    got = tt.remove_self_loops(src, dst)
+    got = tt.remove_self_loops(*_t(src, dst))
     _same(got, jt.remove_self_loops(src, dst))
-    assert not np.any(got[0] == got[1])
+    assert not torch.any(got[0] == got[1])
 
 
 def test_add_self_loops_on_an_empty_edge_list():
     empty = np.zeros(0, np.int64)
-    _same(tt.add_self_loops(empty, empty, 5), jt.add_self_loops(empty, empty, 5))
+    _same(tt.add_self_loops(*_t(empty, empty), 5), jt.add_self_loops(empty, empty, 5))
