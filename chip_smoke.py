@@ -63,18 +63,23 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      one K1 launch and as index_select + K2 (reddit at W = 16, pubmed at
      W = 64); a fused GATConv's forward and backward allocate no more on
      reddit than on its self-loops alone;
-  8. row_gather: P1 (row_gather_async) and P2 (row_gather_smem) held bit
-     for bit to x[idx] in float32 and bfloat16, int32 and int64 indices,
-     ragged e, rows of 2 B to 40 KB, misaligned x, P2 up to its 227 KB
-     limit and its refusal above it, two runs bitwise equal; the row-gather
-     probe (python -m dgl_tpu_torch.tools.exp_dma_gather) as its main path,
-     at its default shape and at cora's node count at D = 16, each run with
-     the P1 and P2 counters set to 0 before it and read after it, every line
-     with maxerr 0 but P2's refusal at the default shape; CUDA-event medians
-     of P1, index_select and a write-only fill of the same output on the
-     index streams of K1 forward and backward, K3 forward and b2 and
-     pubmed's gather_src_rows, and the probe's default, with gather_floor_ms
-     (P1 less the fill) beside the kernel that gathers them; P2 against P1 and
+  8. row_gather: P1 in index order (row_gather_async), P1 in source order
+     (row_gather_by_source, through gather_plan) and P2 (row_gather_smem)
+     held bit for bit to x[idx] in float32 and bfloat16, int32 and int64
+     indices, ragged e, rows of 2 B to 40 KB, misaligned x, P2 up to its
+     227 KB limit and its refusal above it, two runs bitwise equal; P1 in
+     source order also against its plain version, on a row of 120k
+     positions (the split), rows with no position, pos=None and no split;
+     the row-gather probe (python -m
+     dgl_tpu_torch.tools.exp_dma_gather) as its main path, at its default
+     shape and at cora's node count at D = 16, each run with the three
+     counters set to 0 before it and read after it, every line with maxerr 0
+     but P2's refusal at the default shape; CUDA-event medians of P1 in both
+     orders, the plan's build, index_select and a write-only fill of the
+     same output on the index streams of K1 forward and backward, K3 forward
+     and b2 and pubmed's gather_src_rows, and the probe's default, with
+     gather_floor_ms (P1 less the fill) beside the kernel that gathers them,
+     the profiler's device ms and each stream's bound; P2 against P1 and
      index_select at (2708, 16) on reddit's indices mod 2708;
   9. gat_main: main_gat at full width, reddit and ogbn-arxiv (fused
      form, heads (1, 1, 1) and (4, 4, 4)) then pubmed (edge form), each run
@@ -83,9 +88,15 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      K2 and K1 none, the combines their graphs' plans give (see
      phase_gat_main); reddit's training peak device memory above the graph
      and data held below one (E, 16) float32 buffer; pubmed: K3 none, K2
-     exactly 9 per step plus one per edge-softmax rescue, K1 3 per step,
+     exactly 12 per step plus one per edge-softmax rescue, K1 3 per step,
      K1's combine once per K1 launch (pubmed's reverse CSR has long rows)
-     and K2's none. Losses finite and falling;
+     and K2's none, P1 in source order 18 per step plus two per rescue
+     (gat_edge_per_step); pubmed's profiled steps run no index_select.
+     Losses finite and falling. Then, on pubmed's graph, gather_src_rows,
+     gather_dst, spread_dst and segment_sum: forwards bit for bit against
+     index_select, gradients against float64 sums and the plain versions,
+     all four forward and backward under set_sync_debug_mode("error"), no
+     index_select in their profile (graph_gather_checks);
   10. sage_main: main_sage at full width on ogbn-arxiv (3 layers, hidden
      256, BN, bidirected; 10 epochs) and the full ogbn-products graph (3
      layers, hidden 64, bidirected; 5 epochs), each hoisted and with
@@ -100,15 +111,17 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   11. gc_main: main_gcn at full width on ENZYMES (600 graphs, 5 epochs),
      ogbg-molhiv (41,127 graphs, 3 epochs, fused and scatter) and ogbg-ppa
      (cut to 2,000 graphs, 3 epochs), batch 64, every counter set to 0
-     before a run and read after it: K1's and K2's launches per step as
-     derived from the code (gc_per_step), no combine; losses finite and
+     before a run and read after it: K1's, K2's and P1-in-source-order
+     launches per step as derived from the code (gc_per_step), no combine; losses finite and
      falling; one molhiv epoch profiled (the device's idle share); K2's mean
      and sum readouts on a molhiv batch at D = 256 against the plain version
      and float64 sums; one molhiv step under set_sync_debug_mode("error");
   12. kernels: one line listing every ported kernel with its numbers, K1's,
      K2's and K3's with T, long rows, chunks and combine launches, K3's at
      arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
-     K1's at the SAGE widths and K1's and K2's launches on the new paths.
+     K1's at the SAGE widths and K1's and K2's launches on the new paths,
+     P1 in source order beside P1 in index order with its plan's build
+     time and its launches on the pubmed GAT and GCN runs.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1077,14 +1090,19 @@ def gather_bound(idx, row_bytes):
 
 
 def check_row_gather(gen):
-    """P1 and P2 against x[idx], bit for bit, on every path the kernels
-    have: float32 and bfloat16, int32 and int64 indices, ragged e, copies of
-    16, 8, 4 and 2 bytes (rows of 41 bfloat16 values; x shifted off its
-    alignment), P1's staged pieces (1 KB rows) and column pieces (40 KB
-    rows), P2 up to and at its shared-memory limit; then P2's refusal
-    above the limit, before any launch. Returns the number of cases."""
+    """P1 in both orders and P2 against x[idx], bit for bit, on every path
+    the kernels have: float32 and bfloat16, int32 and int64 indices, ragged
+    e, copies of 16, 8, 4 and 2 bytes (rows of 41 bfloat16 values; x
+    shifted off its alignment), P1's staged pieces (1 KB rows) and column
+    pieces (40 KB rows), P2 up to and at its shared-memory limit; then P2's
+    refusal above the limit, before any launch. P1 in source order takes
+    gather_plan(idx, n) and is also held to its plain version, and on a row of more than 100k positions (the
+    split), rows with no position, pos=None (a dst CSR's gather) and
+    without a split. Returns the number of cases."""
+    from dgl_tpu_torch.graph.split import row_split
     from dgl_tpu_torch.kernels.row_gather import (
-        SMEM_LIMIT_BYTES, row_gather_async, row_gather_plain, row_gather_smem)
+        SMEM_LIMIT_BYTES, gather_plan, row_gather_async, row_gather_by_source,
+        row_gather_by_source_plain, row_gather_plain, row_gather_smem)
 
     dev = torch.device("cuda")
     cases = 0
@@ -1097,6 +1115,18 @@ def check_row_gather(gen):
             raise AssertionError(f"{what} tile={tile}: row {bad} differs from x[idx]")
         if not torch.equal(got, fn(x, idx, tile=tile)):
             raise AssertionError(f"{what} tile={tile}: two runs differ")
+        cases += 1
+
+    def hold_by_source(what, x, indptr, pos, split, want=None):
+        nonlocal cases
+        got = row_gather_by_source(x, indptr, pos, split)
+        plain = row_gather_by_source_plain(x, indptr, pos)
+        for name, ref in (("its plain version", plain), ("x[idx]", want)):
+            if ref is not None and not torch.equal(got, ref):
+                bad = int((got != ref).flatten(1).any(1).nonzero()[0])
+                raise AssertionError(f"row_gather_by_source {what}: row {bad} differs from {name}")
+        if not torch.equal(got, row_gather_by_source(x, indptr, pos, split)):
+            raise AssertionError(f"row_gather_by_source {what}: two runs differ")
         cases += 1
 
     def inputs(n, d, e, dtype, shift=0):
@@ -1118,10 +1148,39 @@ def check_row_gather(gen):
                 for ii in (idx.int(), idx):
                     for tile in tiles:
                         hold(f"{fn.__name__} ({n}, {d}) {dtype} e={e} {ii.dtype}", fn, x, ii, tile)
+                    if fn is row_gather_async:
+                        hold_by_source(f"({n}, {d}) {dtype} e={e} {ii.dtype}", x,
+                                       *gather_plan(ii, n), want=x[ii])
     for fn in (row_gather_async, row_gather_smem):  # x 8 and 4 bytes off 16-byte alignment
         for shift in (2, 1):
             x, idx = inputs(2708, 16, 50_001, torch.float32, shift)
             hold(f"{fn.__name__} x shifted by {shift} floats", fn, x, idx.int(), 512)
+            if fn is row_gather_async:
+                hold_by_source(f"x shifted by {shift} floats", x, *gather_plan(idx.int(), 2708),
+                               want=x[idx])
+    # the split: one row of 120k positions (235 chunks of T = 512), rows
+    # with no position (idx reads only the lower half), int64 positions
+    n = 5000
+    x, _ = inputs(n, 16, 1, torch.float32)
+    idx = torch.cat([torch.full((120_000,), 7, device=dev),
+                     torch.randint(0, n // 2, (30_000,), device=dev, generator=gen)])
+    idx = idx[torch.randperm(idx.numel(), device=dev, generator=gen)]
+    plan = gather_plan(idx, n)
+    if plan.split.num_long == 0 or int(plan.indptr[-1] - plan.indptr[n // 2]) != 0:
+        raise AssertionError("the long-row case has no long row or no empty row")
+    for what, p in (("a 120k-position row", plan), ("int64 positions",
+                                                    plan._replace(pos=plan.pos.long())),
+                    ("no split", plan._replace(split=None))):
+        hold_by_source(what, x, *p, want=x[idx])
+    # pos=None: a dst CSR's v[dst[j]], its rows long, short and empty
+    deg = torch.tensor([0, 3, 100_001, 0, 1, 513, 512, 2], device=dev)
+    ip = torch.zeros(deg.numel() + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(deg, 0, out=ip[1:])
+    for d, dtype in ((16, torch.float32), (8, torch.float32), (1, torch.float32),
+                     (41, torch.bfloat16)):
+        v, _ = inputs(deg.numel(), d, 1, dtype)
+        want = v.repeat_interleave(deg, dim=0)
+        hold_by_source(f"pos=None d={d} {dtype}", v, ip, None, row_split(ip), want=want)
     x, idx = inputs(228, 256, 1000, torch.float32)
     before = row_gather_smem.launches
     try:
@@ -1136,9 +1195,13 @@ def check_row_gather(gen):
 
 
 def phase_row_gather(red, red_graph, gred, gat_graph):
-    """P1 and P2 checked, the probe run as the path's main path, and the
-    gather floor of K1 and K3 measured on their own index streams."""
-    from dgl_tpu_torch.kernels.row_gather import row_gather_async, row_gather_plain, row_gather_smem
+    """P1 in both orders and P2 checked, the probe run as the path's main
+    path, and the gather floor of K1 and K3 measured on their own index
+    streams, with P1 in source order and its plan's build beside P1 in
+    index order and index_select on each."""
+    from dgl_tpu_torch.kernels.row_gather import (
+        gather_plan, row_gather_async, row_gather_by_source, row_gather_by_source_plain,
+        row_gather_plain, row_gather_smem)
     from dgl_tpu_torch.tools import exp_dma_gather
     from dgl_tpu_torch.train.timing import device_profile
 
@@ -1148,56 +1211,71 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
     cases = check_row_gather(gen)
 
     # the main path: the probe, each run with the counters set to 0 before it
+    counters = {"row_gather_async": row_gather_async, "row_gather_smem": row_gather_smem,
+                "row_gather_by_source": row_gather_by_source}
     probe, launches = {}, {}
     for key, argv in (("default", []), ("cora_d16", ["--n", "2708", "--d", "16"])):
         torch.cuda.synchronize()
-        row_gather_async.launches = row_gather_smem.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             lines = exp_dma_gather.main(argv)
-        launches[key] = {"row_gather_async": row_gather_async.launches,
-                         "row_gather_smem": row_gather_smem.launches}
+        launches[key] = {k: fn.launches for k, fn in counters.items()}
         probe[key] = {"stdout": log.getvalue().splitlines(), "lines": lines}
         # only P2's refusal of the default 173 MB x may fail, at both tiles
         failed = [ln for ln in lines if "failed" in ln]
-        if len(lines) != 6 or len(failed) != (2 if key == "default" else 0) or not all(
+        if len(lines) != 8 or len(failed) != (2 if key == "default" else 0) or not all(
                 ln["name"] == "row_gather_smem" and ln["failed"].startswith("ValueError")
                 for ln in failed):
             raise AssertionError(f"probe {key}: unexpected lines {lines}")
         if any(ln["maxerr"] != 0.0 for ln in lines if "maxerr" in ln):
             raise AssertionError(f"probe {key}: a gather differs from x[idx]: {lines}")
         torch.cuda.empty_cache()
-    want = {"default": {"row_gather_async": 18, "row_gather_smem": 0},
-            "cora_d16": {"row_gather_async": 18, "row_gather_smem": 18}}
-    if launches != want:  # per tile: 1 checked call, 2 cold, 6 timed
+    # per tile of P1 in index order and of P2: 1 checked call, 2 cold, 6
+    # timed; P1 in source order the same for its line, and 1 for the plan line
+    want = {"default": {"row_gather_async": 18, "row_gather_smem": 0, "row_gather_by_source": 10},
+            "cora_d16": {"row_gather_async": 18, "row_gather_smem": 18,
+                         "row_gather_by_source": 10}}
+    if launches != want:
         raise AssertionError(f"probe launches {launches}; want {want}")
 
     # the gather floor on the kernels' own index streams
     pubmed = _gat_graph("pubmed", dev)
     tool_x, tool_idx = exp_dma_gather.make_inputs(169343, 256, 2332486, torch.float32, dev)
-    streams = {  # name: (idx, n, d, the kernel that gathers these rows, its ms)
-        "k1_fwd": (red_graph.src, red_graph.num_src_nodes, 16, "K1 forward", red["fwd"]["kernel_ms"]),
+    streams = {  # name: (idx, n, d, the kernel that gathers these rows, its ms, the graph's plan)
+        "k1_fwd": (red_graph.src, red_graph.num_src_nodes, 16, "K1 forward", red["fwd"]["kernel_ms"],
+                   red_graph.reverse),
         "k1_bwd": (red_graph.reverse.src, red_graph.num_dst_nodes, 16, "K1 backward",
-                   red["bwd"]["kernel_ms"]),
+                   red["bwd"]["kernel_ms"], None),
         "k3_fwd": (gat_graph.src, gat_graph.num_src_nodes, 16, "K3 forward",
-                   gred["gat_attention_fwd"]["ms"]),
+                   gred["gat_attention_fwd"]["ms"], gat_graph.reverse),
         # b2 gathers g's rows by each reverse slot's original dst
         "k3_b2": (gat_graph.reverse.src, gat_graph.num_dst_nodes, 16, "K3 b2",
-                  gred["gat_attention_bwd"]["ms"]),
-        "gather_src_rows": (pubmed.src, pubmed.num_src_nodes, 64, "gather_src_rows (index_select)",
-                            None),
-        "tool_default": (tool_idx, 169343, 256, None, None),
+                  gred["gat_attention_bwd"]["ms"], None),
+        "gather_src_rows": (pubmed.src, pubmed.num_src_nodes, 64,
+                            "gather_src_rows (P1 in source order)", None, pubmed.reverse),
+        "tool_default": (tool_idx, 169343, 256, None, None, None),
     }
     floors = {}
-    for key, (idx, n, d, kernel, kernel_ms) in streams.items():
+    for key, (idx, n, d, kernel, kernel_ms, rev) in streams.items():
         x = tool_x if key == "tool_default" else torch.randn(n, d, device=dev, generator=gen)
         buf = torch.empty(idx.numel(), d, device=dev)
-        got = row_gather_async(x, idx)
-        if not torch.equal(got, x.index_select(0, idx)):
-            raise AssertionError(f"{key}: P1 differs from index_select")
-        del got
+        want_rows = x.index_select(0, idx)
+        plan = gather_plan(idx, n)
+        if rev is not None and not (torch.equal(plan.indptr, rev.indptr)
+                                    and torch.equal(plan.pos, rev.eid)):
+            raise AssertionError(f"{key}: the plan of src is not the graph's reverse CSR")
+        for name, got in (("P1", row_gather_async(x, idx)),
+                          ("P1 in source order", row_gather_by_source(x, *plan))):
+            if not torch.equal(got, want_rows):
+                raise AssertionError(f"{key}: {name} differs from index_select")
+        del got, want_rows
         p1 = {tile: median_ms(lambda: row_gather_async(x, idx, tile=tile), reps=20, warmup=3)
               for tile in (128, 256)}
+        by_source = lambda: row_gather_by_source(x, *plan)  # noqa: E731
+        src_ms = median_ms(by_source, reps=20, warmup=3)
+        plan_ms = median_ms(lambda: gather_plan(idx, n), reps=10, warmup=2)
         lib = median_ms(lambda: x.index_select(0, idx), reps=20, warmup=3)
         idx64 = idx.long()
         lib64 = median_ms(lambda: x.index_select(0, idx64), reps=20, warmup=3)
@@ -1206,23 +1284,28 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
         # which a small gather (pubmed's) does not hide: the profiler's
         # device time per call beside it
         busy = {name: device_profile(fn, 20, dev)["device_busy_ms_per_epoch"] for name, fn in (
-            ("p1", lambda: row_gather_async(x, idx)), ("index_select", lambda: x.index_select(0, idx)),
-            ("fill", lambda: buf.fill_(1.0)))}
+            ("p1", lambda: row_gather_async(x, idx)), ("by_source", by_source),
+            ("index_select", lambda: x.index_select(0, idx)), ("fill", lambda: buf.fill_(1.0)))}
         bound, by, bound_rows = gather_bound(idx, 4 * d)
         floors[key] = {
             "rows": idx.numel(), "n": n, "d": d, "p1_ms_tile128": p1[128], "p1_ms_tile256": p1[256],
+            "by_source_ms": src_ms, "plan_ms": plan_ms,
+            "long_rows": plan.split.num_long, "chunks": plan.split.num_chunks,
             "index_select_ms": lib, "index_select_int64_ms": lib64, "fill_ms": fill,
             # the time to read the indexed rows alone: P1 (its faster tile) less the write
             "gather_floor_ms": min(p1.values()) - fill,
-            "p1_device_ms": busy["p1"], "index_select_device_ms": busy["index_select"],
+            "p1_device_ms": busy["p1"], "by_source_device_ms": busy["by_source"],
+            "index_select_device_ms": busy["index_select"],
             "fill_device_ms": busy["fill"], "gather_floor_device_ms": busy["p1"] - busy["fill"],
             "bound_ms": bound, "bound_ms_e_rows": bound_rows,
-            "kernel": kernel, "kernel_ms": lib if key == "gather_src_rows" else kernel_ms,
+            "kernel": kernel, "kernel_ms": src_ms if key == "gather_src_rows" else kernel_ms,
         }
         if key == "tool_default":
             floors[key]["plain_ms"] = median_ms(lambda: row_gather_plain(x, idx), reps=10, warmup=2)
+            floors[key]["by_source_plain_ms"] = median_ms(
+                lambda: row_gather_by_source_plain(x, plan.indptr, plan.pos), reps=10, warmup=2)
             floors[key]["bound_by"] = by
-        del buf, idx64
+        del buf, idx64, plan
     del tool_x, tool_idx
 
     # P2 where it fits: cora's node count at reddit's width, reddit's indices
@@ -1245,7 +1328,8 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
     }
     emit("row_gather", seconds=time.perf_counter() - t0, cases=cases, launches=launches,
          probe=probe, gather_floor=floors, smem_2708x16=smem,
-         **{f"gather_floor_ms_{k}": f["gather_floor_ms"] for k, f in floors.items()})
+         **{f"gather_floor_ms_{k}": f["gather_floor_ms"] for k, f in floors.items()},
+         **{f"by_source_ms_{k}": f["by_source_ms"] for k, f in floors.items()})
     default = floors["tool_default"]
     return floors, {
         "row_gather_async": {
@@ -1256,6 +1340,21 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
             "bound_by": default["bound_by"], "bound_ms_e_rows": default["bound_ms_e_rows"],
             "shape": f"x (169343, 256) float32, e = {default['rows']} (the probe's default), "
                      "tile 256",
+        },
+        "row_gather_by_source": {
+            "launches": launches["default"]["row_gather_by_source"], "max_abs_err": max(
+                ln["maxerr"] for ln in probe["default"]["lines"]
+                if ln["name"] in ("row_gather_by_source", "gather_plan")),
+            "ms": default["by_source_ms"], "plain_ms": default["by_source_plain_ms"],
+            "library_ms": default["index_select_ms"], "bound_ms": default["bound_ms"],
+            "bound_by": default["bound_by"], "plan_ms": default["plan_ms"],
+            "index_order_ms": default["p1_ms_tile256"],
+            **{f"{k}_{stream}": floors[stream][f] for stream in ("k1_fwd", "gather_src_rows")
+               for k, f in (("ms", "by_source_ms"), ("plan_ms", "plan_ms"),
+                            ("library_ms", "index_select_ms"), ("bound_ms", "bound_ms"),
+                            ("index_order_ms", "p1_ms_tile256"))},
+            "shape": f"x (169343, 256) float32, e = {default['rows']} (the probe's default), "
+                     "the plan built beforehand",
         },
         "row_gather_smem": {
             "launches": launches["cora_d16"]["row_gather_smem"], "max_abs_err": smem["max_abs_err"],
@@ -1268,6 +1367,95 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
     }
 
 
+def gat_edge_per_step(layers=3):
+    """Launches of one training step of GAT's edge form (pubmed), from the
+    code (nn/conv.py:GATConv._edge, ops/gather.py, ops/softmax.py,
+    ops/spmm.py, ops/segment.py), per layer:
+      P1 in source order, forward: gather_src_rows(z) over the reverse CSR,
+        gather_dst(a_dst), and in edge_softmax gather_dst(shift) and
+        spread_dst(denominators) over the dst CSR (4);
+      P1 in source order, backward: the adjoints of seg_sum_dst in
+        edge_softmax and of gspmm(copy_e, sum) (2);
+      K2 forward: edge_softmax's seg_sum_dst and gspmm(copy_e, sum) (2);
+      K2 backward: the adjoints of spread_dst and gather_dst(a_dst) (2);
+      K1 backward: gather_src_rows' adjoint over the reverse CSR (1).
+    Returns (per step, per edge-softmax rescue): a rescue (every term of a
+    row underflowed under the loose bound) runs the exact form's forward as
+    well, one seg_sum_dst and two P1 gathers more; its backward replaces
+    the loose form's."""
+    per_layer = {"csr_spmm": 1, "seg_sum": 4, "row_gather_by_source": 6}
+    return ({k: n * layers for k, n in per_layer.items()},
+            {"csr_spmm": 0, "seg_sum": 1, "row_gather_by_source": 2})
+
+
+def _names_index_select(kernels):
+    """The profiled kernels that are PyTorch's index_select."""
+    return [k["name"] for k in kernels if "indexselect" in k["name"].lower().replace("_", "")]
+
+
+def graph_gather_checks(g, gen):
+    """The four row gathers of the graph ops on pubmed's graph at its
+    widths (z: 8 heads × 8, a_dst: 8 heads): gather_src_rows, gather_dst,
+    spread_dst and segment_sum's backward. Forwards (and segment_sum's
+    gradient, a gather) bit for bit against index_select; the other
+    gradients (K1 over the reverse CSR, K2 over the dst CSR) against
+    float64 sums within check's bounds and the plain versions at RTOL/ATOL;
+    all four forward and backward under set_sync_debug_mode("error"); a
+    profile of the same shows P1 in source order and no index_select."""
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm_plain
+    from dgl_tpu_torch.kernels.row_gather import gather_plan
+    from dgl_tpu_torch.kernels.seg_sum import seg_sum_plain
+    from dgl_tpu_torch.ops import gather_dst, gather_src_rows, segment_sum, spread_dst
+    from dgl_tpu_torch.train.timing import device_profile
+
+    dev = g.indptr.device
+    n, e, rev = g.num_dst_nodes, g.num_edges, g.reverse
+    src, dst = g.src.long(), g.dst.long()
+    around1 = lambda *shape: 1.0 + torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
+    z, a, b, msg = (around1(*shape).requires_grad_() for shape in ((n, 8, 8), (n, 8), (n, 8), (e, 8)))
+    cots = (around1(e, 8, 8), around1(e, 8), around1(e, 8), around1(n, 8))
+
+    def run():
+        for t in (z, a, b, msg):
+            t.grad = None
+        outs = (gather_src_rows(g, z), gather_dst(g, a), spread_dst(g, b),
+                segment_sum(msg, g.dst, g.indptr, g.split))
+        sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+        return outs
+
+    outs = run()
+    for what, got, want in (("gather_src_rows", outs[0], z.detach().index_select(0, src)),
+                            ("gather_dst", outs[1], a.detach().index_select(0, dst)),
+                            ("spread_dst", outs[2], b.detach().index_select(0, dst)),
+                            ("segment_sum's gradient", msg.grad, cots[3].index_select(0, dst))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"pubmed {what} differs from index_select")
+    acc = [0.0, 0.0, 0.0]
+    cz = cots[0].reshape(e, -1)
+    _merge(acc, [check("pubmed gather_src_rows' gradient", z.grad.reshape(n, -1), rev.indptr,
+                       (csr_spmm_plain(rev.indptr, rev.eid, cz.double()),
+                        csr_spmm_plain(rev.indptr, rev.eid, cz.double().abs())),
+                       csr_spmm_plain(rev.indptr, rev.eid, cz))])
+    for what, t, c in (("gather_dst", a, cots[1]), ("spread_dst", b, cots[2])):
+        _merge(acc, [check(f"pubmed {what}'s gradient", t.grad, g.indptr,
+                           (seg_sum_plain(g.indptr, c.double()),
+                            seg_sum_plain(g.indptr, c.double().abs())),
+                           seg_sum_plain(g.indptr, c), slack=(2, 8))])
+    grads = [t.grad.clone() for t in (z, a, b, msg)]
+    run()
+    if not all(torch.equal(x, t.grad) for x, t in zip(grads, (z, a, b, msg))):
+        raise AssertionError("pubmed graph gathers: two runs' gradients differ")
+    no_host_sync(run, lambda: gather_plan(g.src, n))  # a plan's build reads indptr back
+    kernels = device_profile(run, 3, dev, unit="call")["kernels"]
+    if _names_index_select(kernels) or not any(
+            "row_gather_by_source" in k["name"] for k in kernels):
+        raise AssertionError(f"pubmed graph gathers: profiled kernels {[k['name'] for k in kernels]}")
+    return {"max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
+            "no_host_sync": True, "deterministic": True,
+            "kernels": [{"name": k["name"][:80], "device_ms": k["device_ms_per_call"],
+                         "calls": k["calls_per_call"]} for k in kernels[:8]]}
+
+
 def phase_gat_main():
     """main_gat's three paths, each with every counter set to 0 just
     before it and read just after it.
@@ -1277,16 +1465,11 @@ def phase_gat_main():
     CSR has long rows (arxiv's), a b2 call B2_COMBINES times when the
     reverse CSR has (both graphs').
 
-    pubmed runs the edge form; its launches per step, from the code
-    (ops/gather.py, ops/softmax.py, nn/conv.py), for each of its 3 layers:
-      K2 forward: edge_softmax's seg_sum_dst (1) and gspmm(copy_e, sum) (1);
-      K2 backward: spread_dst's adjoint in edge_softmax (1);
-      K1 backward: gather_src_rows' adjoint over the reverse CSR (1);
-      (gather_dst and gspmm's copy_e adjoint are row gathers, no kernel)
-    = 3 K2 and 1 K1 per layer, 9 K2 and 3 K1 per step. A rescue in
-    edge_softmax (every term of a row underflowed under the loose bound)
-    adds one forward K2 launch: the exact form's seg_sum_dst; its backward
-    replaces the loose form's.
+    pubmed runs the edge form: its launches per step are gat_edge_per_step's,
+    12 K2, 3 K1 and 18 P1 in source order, and each edge-softmax rescue
+    adds one K2 and two P1 launches; its run goes on for PUBMED_PROFILE
+    profiled steps, counted with the others, whose kernels hold no
+    index_select. Then graph_gather_checks on pubmed's graph.
 
     The reddit run's device memory is read from the start of training
     (``train_peak_bytes`` above ``setup_bytes``): what the steps add beyond
@@ -1296,22 +1479,28 @@ def phase_gat_main():
     from dgl_tpu_torch.benchmarks.node_classification import main_gat
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
     from dgl_tpu_torch.kernels.gat_attention import B2_COMBINES, gat_attention_bwd, gat_attention_fwd
+    from dgl_tpu_torch.kernels.row_gather import row_gather_by_source
     from dgl_tpu_torch.kernels.seg_sum import seg_sum
     from dgl_tpu_torch.ops.softmax import edge_softmax
 
     counters = {"csr_spmm": csr_spmm, "gat_attention_fwd": gat_attention_fwd,
                 "gat_attention_bwd": gat_attention_bwd, "seg_sum": seg_sum}
-    steps = {"reddit": 8, "ogbn-arxiv": 10, "pubmed": 30}
+    epochs = {"reddit": 8, "ogbn-arxiv": 10, "pubmed": 30}
+    profiled = {"reddit": 0, "ogbn-arxiv": 0, "pubmed": PUBMED_PROFILE}
+    steps = {ds: epochs[ds] + profiled[ds] for ds in epochs}
     res, launches, rescues, combines = {}, {}, {}, {}
     for ds in steps:
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = fn.combines = 0
+        row_gather_by_source.launches = 0
         edge_softmax.rescues = 0
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
-            r = main_gat.run(ds, epochs=steps[ds], runs=1, device="cuda")
+            r = main_gat.run(ds, epochs=epochs[ds], runs=1, device="cuda",
+                             profile_epochs=profiled[ds])
         launches[ds] = {k: fn.launches for k, fn in counters.items()}
+        launches[ds]["row_gather_by_source"] = row_gather_by_source.launches
         combines[ds] = {k: fn.combines for k, fn in counters.items()}
         rescues[ds] = edge_softmax.rescues
         res[ds] = r
@@ -1324,23 +1513,34 @@ def phase_gat_main():
     for ds in ("reddit", "ogbn-arxiv"):
         s, gg = steps[ds], graphs[ds]
         want_l[ds] = {"csr_spmm": 0, "gat_attention_fwd": 3 * s, "gat_attention_bwd": 3 * s,
-                      "seg_sum": 0}
+                      "seg_sum": 0, "row_gather_by_source": 0}
         want_c[ds] = {"csr_spmm": 0, "gat_attention_fwd": 3 * s * int(gg.split.num_long > 0),
                       "gat_attention_bwd": B2_COMBINES * 3 * s * int(gg.reverse.split.num_long > 0),
                       "seg_sum": 0}
     s, pub = steps["pubmed"], graphs["pubmed"]
-    want_l["pubmed"] = {"csr_spmm": 3 * s, "gat_attention_fwd": 0, "gat_attention_bwd": 0,
-                        "seg_sum": 9 * s + rescues["pubmed"]}
+    per_step, per_rescue = gat_edge_per_step()
+    want_l["pubmed"] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0} | {
+        k: n * s + per_rescue[k] * rescues["pubmed"] for k, n in per_step.items()}
     # K1's launches (the gather adjoint) run over pubmed's reverse CSR, whose
     # long rows each take a combine; K2 runs over the dst CSR, which has none
-    want_c["pubmed"] = {"csr_spmm": 3 * s * int(pub.reverse.split.num_long > 0),
+    want_c["pubmed"] = {"csr_spmm": want_l["pubmed"]["csr_spmm"] * int(pub.reverse.split.num_long > 0),
                         "gat_attention_fwd": 0, "gat_attention_bwd": 0,
-                        "seg_sum": (9 * s + rescues["pubmed"]) * int(pub.split.num_long > 0)}
+                        "seg_sum": want_l["pubmed"]["seg_sum"] * int(pub.split.num_long > 0)}
+    gathers = graph_gather_checks(pub, torch.Generator(device="cuda").manual_seed(4))
     del graphs, pub
     if launches != want_l:
         raise AssertionError(f"launches {launches}; want {want_l}")
     if combines != want_c:
         raise AssertionError(f"combine launches {combines}; want {want_c}")
+    prof = res["pubmed"]["profile"]
+    if _names_index_select(prof["kernels"]):
+        raise AssertionError(f"pubmed's step runs index_select: {_names_index_select(prof['kernels'])}")
+    pub_prof = {k: prof[k] for k in ("epochs", "wall_ms_per_epoch", "device_busy_ms_per_epoch",
+                                     "device_idle_share")} | {
+        "row_gather_by_source_ms_per_epoch": sum(
+            k["device_ms_per_epoch"] for k in prof["kernels"] if "row_gather_by_source" in k["name"]),
+        "kernels": [{"name": k["name"][:80], "device_ms": k["device_ms_per_epoch"],
+                     "calls": k["calls_per_epoch"]} for k in prof["kernels"][:12]]}
     for ds in res:
         losses = res[ds]["losses"][0]
         tail = statistics.mean(losses[-5:])
@@ -1360,7 +1560,10 @@ def phase_gat_main():
          **{f"{k}_setup_s": res[ds]["setup_s"] for ds, k in _GAT_KEYS.items()},
          **{f"{k}_losses": res[ds]["losses"][0] for ds, k in _GAT_KEYS.items()},
          steps=steps, launches=launches, combines=combines, pubmed_rescues=rescues["pubmed"],
-         splits=plans, pubmed_k2_per_step_derived=9, pubmed_k1_per_step_derived=3,
+         splits=plans, pubmed_k2_per_step_derived=per_step["seg_sum"],
+         pubmed_k1_per_step_derived=per_step["csr_spmm"],
+         pubmed_by_source_per_step_derived=per_step["row_gather_by_source"],
+         pubmed_profile=pub_prof, graph_gathers=gathers,
          reddit_setup_bytes=res["reddit"]["setup_bytes"],
          reddit_train_peak_bytes=res["reddit"]["train_peak_bytes"],
          reddit_train_extra_bytes=train_extra["reddit"],
@@ -1373,6 +1576,7 @@ def phase_gat_main():
     return launches, combines
 
 
+PUBMED_PROFILE = 3  # pubmed's profiled steps after its 30: the step's kernels and idle share
 _GAT_KEYS = {"reddit": "reddit", "ogbn-arxiv": "arxiv", "pubmed": "pubmed"}
 
 
@@ -1566,16 +1770,21 @@ GC_PROFILE_STEPS = 64  # molhiv's profiled window: its idle share, not a whole e
 
 
 def gc_per_step(dataset, lowering):
-    """K1 and K2 launches in one training step, from the code (nn/conv.py,
-    ops/sddmm.py, graph/batch.py). ENZYMES: 4 GCNConv, each a forward K1
-    and, as W x needs a gradient, a backward K1; the mean readout one K2 (its
-    backward is a row gather). molhiv and ppa: 5 GCNConvEdge, each
-    gsddmm(copy_u)'s adjoint, one K1, and fused one K2 for gspmm(copy_e,
-    sum) (backward a row gather; scatter: index_add_, no kernel); the
-    readout one K2. norm = gsddmm(mul, c, c) needs no gradient: no launch."""
+    """K1, K2 and P1-in-source-order launches in one training step, from the
+    code (nn/conv.py, ops/sddmm.py, ops/gather.py, ops/segment.py,
+    graph/batch.py). ENZYMES: 4 GCNConv, each a forward K1 and, as W x needs
+    a gradient, a backward K1; the mean readout one K2 and its backward one
+    P1 gather. molhiv and ppa: 5 GCNConvEdge, each norm = gsddmm(mul, c, c),
+    two P1 gathers (c[src] over the reverse CSR, c[dst] over the dst CSR)
+    that need no gradient, and gsddmm(copy_u), one P1 gather whose adjoint
+    is one K1; fused, one K2 for gspmm(copy_e, sum), whose backward is one
+    P1 gather (scatter: index_add_ and its index_select backward, no
+    kernel); the readout one K2 and one P1 gather."""
     if dataset == "ENZYMES":
-        return {"csr_spmm": 8, "seg_sum": 1}
-    return {"csr_spmm": 5, "seg_sum": 6 if lowering == "fused" else 1}
+        return {"csr_spmm": 8, "seg_sum": 1, "row_gather_by_source": 1}
+    if lowering == "fused":
+        return {"csr_spmm": 5, "seg_sum": 6, "row_gather_by_source": 21}
+    return {"csr_spmm": 5, "seg_sum": 1, "row_gather_by_source": 16}
 
 
 def _gc_long_rows(dataset, num_graphs):
@@ -1686,14 +1895,15 @@ def gc_step_no_host_sync():
 def phase_gc_main():
     """main_gcn on ENZYMES (600 graphs), molhiv (41,127 graphs, fused and
     scatter) and ppa (cut to 2,000 graphs), batch 64, every counter set to 0
-    before a run and read after it: K1 and K2 launches gc_per_step per
-    step, no combine (no batch holds a row over T: _gc_long_rows); losses
+    before a run and read after it: K1, K2 and P1-in-source-order launches
+    gc_per_step per step, no combine (no batch holds a row over T: _gc_long_rows); losses
     finite and falling. molhiv fused also profiles GC_PROFILE_STEPS further
     steps (the device's idle share). Then gc_kernel_checks and one molhiv
     step under the sync check."""
     from dgl_tpu_torch.benchmarks.graph_classification import main_gcn
     from dgl_tpu_torch.graph.split import SPLIT_T
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+    from dgl_tpu_torch.kernels.row_gather import row_gather_by_source
     from dgl_tpu_torch.kernels.seg_sum import seg_sum
 
     t_phase = time.perf_counter()
@@ -1703,6 +1913,7 @@ def phase_gc_main():
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = fn.combines = 0
+        row_gather_by_source.launches = 0
         log = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
@@ -1711,6 +1922,7 @@ def phase_gc_main():
                              profile_steps=GC_PROFILE_STEPS if key == "molhiv" else 0)
         r["run_s"] = time.perf_counter() - t0
         launches[key] = {k: fn.launches for k, fn in counters.items()}
+        launches[key]["row_gather_by_source"] = row_gather_by_source.launches
         combines[key] = {k: fn.combines for k, fn in counters.items()}
         if "Training time/epoch" not in log.getvalue():
             raise AssertionError(f"{key}: no 'Training time/epoch' line")
@@ -1777,6 +1989,9 @@ def main():
     glaunch, gcombines = phase_gat_main()
     slaunch, scombines, widths = phase_sage_main()
     claunch, ccombines, readout, gc_k1 = phase_gc_main()
+    rows["row_gather_by_source"].update(
+        launches_pubmed_gat=glaunch["pubmed"]["row_gather_by_source"],
+        **{f"launches_gcn_{k}": v["row_gather_by_source"] for k, v in claunch.items()})
     both = lambda key: red["fwd"][key] + red["bwd"][key]  # noqa: E731
     sage_keys = {"arxiv": "ogbn-arxiv", "products": "ogbn-products"}
     k1_widths = {f"{k}_{ds.removeprefix('ogbn-')}_d{d}_{side}": w[side][k]
@@ -1895,11 +2110,15 @@ def main():
             **{f"{k}_{shape}": t[k] for shape, t in readout["k2_times"].items()
                for k in ("ms", "plain_ms", "index_add_ms", "bound_ms")},
         },
-        # P1 at the probe's default shape, launches from the probe's default
-        # run; P2 where x fits, launches from the probe's run at (2708, 16)
+        # P1 in both orders at the probe's default shape, launches from the
+        # probe's default run (in source order also its launches on the
+        # pubmed GAT and GCN runs, and its times on reddit's and pubmed's
+        # src streams); P2 where x fits, launches from the probe's run at
+        # (2708, 16)
         *({"name": name, "route": "cuda", "source": "dgl_tpu_torch/kernels/csrc/row_gather.cu",
            "replaces": replaces, **rows[name]}
           for name, replaces in (("row_gather_async", "tools/exp_dma_gather.py:34"),
+                                 ("row_gather_by_source", "tools/exp_dma_gather.py:34"),
                                  ("row_gather_smem", "tools/exp_dma_gather.py:72"))),
     ]}), flush=True)
     emit("done", seconds=time.perf_counter() - t0)

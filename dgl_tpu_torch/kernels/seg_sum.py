@@ -17,7 +17,8 @@ rest takes two consecutive rows (``kRowsPerWarp`` in the source).
 
 Counterpart of ``dgl_tpu/kernels/piece_reduce.py:segment_sum_mxu``. Its
 backward, ``grad_msg[j] = gout[dst[j]]``, is a row gather (an XLA op in the
-JAX package, ``index_select`` here); ``ops/gather.py`` pairs the two.
+JAX package, P1 in source order here: ``row_gather.py:row_gather_by_source``
+over the same row offsets); ``ops/gather.py`` pairs the two.
 """
 
 from __future__ import annotations

@@ -2,46 +2,52 @@
 
 Counterpart of ``dgl_tpu/ops/gather.py``. Each differentiable op pairs a
 row gather with a segment sum over a CSR as its adjoint, so neither
-direction is a scatter-add with atomics:
+direction is a scatter-add with atomics. Every row gather is P1 in source
+order (``kernels/row_gather.py:row_gather_by_source``) over one of the
+graph's CSRs, which are its plans: each row is read once and written to its
+edges.
 
-* ``gather_src_rows(g, x)`` = ``x[src[j]]``; backward: for every source
-  node, the sum of the cotangents of its out-edges, one K1 launch
-  (``kernels/csr_spmm.py``) over the reverse CSR with ``g.reverse.eid``
-  (each reverse slot's forward-canonical slot) as its index, so the
+* ``gather_src_rows(g, x)`` = ``x[src[j]]``: the reverse CSR, whose
+  ``g.reverse.eid`` holds each reverse slot's forward-canonical slot, the
+  output position. Backward: for every source node, the sum of the
+  cotangents of its out-edges, one K1 launch (``kernels/csr_spmm.py``)
+  over the reverse CSR with ``g.reverse.eid`` as its index, so the
   cotangents are read where they lie, with no permuted copy. The JAX
   package permutes them and sums with K2 (``_seg_sum_by_dst``);
-* ``spread_dst(g, v)`` = ``v[dst[j]]``; backward: K2 over the dst CSR;
+* ``spread_dst(g, v)`` and ``gather_dst(g, v)`` = ``v[dst[j]]``: the dst
+  CSR, positions equal to slots, so the writes are contiguous runs.
+  Backward: K2 over the dst CSR;
 * ``seg_sum_dst(g, msg)`` = K2 over the dst CSR (``ops/segment.py:
   segment_sum`` by dst); backward: the row gather by dst.
 
-``gather_dst`` is the plain row gather; autograd differentiates it.
 Edge arrays are in the graph's canonical (dst-sorted) order, any trailing
-shape.
+shape, of a type of an even byte size (float32, bfloat16, ...: P1 moves
+2-byte words). The backwards are kernel launches that autograd does not
+trace, so the ops have first-order gradients only: a double backward
+raises.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..graph.graph import Graph
 from ..kernels.csr_spmm import csr_spmm
-from .segment import _seg_sum_rows, segment_sum
+from .segment import _gather_rows, _seg_sum_rows, segment_sum
 
 __all__ = ["gather_dst", "gather_src_rows", "spread_dst", "seg_sum_dst"]
-
-
-def gather_dst(g: Graph, v: torch.Tensor) -> torch.Tensor:
-    """``v[dst[j]]`` for every edge."""
-    return v.index_select(0, g.dst)
 
 
 class _GatherSrcRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g):
         ctx.g = g
-        return x.index_select(0, g.src)
+        rev = g.reverse
+        return _gather_rows(x, rev.indptr, rev.eid, rev.split)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, ge):
         rev = ctx.g.reverse
         flat = ge.reshape(ge.shape[0], -1).contiguous()
@@ -53,9 +59,10 @@ class _SpreadDst(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, g):
         ctx.g = g
-        return gather_dst(g, v)
+        return _gather_rows(v, g.indptr, None, g.split)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, ge):
         return _seg_sum_rows(ge, ctx.g.indptr, ctx.g.split), None
 
@@ -72,6 +79,9 @@ def gather_src_rows(g: Graph, x: torch.Tensor) -> torch.Tensor:
 def spread_dst(g: Graph, v: torch.Tensor) -> torch.Tensor:
     """Differentiable ``v[dst[j]]`` whose backward is one K2 launch."""
     return _SpreadDst.apply(v, g)
+
+
+gather_dst = spread_dst  # the JAX package's name for the same gather
 
 
 def seg_sum_dst(g: Graph, msg: torch.Tensor) -> torch.Tensor:

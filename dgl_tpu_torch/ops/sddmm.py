@@ -7,8 +7,9 @@ order::
     out[e] = op(lhs[u], rhs[v]),  op ∈ {add, sub, mul, div, dot, copy_u, copy_v}
 
 ``lhs[u]`` is ``ops/gather.py:gather_src_rows``, whose adjoint is one K1
-launch over the reverse CSR; ``rhs[v]`` is ``gather_dst``, a row gather that
-autograd differentiates; the ops are elementwise torch. ``dot`` keeps a
+launch over the reverse CSR; ``rhs[v]`` is ``gather_dst``, whose adjoint is
+one K2 launch over the dst CSR; both gathers are P1 in source order over
+the graph's CSRs; the ops are elementwise torch. ``dot`` keeps a
 trailing axis of 1. The graph has no padded edges, so ``mask_padding`` is
 accepted and does nothing.
 """

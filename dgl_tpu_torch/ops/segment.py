@@ -8,19 +8,23 @@ not ported):
   over the segments' row offsets ``indptr``, which the caller builds on the
   host with their row split (as ``from_edges`` and ``batch_graphs`` do), so
   nothing is read back from the card; the backward is the row gather
-  ``gout[seg_ids]``. An empty segment gives 0; mean divides by
-  ``max(count, 1)``.
+  ``gout[seg_ids]``, P1 in source order over the same row offsets
+  (``kernels/row_gather.py:row_gather_by_source``, positions equal to
+  slots). An empty segment gives 0; mean divides by ``max(count, 1)``.
 * ``segment_max``: plain PyTorch (an XLA op in the JAX package, not a
   kernel); the exact shift of ``edge_softmax`` and the max readout use it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..graph.split import RowSplit
+from ..kernels.row_gather import row_gather_by_source
 from ..kernels.seg_sum import seg_sum
 
 __all__ = ["segment_sum", "segment_mean", "segment_max"]
@@ -34,16 +38,26 @@ def _seg_sum_rows(data: torch.Tensor, indptr: torch.Tensor,
     return out.reshape((indptr.numel() - 1,) + tail)
 
 
+def _gather_rows(v: torch.Tensor, indptr: torch.Tensor, pos: Optional[torch.Tensor],
+                 split: Optional[RowSplit], num_out: Optional[int] = None) -> torch.Tensor:
+    """P1 in source order over a CSR, any trailing shape: (N, ...) → (E, ...)."""
+    rows = v.reshape(v.shape[0], math.prod(v.shape[1:])).contiguous()
+    out = row_gather_by_source(rows, indptr, pos, split, num_out=num_out)
+    return out.reshape((out.shape[0],) + tuple(v.shape[1:]))
+
+
 class _SegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, seg_ids, indptr, split):
-        ctx.save_for_backward(seg_ids)
+        ctx.save_for_backward(indptr)
+        ctx.split, ctx.num = split, data.shape[0]
         return _seg_sum_rows(data, indptr, split)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, gout):
-        (seg_ids,) = ctx.saved_tensors
-        return gout.index_select(0, seg_ids), None, None, None
+        (indptr,) = ctx.saved_tensors
+        return _gather_rows(gout, indptr, None, ctx.split, num_out=ctx.num), None, None, None
 
 
 def segment_sum(data: torch.Tensor, seg_ids: torch.Tensor, indptr: torch.Tensor,
@@ -53,7 +67,8 @@ def segment_sum(data: torch.Tensor, seg_ids: torch.Tensor, indptr: torch.Tensor,
     ``seg_ids`` (E,) ascending, ``indptr`` (S + 1,) the same segments as row
     offsets (``indptr[s]:indptr[s + 1]`` holds segment ``s``), ``split``
     their row split (see ``kernels/seg_sum.py``; without one a launch on the
-    card reads ``indptr`` back)."""
+    card reads ``indptr`` back). ``data`` is float32 or bfloat16 (K2's
+    types); first-order gradients only: a double backward raises."""
     if data.shape[0] != seg_ids.shape[0]:
         raise ValueError(f"data has {data.shape[0]} rows, seg_ids {seg_ids.shape[0]}")
     return _SegmentSum.apply(data, seg_ids, indptr, split)

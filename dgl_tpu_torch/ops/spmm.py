@@ -14,7 +14,8 @@ kernel); the backward scales the output cotangent by the same
 reverse CSR, as ``_lane_copy_u_bwd`` does in the JAX package. ``copy_e``:
 one K2 launch (``ops/gather.py:seg_sum_dst``) over edge features in
 canonical order, any trailing shape; mean scales its result by
-``1/max(deg, 1)``; the backward is a row gather by dst.
+``1/max(deg, 1)``; the backward is a row gather by dst (P1 in source
+order over the dst CSR).
 
 ``lowering="scatter"`` is a second lowering the caller names, the PyG twin
 (``dgl_tpu/ops/spmm.py:604-626``, the JAX package's

@@ -7,7 +7,11 @@ the counterpart of XLA's ``x[idx]``), the same gather split in four, P1
 and 256) and P2 (``row_gather_smem``: x wholly in each block's shared
 memory, tiles 512 and 2048), each with its rows per second and its largest
 difference from ``x[idx]``. P2 takes only an x of at most 227 KB; above that
-its wrapper refuses before any launch, and the line says FAILED.
+its wrapper refuses before any launch, and the line says FAILED. Two lines
+of the port's own follow: P1 in source order (``row_gather_by_source``,
+each row of x read once) with the plan of idx built beforehand, and the
+plan's build (``gather_plan``: a sort of idx and its row split), its
+maxerr that of a gather through the plan it built.
 
     python -m dgl_tpu_torch.tools.exp_dma_gather [--n 169343 --d 256 --e 2332486]
                                                  [--dtype float32|bfloat16] [--device cuda]
@@ -29,7 +33,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.row_gather import row_gather_async, row_gather_plain, row_gather_smem
+from ..kernels.row_gather import (
+    gather_plan,
+    row_gather_async,
+    row_gather_by_source,
+    row_gather_plain,
+    row_gather_smem,
+)
 from ..train.timing import event_times_ms, time_fn
 
 __all__ = ["main"]
@@ -55,7 +65,10 @@ def make_inputs(n: int, d: int, e: int, dtype: torch.dtype, device: torch.device
 
 def main(argv: Optional[List[str]] = None) -> List[dict]:
     """Run the probe, print its lines and return them as dicts (``name``,
-    ``tile``, and ``ms``, ``rows_per_s``, ``maxerr``, or ``failed``)."""
+    ``tile``, and ``ms``, ``rows_per_s``, ``maxerr``, or ``failed``). On the
+    card P1 in index order launches 18 times (per tile: 1 checked call, 2
+    cold, 6 timed), P2 18 or none, P1 in source order 10 (9 for its line,
+    1 to check the plan line's plan)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=169343)
     ap.add_argument("--d", type=int, default=256)
@@ -105,6 +118,12 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             continue
         report(f"smem gather tile={tile:4d}: ", "row_gather_smem", tile,
                lambda: row_gather_smem(x, idx, tile=tile), out)
+
+    plan = gather_plan(idx, args.n)
+    report("async gather by source:", "row_gather_by_source", None,
+           lambda: row_gather_by_source(x, *plan), row_gather_by_source(x, *plan))
+    build = lambda: gather_plan(idx, args.n)  # noqa: E731
+    report("by-source plan build: ", "gather_plan", None, build, row_gather_by_source(x, *build()))
     return results
 
 

@@ -1,16 +1,27 @@
 """The port's GAT driver, rehearsed on the CPU at a tiny scale: reddit in
 the fused form, pubmed in the edge form. It prints the reference's lines,
-and the loss is finite and falls."""
+the loss is finite and falls, and the kernel calls a step makes are the ones
+chip_smoke.py derives from the code."""
 
 import math
+import os
+import sys
 
 import pytest
 
+import dgl_tpu_torch.kernels.gat_attention as gat_mod
+import dgl_tpu_torch.ops.gather as gather_mod
+import dgl_tpu_torch.ops.segment as segment_mod
 from dgl_tpu_torch.benchmarks.node_classification import main_gat
 from dgl_tpu_torch.data import load_node_dataset
 from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
 from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
+from dgl_tpu_torch.kernels.row_gather import row_gather_by_source
 from dgl_tpu_torch.kernels.seg_sum import seg_sum
+from dgl_tpu_torch.ops.softmax import edge_softmax
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 
 @pytest.fixture
@@ -24,7 +35,7 @@ def tiny(tmp_path, monkeypatch):
 
 def _launches():
     return (csr_spmm.launches, seg_sum.launches, gat_attention_fwd.launches,
-            gat_attention_bwd.launches)
+            gat_attention_bwd.launches, row_gather_by_source.launches)
 
 
 @pytest.mark.parametrize("dataset,fused,extra", [
@@ -57,3 +68,36 @@ def test_run_profiles_and_rejects_unknown_settings(tiny):
         main_gat.run("citeseer", device="cpu")
     with pytest.raises(ValueError, match="unknown overrides"):
         main_gat.run("reddit", device="cpu", heads=4)
+
+
+@pytest.mark.parametrize("dataset", ["pubmed", "reddit"])
+def test_kernel_calls_per_step_are_the_derived_ones(tiny, monkeypatch, dataset):
+    """pubmed's edge form makes gat_edge_per_step's K1, K2 and
+    P1-in-source-order calls a step, and those of each edge-softmax rescue,
+    as phase_gat_main holds the card's counters to; reddit's fused form
+    makes none of them, one K3 forward and one b2 a layer."""
+    calls = dict.fromkeys(("csr_spmm", "seg_sum", "row_gather_by_source", "gat_attention_fwd",
+                           "gat_attention_bwd"), 0)
+
+    def spy(real, name):
+        def f(*a, **kw):
+            calls[name] += 1
+            return real(*a, **kw)
+        return f
+
+    for mod, real in ((gather_mod, csr_spmm), (segment_mod, seg_sum),
+                      (segment_mod, row_gather_by_source), (gat_mod, gat_attention_fwd),
+                      (gat_mod, gat_attention_bwd)):
+        monkeypatch.setattr(mod, real.__name__, spy(real, real.__name__))
+    rescues = edge_softmax.rescues
+    res = main_gat.run(dataset, device="cpu", epochs=4, profile_epochs=2)
+    steps, rescues = 4 + 2, edge_softmax.rescues - rescues
+    if dataset == "pubmed":
+        per_step, per_rescue = chip_smoke.gat_edge_per_step()
+        want = {k: n * steps + per_rescue[k] * rescues for k, n in per_step.items()}
+        want |= {"gat_attention_fwd": 0, "gat_attention_bwd": 0}
+    else:
+        want = {"csr_spmm": 0, "seg_sum": 0, "row_gather_by_source": 0,
+                "gat_attention_fwd": 3 * steps, "gat_attention_bwd": 3 * steps}
+    assert calls == want, (calls, rescues)
+    assert res["profile"]["epochs"] == 2

@@ -1,9 +1,9 @@
 """The port's GCN graph-classification driver, rehearsed on the CPU at a
 tiny --num-graphs: ENZYMES, ogbg-molhiv (fused and scatter) and ogbg-ppa.
 It prints the reference's lines, the loss is finite, the kernel counters do
-not move on CPU tensors, the split is the reference's, the K1 and K2 calls a
-step makes are the ones chip_smoke.py derives from the code, and the
-left-out flags raise."""
+not move on CPU tensors, the split is the reference's, the K1, K2 and
+P1-in-source-order calls a step makes are the ones chip_smoke.py derives
+from the code, and the left-out flags raise."""
 
 import math
 import os
@@ -19,6 +19,7 @@ import dgl_tpu_torch.ops.spmm as spmm_mod
 from dgl_tpu_torch.benchmarks.graph_classification import main_gcn
 from dgl_tpu_torch.data import load_graph_dataset
 from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+from dgl_tpu_torch.kernels.row_gather import row_gather_by_source
 from dgl_tpu_torch.kernels.seg_sum import seg_sum
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -41,11 +42,12 @@ def _one_torch_thread():
     ("ogbg-ppa", "fused", 20),
 ])
 def test_main_prints_reference_lines(capsys, dataset, lowering, graphs):
-    before = (csr_spmm.launches, seg_sum.launches)
+    before = (csr_spmm.launches, seg_sum.launches, row_gather_by_source.launches)
     res = main_gcn.main(["--dataset", dataset, "--device", "cpu", "--num-graphs", str(graphs),
                          "--batch_size", "16", "--epochs", "3", "--runs", "1", "--eval",
                          "--lowering", lowering])
-    assert (csr_spmm.launches, seg_sum.launches) == before  # CPU tensors launch nothing
+    # CPU tensors launch nothing
+    assert (csr_spmm.launches, seg_sum.launches, row_gather_by_source.launches) == before
     out = capsys.readouterr().out
     for line in ("Training time/epoch", "Run: 01, Epoch: 03, Loss:", "% Valid: ",
                  "  Final Train:", "   Final Test:"):
@@ -71,7 +73,7 @@ def test_split_is_the_references():
     ("ENZYMES", "fused"), ("ogbg-molhiv", "fused"), ("ogbg-molhiv", "scatter"),
     ("ogbg-ppa", "fused")])
 def test_kernel_calls_per_step_are_the_derived_ones(monkeypatch, dataset, lowering):
-    calls = {"csr_spmm": 0, "seg_sum": 0}
+    calls = {"csr_spmm": 0, "seg_sum": 0, "row_gather_by_source": 0}
 
     def spy(real, name):
         def f(*a, **kw):
@@ -80,7 +82,8 @@ def test_kernel_calls_per_step_are_the_derived_ones(monkeypatch, dataset, loweri
         return f
 
     for mod, name, real in ((spmm_mod, "csr_spmm", csr_spmm), (gather_mod, "csr_spmm", csr_spmm),
-                            (segment_mod, "seg_sum", seg_sum)):
+                            (segment_mod, "seg_sum", seg_sum),
+                            (segment_mod, "row_gather_by_source", row_gather_by_source)):
         monkeypatch.setattr(mod, name, spy(real, name))
     res = main_gcn.run(dataset, batch_size=8, epochs=2, lowering=lowering, num_graphs=30,
                        device="cpu", profile_steps=4)

@@ -1,7 +1,7 @@
 """K1 (csr_spmm): the plain version against a numpy oracle, the wrapper's
 checks, and, on a CUDA card, K1, K2 (seg_sum), both K3 passes
-(gat_attention_fwd / _bwd) and P1 and P2 (row_gather_async / _smem) against
-their plain versions; K1, K2 and both K3 passes also on a CSR whose rows
+(gat_attention_fwd / _bwd) and P1 in both orders and P2
+(row_gather_async / _by_source / _smem) against their plain versions; K1, K2 and both K3 passes also on a CSR whose rows
 straddle the row split (graph/split.py), against the plain version and
 exact sums.
 
@@ -22,7 +22,10 @@ from dgl_tpu_torch.kernels.gat_attention import (
 )
 from dgl_tpu_torch.kernels.row_gather import (
     SMEM_LIMIT_BYTES,
+    gather_plan,
     row_gather_async,
+    row_gather_by_source,
+    row_gather_by_source_plain,
     row_gather_plain,
     row_gather_smem,
 )
@@ -338,3 +341,31 @@ def test_row_gather_matches_plain_on_card(dtype):
     with pytest.raises(ValueError, match="limit"):
         row_gather_smem(big, idx[:10])
     assert row_gather_smem.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_by_source_matches_plain_on_card(dtype):
+    """Bit for bit against x[idx] and the plain version, two runs equal:
+    rows of 64 B, 82 B (2-byte copies), 1 KB and 40 KB (column pieces),
+    int32 and int64 indices, a row of 3000 positions (split into chunks)
+    beside rows of a few and rows of none, with and without the split, and
+    pos=None over the plan's row offsets."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for n, d, e in ((5000, 16, 100_003), (3000, 41, 7_777), (2000, 256, 10_001),
+                    (300, 10_000, 3_001)):
+        x = torch.randn(n, d, device=dev, generator=gen).to(dtype)
+        idx = torch.randint(0, n // 2, (e,), device=dev, generator=gen)
+        idx[: e // 4] = 3  # one row over T = 512; rows n // 2 and up are never read
+        for ii in (idx, idx.int()):
+            plan = gather_plan(ii, n)
+            assert plan.split.num_long == 1
+            for split in (plan.split, None):
+                before = row_gather_by_source.launches
+                got = row_gather_by_source(x, plan.indptr, plan.pos, split)
+                assert row_gather_by_source.launches == before + 1
+                assert torch.equal(got, x[idx]), (n, d, e, ii.dtype, split is None)
+                assert torch.equal(got, row_gather_by_source(x, plan.indptr, plan.pos, split))
+            assert torch.equal(row_gather_by_source(x, plan.indptr, None, plan.split),
+                               row_gather_by_source_plain(x, plan.indptr))
