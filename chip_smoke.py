@@ -116,12 +116,34 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      falling; one molhiv epoch profiled (the device's idle share); K2's mean
      and sum readouts on a molhiv batch at D = 256 against the plain version
      and float64 sums; one molhiv step under set_sync_debug_mode("error");
-  12. kernels: one line listing every ported kernel with its numbers, K1's,
+  12. rgcn_main: RGCN on the full ogbn-proteins graph (132,534 nodes,
+     39,561,252 edges, 8 relations, 112 tasks): weighted K1 at every
+     (CSR, width) the driver's models launch it at, read from the models
+     (rgcn_k1_launches: the dst CSR (mean) at D = 1 and 32, the reverse CSR
+     (sum) at D = 32), held to float64 sums, the plain version and integer
+     sums bit for bit, timed beside torch.sparse.mm on the weighted CSR and
+     the bound; gspmm_rel forward and backward in every (width, form) a
+     layer calls it in, held the same way; one training step under
+     set_sync_debug_mode("error"); main_rgcn (3 layers, hidden 32) in the
+     default form (a layer aggregates first where its input is narrower:
+     layers 1 and 3) and with fuse_relations (every layer aggregates
+     first), K1's launches and combines against rgcn_k1_launches, the
+     training's peak above its inputs below one (E, 32) float32 buffer,
+     losses falling and equal on the first step, the device profile (busy,
+     idle share, K1's share);
+  13. kernel_sweep: dgl_tpu_torch.kernel.bench_kernels at its defaults
+     (copy_lhs sum SpMM, add SDDMM, widths 1-128) on reddit, ogbn-arxiv and
+     ogbn-proteins as given, each point held to its plain version before it
+     is timed (or an OOM row, only for torch.OutOfMemoryError), and
+     gsddmm's two gathers in source order beside the index order at each
+     width;
+  14. kernels: one line listing every ported kernel with its numbers, K1's,
      K2's and K3's with T, long rows, chunks and combine launches, K3's at
      arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
      K1's at the SAGE widths and K1's and K2's launches on the new paths,
      P1 in source order beside P1 in index order with its plan's build
-     time and its launches on the pubmed GAT and GCN runs.
+     time and its launches on the pubmed GAT and GCN runs, K1's launches on
+     the RGCN run and its weighted times at proteins' D = 32.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1625,15 +1647,20 @@ def _sage_graph(name, dev):
     return from_edges(src, dst, data.num_nodes, device=dev), data
 
 
-def reference64_sparse(indptr, indices, x, n_src, mean):
-    """Float64 sums of a CSR SpMM and of its absolute terms through a
-    float64 torch.sparse.mm: no (E, D) buffer, so it serves products."""
+def reference64_sparse(indptr, indices, x, n_src, mean, w=None):
+    """Float64 sums of a CSR SpMM (edge weights ``w`` in CSR order, or 1)
+    and of its absolute terms through a float64 torch.sparse.mm: no (E, D)
+    buffer, so it serves products and proteins."""
     crow, col = indptr.long(), indices.long()
-    a = torch.sparse_csr_tensor(crow, col, torch.ones(col.numel(), dtype=torch.float64,
-                                                      device=x.device),
-                                size=(indptr.numel() - 1, n_src), check_invariants=False)
+    vals = (torch.ones(col.numel(), dtype=torch.float64, device=x.device) if w is None
+            else w.double())
+
+    def csr(v):
+        return torch.sparse_csr_tensor(crow, col, v, size=(indptr.numel() - 1, n_src),
+                                       check_invariants=False)
+
     x64 = x.double()
-    want, mag = torch.sparse.mm(a, x64), torch.sparse.mm(a, x64.abs())
+    want, mag = torch.sparse.mm(csr(vals), x64), torch.sparse.mm(csr(vals.abs()), x64.abs())
     if mean:
         inv = 1.0 / (indptr[1:] - indptr[:-1]).clamp(min=1).double().unsqueeze(1)
         want, mag = want * inv, mag * inv
@@ -1962,6 +1989,359 @@ def phase_gc_main():
     return launches, combines, readout, k1
 
 
+# -- RGCN on ogbn-proteins: weighted K1 passes ------------------------------
+
+RGCN_EPOCHS = 6  # the driver's run on the full graph; epochs 4-6 timed
+RGCN_PROFILE = 3  # further epochs under torch.profiler: busy, idle share, K1's share
+RGCN_HIDDEN = 32  # the driver's hidden width; K1's widths come from the model (rgcn_k1_launches)
+
+
+def rgcn_k1_launches(model):
+    """K1's launches in one training step of an RGCN, from the code
+    (nn/conv.py:RelGraphConv, ops/rel.py) and the model's layers. A layer
+    that projects first aggregates y = x @ W at its output width, one
+    weighted launch per relation over the dst CSR, and y needs a gradient
+    (W is a parameter, also where x is data), so the backward launches one
+    per relation over the reverse CSR. A layer that aggregates first
+    (conv.aggregate_first) launches at its input width, and backward only
+    where x needs a gradient: not in layer 1, whose x is data. Returns
+    [(layer, "fwd" | "bwd", r, d), ...]."""
+    out = []
+    for i, conv in enumerate(model.convs):
+        d = conv.in_feats if conv.aggregate_first else conv.out_feats
+        sides = ("fwd",) if conv.aggregate_first and i == 0 else ("fwd", "bwd")
+        out += [(i, side, r, d) for side in sides for r in range(conv.rel_weights.shape[0])]
+    return out
+
+
+def rgcn_model(n_tasks, n_rel, fuse):
+    """The model main_rgcn.run trains, on the CPU: its layers' widths and
+    forms are what rgcn_k1_launches reads."""
+    from dgl_tpu_torch.models import RGCN
+
+    return RGCN(1, RGCN_HIDDEN, n_tasks, n_rel, 3, fuse_relations=fuse, device="cpu")
+
+
+def wspmm_bound(n_rows, n_src, nnz, d):
+    """spmm_bound of a weighted CSR SpMM: a float32 weight per edge is read
+    once too."""
+    return _bound_ms(nnz * 8 + (n_rows + 1) * 4 + n_src * d * 4 + n_rows * d * 4, 2 * nnz * d)
+
+
+def k1_weighted(name, gg, w, x, mean, x_int, w_int):
+    """Weighted K1 over one CSR (``w`` in its order): held to float64 sums,
+    to the plain version and, on small integers with integer weights, bit
+    for bit; two runs bitwise equal; CUDA-event medians of the kernel, the
+    plain version and torch.sparse.mm on the weighted CSR (the mean's 1/deg
+    in its values), and the bound."""
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
+
+    n_rows, n_src, e, d = gg.num_dst_nodes, gg.num_src_nodes, gg.num_edges, x.shape[1]
+    kern = lambda: csr_spmm(gg.indptr, gg.src, x, w, mean=mean, split=gg.split)  # noqa: E731
+    plain = lambda: csr_spmm_plain(gg.indptr, gg.src, x, w, mean=mean)  # noqa: E731
+    got = kern()
+    if not torch.equal(got, kern()):
+        raise AssertionError(f"{name}: two K1 runs differ")
+    err, err64, used = check(name, got, gg.indptr,
+                             reference64_sparse(gg.indptr, gg.src, x, n_src, mean, w), plain())
+    del got
+    check(f"{name} integer", csr_spmm(gg.indptr, gg.src, x_int, w_int, split=gg.split), gg.indptr,
+          reference64_sparse(gg.indptr, gg.src, x_int, n_src, False, w_int), exact=True)
+    vals = w
+    if mean:
+        deg = gg.in_degrees().long()
+        vals = w / deg.clamp(min=1).float().repeat_interleave(deg, output_size=e)
+    a = torch.sparse_csr_tensor(gg.indptr.long(), gg.src.long(), vals, size=(n_rows, n_src),
+                                check_invariants=False)
+    bound, by = wspmm_bound(n_rows, n_src, e, d)
+    return {"d": d, "mean": mean, "ms": median_ms(kern, reps=20, warmup=3),
+            "plain_ms": median_ms(plain, reps=5, warmup=1),
+            "library_ms": median_ms(lambda: torch.sparse.mm(a, x), reps=20, warmup=3),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err, "max_abs_err_f64": err64,
+            "max_bound_used": used, "max_row_nnz": int(gg.in_degrees().max())}
+
+
+def rel_checks(g, weights, weights_int, gen, d, per_relation):
+    """One gspmm_rel forward (mean, as RelGraphConv runs it) and backward at
+    width d, in the form a layer calls it: ``per_relation`` (a layer that
+    aggregates first) on x (N, d) expanded along R, whose gradient sums the
+    R reverse passes; else (a layer that projects first) on y (R, N, d),
+    the forward summing the R aggregations. A sum over the relations is
+    held to the float64 sum within (n + 3 + R)·u·Σ|term| (R relation sums
+    added after the per-relation bound) and to the sum of the plain
+    versions; a result per relation to its float64 run and plain version;
+    on small integers (sum, integer weights) every result bit for bit; two
+    runs bitwise equal."""
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm_plain
+    from dgl_tpu_torch.ops.rel import gspmm_rel
+
+    dev = g.indptr.device
+    n_rel, n, n_dst, rev = weights.num_relations, g.num_src_nodes, g.num_dst_nodes, g.reverse
+    src_shape = (n, d) if per_relation else (n_rel, n, d)
+    cot_shape = (n_rel, n_dst, d) if per_relation else (n_dst, d)
+    inv64 = 1.0 / g.in_degrees().clamp(min=1).double().unsqueeze(1)
+
+    def run(reduce, src, ww, cot):
+        sk = src.clone().requires_grad_()
+        y = sk.unsqueeze(0).expand(n_rel, -1, -1) if per_relation else sk
+        out = gspmm_rel(reduce, g, y, ww, per_relation=per_relation)
+        out.backward(cot)
+        return out.detach(), sk.grad
+
+    def rel(t, r):  # relation r's rows of a per-relation tensor, or t itself
+        return t[r] if t.dim() == 3 else t
+
+    def hold(what, got, indptr, refs, plains, exact, acc):
+        if got.dim() == 3:  # relation by relation
+            for r in range(n_rel):
+                _merge(acc, [check(f"{what} r={r}", got[r], indptr, refs[r],
+                                   None if exact else plains[r], exact=exact)])
+        else:  # the sum over the relations
+            want = (sum(a for a, _ in refs), sum(m for _, m in refs))
+            _merge(acc, [check(what, got, indptr, want, None if exact else sum(plains),
+                               exact=exact, slack=(1, 3 + n_rel))])
+
+    acc = [0.0, 0.0, 0.0]
+    for kind, ww in (("", weights), (" integer", weights_int)):
+        exact = bool(kind)
+        if exact:
+            src = torch.randint(-4, 5, src_shape, device=dev, generator=gen).float()
+            cot = torch.randint(-4, 5, cot_shape, device=dev, generator=gen).float()
+        else:
+            src = 1.0 + torch.randn(src_shape, device=dev, generator=gen)
+            cot = 1.0 + torch.randn(cot_shape, device=dev, generator=gen)
+        out, grad = run("sum" if exact else "mean", src, ww, cot)
+        if not exact:
+            out2, grad2 = run("mean", src, ww, cot)
+            if not (torch.equal(out, out2) and torch.equal(grad, grad2)):
+                raise AssertionError(f"gspmm_rel D={d}: two runs differ")
+            del out2, grad2
+        refs = [reference64_sparse(g.indptr, g.src, rel(src, r), n, not exact, ww.fwd[r])
+                for r in range(n_rel)]
+        plains = None if exact else [csr_spmm_plain(g.indptr, g.src, rel(src, r), ww.fwd[r],
+                                                    mean=True) for r in range(n_rel)]
+        hold(f"gspmm_rel D={d} fwd{kind}", out, g.indptr, refs, plains, exact, acc)
+        del refs, plains
+        # the backward's cotangent: mean scales it by 1/max(deg, 1) first
+        cots = [rel(cot, r) if exact else rel(cot, r) * inv64.float() for r in range(n_rel)]
+        refs = [reference64_sparse(rev.indptr, rev.src, rel(cot, r).double() * (1 if exact else inv64),
+                                   n_dst, False, ww.rev[r]) for r in range(n_rel)]
+        plains = None if exact else [csr_spmm_plain(rev.indptr, rev.src, cots[r], ww.rev[r])
+                                     for r in range(n_rel)]
+        hold(f"gspmm_rel D={d} bwd{kind}", grad, rev.indptr, refs, plains, exact, acc)
+        del refs, plains, cots, out, grad
+    return {"d": d, "per_relation": per_relation, "max_abs_err": acc[0],
+            "max_abs_err_f64": acc[1], "max_bound_used": acc[2]}
+
+
+def rgcn_step_no_host_sync(g, weights, data):
+    """One RGCN training step on the full graph (make_train_step, as the
+    driver runs it) under set_sync_debug_mode("error"), after a warm-up
+    step."""
+    from dgl_tpu_torch.benchmarks.node_classification.main_rgcn import make_train_step
+    from dgl_tpu_torch.models import RGCN
+
+    dev = g.indptr.device
+    y = torch.from_numpy(np.asarray(data.labels, np.float32)).to(dev)
+    mask = torch.from_numpy(np.asarray(data.train_mask)).to(dev)
+    x = torch.ones(g.num_src_nodes, 1, device=dev)
+    model = RGCN(1, RGCN_HIDDEN, y.shape[1], weights.num_relations, device=dev,
+                 generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=0.01), g, x, weights,
+                           y, mask)
+    step()
+    loss = []
+    no_host_sync(lambda: loss.append(step()), lambda: loss[0].item())
+    if not math.isfinite(loss[0].item()):
+        raise AssertionError("the RGCN step under the sync check gave a non-finite loss")
+
+
+def phase_rgcn_main():
+    """RGCN on the full ogbn-proteins graph (132,534 nodes, 39,561,252 edges,
+    8 relations, 112 tasks): the graph's split; weighted K1 through
+    k1_weighted at every (CSR, width) that the driver's models launch it at
+    (rgcn_k1_launches of the default model and the fuse_relations one: the
+    dst CSR (mean) at D = 1 and 32, the reverse CSR (sum) at D = 32),
+    relation 0's weights; gspmm_rel forward and backward (rel_checks) in
+    every (width, form) that a layer of those models calls it in; then one
+    step under the sync check; then main_rgcn.run (3 layers, hidden 32) for
+    RGCN_EPOCHS epochs and RGCN_PROFILE profiled ones, in the default form
+    and with fuse_relations, each with K1's counters set to 0 before and
+    read after: rgcn_k1_launches per step, one combine per launch over a
+    CSR with long rows; the training's peak above its inputs below one
+    (E, 32) float32 buffer; the loss falls; the reference's lines; the forms
+    agree on the first step's loss. Returns the K1 fields by (side, D), the
+    default run's launch counts and the graph."""
+    from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch.benchmarks.node_classification import main_rgcn
+    from dgl_tpu_torch.data import NODE_DATASET_STATS, load_node_dataset
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+    from dgl_tpu_torch.ops.rel import RelEdgeWeights
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    data = load_node_dataset("ogbn-proteins")
+    g = from_edges(data.src, data.dst, data.num_nodes, device=dev)
+    graph_s = time.perf_counter() - t_phase  # the data's generation or load, and the graph
+    n_nodes, n_edges, n_rel, n_tasks = NODE_DATASET_STATS["ogbn-proteins"]
+    if (g.num_dst_nodes, g.num_edges, data.edge_feat.shape[1], data.labels.shape[1]) != (
+            n_nodes, n_edges, n_rel, n_tasks):
+        raise AssertionError(f"proteins is not full size: {g}, {data.edge_feat.shape}")
+    models = {form: rgcn_model(n_tasks, n_rel, fuse) for form, fuse in (("default", False),
+                                                                        ("fused", True))}
+    per_step = {form: rgcn_k1_launches(m) for form, m in models.items()}
+    k1_shapes = sorted({(side, d) for ps in per_step.values() for _, side, _, d in ps})
+    rel_forms = sorted({(c.in_feats if c.aggregate_first else c.out_feats, c.aggregate_first)
+                        for m in models.values() for c in m.convs})
+    ef = torch.from_numpy(np.asarray(data.edge_feat, np.float32)).to(dev).index_select(0, g.eid)
+    weights = RelEdgeWeights.build(g, ef)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    w_int = torch.randint(1, 4, (g.num_edges, n_rel), device=dev, generator=gen).float()
+    weights_int = RelEdgeWeights.build(g, w_int)
+    del ef, w_int
+    inv_deg = 1.0 / g.in_degrees().clamp(min=1).float().unsqueeze(1)
+    k1 = {}
+    for side, d in k1_shapes:  # the dst CSR forward (mean), the reverse backward (sum)
+        fwd = side == "fwd"
+        gg, w, w_int = ((g, weights.fwd[0], weights_int.fwd[0]) if fwd
+                        else (g.reverse, weights.rev[0], weights_int.rev[0]))
+        x = 1.0 + torch.randn(n_nodes, d, device=dev, generator=gen)
+        x_int = torch.randint(-4, 5, (n_nodes, d), device=dev, generator=gen).float()
+        k1[f"{side}_d{d}"] = k1_weighted(f"proteins weighted {side} D={d}", gg, w,
+                                         x if fwd else x * inv_deg, fwd, x_int, w_int)
+        del x, x_int
+    rel = {f"d{d}_{'per_relation' if pr else 'summed'}": rel_checks(g, weights, weights_int,
+                                                                      gen, d, pr)
+           for d, pr in rel_forms}
+    del weights_int, inv_deg
+    torch.cuda.empty_cache()
+    rgcn_step_no_host_sync(g, weights, data)
+    torch.cuda.synchronize()
+
+    runs, limit = {}, n_edges * RGCN_HIDDEN * 4
+    for form, fuse in (("default", False), ("fused", True)):
+        torch.cuda.synchronize()
+        csr_spmm.launches = csr_spmm.combines = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            r = main_rgcn.run(epochs=RGCN_EPOCHS, runs=1, device="cuda", fuse_relations=fuse,
+                              profile_epochs=RGCN_PROFILE)
+        r["run_s"] = time.perf_counter() - t0
+        r["launches"], r["combines"] = csr_spmm.launches, csr_spmm.combines
+        r["lines"] = [ln for ln in log.getvalue().splitlines()
+                      if ln.startswith("Training time/epoch")]
+        if len(r["lines"]) != RGCN_EPOCHS - 3:
+            raise AssertionError(f"{form}: {len(r['lines'])} 'Training time/epoch' lines in "
+                                 f"{RGCN_EPOCHS} epochs")
+        r["steps"] = len(r["losses"][0]) + RGCN_PROFILE
+        n_fwd = sum(side == "fwd" for _, side, _, _ in per_step[form]) * r["steps"]
+        n_bwd = sum(side == "bwd" for _, side, _, _ in per_step[form]) * r["steps"]
+        want_c = n_fwd * int(g.split.num_long > 0) + n_bwd * int(g.reverse.split.num_long > 0)
+        if (r["launches"], r["combines"]) != (n_fwd + n_bwd, want_c):
+            raise AssertionError(f"{form}: K1 launched {r['launches']} times with "
+                                 f"{r['combines']} combines in {r['steps']} steps; want "
+                                 f"{n_fwd + n_bwd} and {want_c}")
+        r["per_step_derived"] = len(per_step[form])
+        r["train_extra_bytes"] = r["train_peak_bytes"] - r["setup_bytes"]
+        if not r["train_extra_bytes"] < limit:
+            raise AssertionError(f"{form}: the RGCN training added {r['train_extra_bytes']} B, "
+                                 f"one (E, 32) buffer is {limit}")
+        losses = r["losses"][0]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{form}: RGCN loss did not fall: {losses}")
+        prof = r["profile"]
+        k1_ms = sum(k["device_ms_per_epoch"] for k in prof["kernels"]
+                    if "csr_spmm_kernel" in k["name"] or "combine_chunks" in k["name"])
+        r["profile"] = {k: prof[k] for k in ("epochs", "wall_ms_per_epoch",
+                                             "device_busy_ms_per_epoch", "device_idle_share")}
+        r["profile"].update(k1_ms_per_epoch=k1_ms,
+                            k1_share_of_busy=k1_ms / prof["device_busy_ms_per_epoch"],
+                            kernels=prof["kernels"][:8])
+        runs[form] = r
+        torch.cuda.empty_cache()
+    # the same weights and data: the two forms agree on the first step's loss
+    first = {form: r["losses"][0][0] for form, r in runs.items()}
+    if abs(first["default"] - first["fused"]) > SAGE_LOSS_ATOL:
+        raise AssertionError(f"RGCN first-step losses differ between the forms: {first}")
+    fields = ("run_s", "device", "synthetic", "load_s", "setup_s", "weights_s", "epoch_s",
+              "epochs_s", "setup_bytes", "train_peak_bytes", "train_extra_bytes", "losses",
+              "launches", "combines", "steps", "per_step_derived", "lines", "profile")
+    emit("rgcn_main", seconds=time.perf_counter() - t_phase, nodes=n_nodes, edges=n_edges,
+         relations=n_rel, tasks=n_tasks, hidden=RGCN_HIDDEN, graph_s=graph_s, **_split_fields(g),
+         k1_weighted=k1, gspmm_rel=rel, no_host_sync=True, e_by_32_bytes=limit,
+         **{form: {f: r[f] for f in fields} for form, r in runs.items()})
+    del weights
+    torch.cuda.empty_cache()
+    return k1, runs["default"]["launches"], runs["default"]["combines"], g
+
+
+# -- the SpMM / SDDMM kernel sweep (the suite's L0 tier) --------------------
+
+def gather_orders(g, gen):
+    """At each SDDMM width, gsddmm's two graph gathers in source order
+    (gather_src_rows, gather_dst: P1 over the graph's CSRs) beside the same
+    gathers in index order (row_gather_async over g.src and g.dst), bit for
+    bit equal, CUDA-event medians. A measurement for the choice between the
+    orders, not an option of the package."""
+    from dgl_tpu_torch.kernel.bench_kernels import FEAT_SIZES
+    from dgl_tpu_torch.kernels.row_gather import row_gather_async
+    from dgl_tpu_torch.ops import gather_dst, gather_src_rows
+
+    out = {}
+    for d in FEAT_SIZES:
+        u = torch.randn(g.num_src_nodes, d, device=g.src.device, generator=gen)
+        by = {"src_source": lambda: gather_src_rows(g, u), "src_index": lambda: row_gather_async(u, g.src),
+              "dst_source": lambda: gather_dst(g, u), "dst_index": lambda: row_gather_async(u, g.dst)}
+        for side in ("src", "dst"):
+            if not torch.equal(by[f"{side}_source"](), by[f"{side}_index"]()):
+                raise AssertionError(f"D={d}: the {side} gathers in the two orders differ")
+        out[d] = {k: median_ms(f, reps=10, warmup=2) for k, f in by.items()}
+        del u
+        torch.cuda.empty_cache()
+    return out
+
+
+def _raw_graph(name):
+    """The dataset's graph as given, on the card (the sweep's graphs)."""
+    from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch.data import load_node_dataset
+
+    data = load_node_dataset(name)
+    return from_edges(data.src, data.dst, data.num_nodes, device="cuda")
+
+
+def phase_kernel_sweep(graphs):
+    """dgl_tpu_torch.kernel.bench_kernels at its defaults (copy_lhs·sum
+    SpMM, add SDDMM, widths 1-128) on reddit, ogbn-arxiv and ogbn-proteins
+    as given (no bidirecting, no self-loops): every point held to its plain
+    version before it is timed (the sweep raises otherwise), or an OOM row,
+    which the sweep gives only for torch.OutOfMemoryError; and gather_orders
+    on each graph."""
+    from dgl_tpu_torch.kernel import bench_kernels
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows, orders, log = [], {}, io.StringIO()
+    for name, g in graphs.items():
+        with contextlib.redirect_stdout(log):
+            rows += bench_kernels.bench_spmm(name, g, "copy_lhs", "sum")
+            rows += bench_kernels.bench_sddmm(name, g, "add")
+        orders[name] = gather_orders(g, gen)
+        torch.cuda.empty_cache()
+    want = {(n, k, d) for n in graphs for k in ("spmm", "sddmm") for d in bench_kernels.FEAT_SIZES}
+    got = {(r["dataset"], r["kind"], r["hidden"]) for r in rows}
+    if got != want or len(rows) != len(want):
+        raise AssertionError(f"the sweep gave {len(rows)} rows; want {len(want)}")
+    for r in rows:
+        if not r["oom"] and not r["bound_used"] <= 1.0:
+            raise AssertionError(f"sweep point {r} beyond its bound")
+    emit("kernel_sweep", seconds=time.perf_counter() - t_phase, hbm_bytes_per_s=HBM_BYTES_PER_S,
+         edges={n: g.num_edges for n, g in graphs.items()}, rows=rows, gather_orders=orders,
+         oom=[(r["dataset"], r["kind"], r["hidden"]) for r in rows if r["oom"]])
+    return rows, orders
+
+
 def _kernel_entry(name, source, replaces, launches, r, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1985,10 +2365,14 @@ def main():
     phase_gat_random()
     gred, gred_arxiv, gred_arxiv40, gat_graph = phase_gat_reddit()
     floors, rows = phase_row_gather(red, red_graph, gred, gat_graph)
-    del red_graph, gat_graph
+    del gat_graph
     glaunch, gcombines = phase_gat_main()
     slaunch, scombines, widths = phase_sage_main()
     claunch, ccombines, readout, gc_k1 = phase_gc_main()
+    rk1, rlaunch, rcombines, prot_graph = phase_rgcn_main()
+    phase_kernel_sweep({"reddit": red_graph, "ogbn-arxiv": _raw_graph("ogbn-arxiv"),
+                        "ogbn-proteins": prot_graph})
+    del red_graph, prot_graph
     rows["row_gather_by_source"].update(
         launches_pubmed_gat=glaunch["pubmed"]["row_gather_by_source"],
         **{f"launches_gcn_{k}": v["row_gather_by_source"] for k, v in claunch.items()})
@@ -2041,6 +2425,15 @@ def main():
                for mode, m in (("unhoisted", ""), ("hoisted", "_hoisted"))},
             **{f"launches_gcn_{k}": v["csr_spmm"] for k, v in claunch.items()},
             **{f"combines_gcn_{k}": v["csr_spmm"] for k, v in ccombines.items()},
+            # the RGCN run on full proteins (40 a step: 8 relations, layer 1
+            # forward at D = 1, layers 2 and 3 each way at D = 32), and the
+            # weighted launches at every (CSR, width) the run launches: fwd
+            # the dst CSR (mean), bwd the reverse CSR (sum)
+            "launches_rgcn": rlaunch,
+            "combines_rgcn": rcombines,
+            **{f"{k}_proteins_{shape.split('_')[1]}_weighted_{shape.split('_')[0]}": r[k]
+               for shape, r in rk1.items()
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
             # at each SAGE width: forward (mean, dst CSR) and backward (sum,
             # reverse CSR), plain_ms on arxiv only; on one batch of 64 graphs:
             # molhiv D = 256 (fwd a dst-CSR sum, bwd the gsddmm(copy_u)

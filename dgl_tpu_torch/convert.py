@@ -1,4 +1,4 @@
-"""Carry GraphSAGE, GAT and GCN weights from the JAX package's flax parameter tree.
+"""Carry GraphSAGE, GAT, GCN and RGCN weights from the JAX package's flax parameter tree.
 
 The tree is given as nested dicts of numpy arrays (``jax`` is not needed
 to call this). A flax ``Dense`` kernel is ``(in, out)``; a torch ``Linear``
@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 __all__ = ["sage_state_dict_from_flax", "gat_state_dict_from_flax",
-           "gcn_graph_state_dict_from_flax", "gcn_mol_state_dict_from_flax"]
+           "gcn_graph_state_dict_from_flax", "gcn_mol_state_dict_from_flax",
+           "rel_graph_conv_state_dict_from_flax", "rgcn_state_dict_from_flax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -124,4 +125,24 @@ def gcn_mol_state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping]
             _dense(sd, "graph_pred_fc", sub)
         elif not name.startswith("bn_"):
             raise KeyError(f"unexpected GCNMolClassifier parameter group {name!r}")
+    return sd
+
+
+def rel_graph_conv_state_dict_from_flax(params: Mapping, prefix: str = "") -> dict:
+    """A ``state_dict`` for ``dgl_tpu_torch.nn.RelGraphConv`` from the
+    ``params`` of ``dgl_tpu.nn.RelGraphConv``: ``rel_weights`` (R, in, out)
+    as it is, the ``skip`` Dense kernel transposed, its bias."""
+    sd = {f"{prefix}rel_weights": _t(params["rel_weights"])}
+    _dense(sd, f"{prefix}skip", params["skip"])
+    return sd
+
+
+def rgcn_state_dict_from_flax(params: Mapping) -> dict:
+    """A ``state_dict`` for ``dgl_tpu_torch.models.RGCN`` from the ``params``
+    of ``dgl_tpu.models.RGCN``."""
+    sd = {}
+    for name, sub in params.items():
+        if not name.startswith("rgcn_"):
+            raise KeyError(f"unexpected RGCN parameter group {name!r}")
+        sd.update(rel_graph_conv_state_dict_from_flax(sub, f"convs.{_layer(name)}."))
     return sd

@@ -1,5 +1,6 @@
 from .gat import GAT
 from .gcn_graph import GCNGraphClassifier, GCNMolClassifier
+from .rgcn import RGCN
 from .sage import GraphSAGE
 
-__all__ = ["GraphSAGE", "GAT", "GCNGraphClassifier", "GCNMolClassifier"]
+__all__ = ["GraphSAGE", "GAT", "GCNGraphClassifier", "GCNMolClassifier", "RGCN"]

@@ -1,4 +1,4 @@
-from .conv import GATConv, GCNConv, GCNConvEdge, SAGEConv, dropout
+from .conv import GATConv, GCNConv, GCNConvEdge, RelGraphConv, SAGEConv, dropout
 from .encoders import AtomEncoder, BondEncoder, CategoricalEncoder
 from .init import kaiming_uniform_fan_in, relu_gain, xavier_uniform_
 from .norm import MaskedBatchNorm
@@ -9,6 +9,7 @@ __all__ = [
     "GATConv",
     "GCNConv",
     "GCNConvEdge",
+    "RelGraphConv",
     "MaskedBatchNorm",
     "AvgPooling",
     "SumPooling",

@@ -1,8 +1,9 @@
 """Graph convolution layers over ``dgl_tpu_torch.ops``.
 
 Counterpart of ``dgl_tpu/nn/conv.py``; the port has ``SAGEConv``,
-``GATConv``, ``GCNConv`` and ``GCNConvEdge``. ``lowering`` (``fused`` or
-``scatter``) is handed to every ``gspmm`` a layer calls (``ops/spmm.py``).
+``GATConv``, ``GCNConv``, ``GCNConvEdge`` and ``RelGraphConv``. ``lowering``
+(``fused`` or ``scatter``) is handed to every ``gspmm`` a layer calls
+(``ops/spmm.py``).
 """
 
 from __future__ import annotations
@@ -18,10 +19,11 @@ from ..device import DeviceLike, resolve_device
 from ..graph.graph import Graph
 from ..kernels.gat_attention import gat_attention
 from ..ops import edge_softmax, gather_dst, gather_src_rows, gspmm
+from ..ops.rel import RelEdgeWeights, gspmm_rel
 from ..ops.sddmm import gsddmm
-from .init import relu_gain, xavier_uniform_
+from .init import kaiming_uniform_fan_in, relu_gain, xavier_uniform_
 
-__all__ = ["SAGEConv", "GATConv", "GCNConv", "GCNConvEdge", "dropout"]
+__all__ = ["SAGEConv", "GATConv", "GCNConv", "GCNConvEdge", "RelGraphConv", "dropout"]
 
 
 def dropout(
@@ -130,7 +132,8 @@ class GATConv(nn.Module):
 
     Left out: the JAX layer's positional sampled-block path (slice E) and
     its memory-safe form for graphs whose (E, H, D) messages pass the budget
-    (slice D's binary ``gspmm``); both raise ``NotImplementedError``.
+    (slice F, for ``cluster_gat`` on products: it needs a gradient wrt the
+    per-edge ``alpha``); both raise ``NotImplementedError``.
 
     ``generator`` (a CPU generator) draws the initial weights: ``fc``
     xavier-uniform (gain 1), ``attn_l``/``attn_r`` uniform in
@@ -210,7 +213,7 @@ class GATConv(nn.Module):
         if g.num_edges * h * d * z.element_size() > _EDGE_MSG_LIMIT_BYTES:
             raise NotImplementedError(
                 "GATConv's memory-safe edge form (per-edge messages over "
-                f"{_EDGE_MSG_LIMIT_BYTES >> 30} GiB) is ported in slice D; use fused=True"
+                f"{_EDGE_MSG_LIMIT_BYTES >> 30} GiB) is ported in slice F; use fused=True"
             )
         z_e = gather_src_rows(g, z.reshape(-1, h * d)).view(-1, h, d)
         logits = F.leaky_relu((z_e * self.attn_r).sum(-1) + gather_dst(g, a_dst), self.negative_slope)
@@ -270,3 +273,74 @@ class GCNConvEdge(nn.Module):
         msg = norm * F.relu(gsddmm(g, "copy_u", h) + w_edge)
         agg = gspmm(g, "copy_e", "sum", e=msg, lowering=self.lowering)
         return agg + F.relu(h + self.root_emb) / deg
+
+
+class RelGraphConv(nn.Module):
+    """Relational GCN layer of ogbn-proteins (the reference's
+    ``main_dgl_proteins_rgcn_for.py:14-60``): for each relation r,
+    ``mean_by_dst(x_src · w_r) @ W_r``, summed over relations, plus a dense
+    ``skip`` Linear; then the activation and dropout.
+
+    Two forms of the same function (per-edge scalar weights commute with
+    ``W_r``), each R weighted K1 launches each way through ``gspmm_rel``
+    (``ops/rel.py``), no per-edge tensor:
+
+    * project first, ``y = x @ W`` (R, N, out) on cuBLAS, then aggregate
+      ``y``: the K1 passes move ``out``-wide rows;
+    * aggregate first, as the JAX layer's ``fuse_relations`` does
+      (``gspmm(g, "mul", "mean", x[:, None], e=w[..., None])``, then
+      einsum): ``gspmm_rel(..., per_relation=True)`` on ``x`` expanded
+      along R with the graph's weights as laid out once, then the einsum;
+      the K1 passes move ``in``-wide rows, and none runs backward where
+      ``x`` needs no gradient (layer 1's data).
+
+    A layer aggregates first where ``in_feats < out_feats`` (SAGEConv's
+    rule the other way round: aggregate the narrower side), so proteins'
+    first layer (1 → 32) and last (32 → 112 tasks) pass 1- and 32-wide rows;
+    ``fuse_relations`` makes every layer aggregate first, as the JAX
+    driver's ``--fuse-relations`` does.
+
+    ``rel_weights`` (R, in, out) and ``skip``'s weight are drawn with
+    torch's ``kaiming_uniform_(a=sqrt(5))`` (torch's fan-in of a (R, in,
+    out) tensor is in · out; the JAX package's flax init takes in · R),
+    ``skip``'s bias is 0, from the CPU ``generator``.
+    """
+
+    def __init__(
+        self,
+        in_feats: int,
+        out_feats: int,
+        num_relations: int,
+        activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        dropout: float = 0.0,
+        *,
+        fuse_relations: bool = False,
+        device: DeviceLike = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.activation, self.dropout = activation, dropout
+        self.in_feats, self.out_feats = in_feats, out_feats
+        self.aggregate_first = fuse_relations or in_feats < out_feats
+        self.rel_weights = nn.Parameter(torch.empty(num_relations, in_feats, out_feats))
+        kaiming_uniform_fan_in(self.rel_weights, generator=generator)
+        self.skip = nn.utils.skip_init(nn.Linear, in_feats, out_feats)
+        kaiming_uniform_fan_in(self.skip.weight, generator=generator)
+        nn.init.zeros_(self.skip.bias)
+        self.to(resolve_device(device))
+
+    def forward(self, g: Graph, x: torch.Tensor, weights: RelEdgeWeights, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``weights``: the graph's ``RelEdgeWeights`` (built once from the
+        (E, R) canonical edge weights)."""
+        if self.aggregate_first:
+            agg = gspmm_rel("mean", g, x.unsqueeze(0).expand(weights.num_relations, -1, -1),
+                            weights, per_relation=True)
+            out = torch.einsum("rnd,rdo->no", agg, self.rel_weights)
+        else:
+            y = torch.matmul(x, self.rel_weights)  # (R, N, out), each y[r] contiguous
+            out = gspmm_rel("mean", g, y, weights)
+        out = out + self.skip(x)
+        if self.activation is not None:
+            out = self.activation(out)
+        return dropout(out, self.dropout, self.training, generator)

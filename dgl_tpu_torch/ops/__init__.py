@@ -1,10 +1,13 @@
 from .gather import gather_dst, gather_src_rows, seg_sum_dst, spread_dst
-from .segment import segment_max, segment_mean, segment_sum
+from .rel import RelEdgeWeights, gspmm_rel
+from .segment import segment_max, segment_mean, segment_min, segment_sum
 from .softmax import edge_softmax
 from .spmm import gspmm
 
 __all__ = [
     "gspmm",
+    "gspmm_rel",
+    "RelEdgeWeights",
     "edge_softmax",
     "gather_dst",
     "gather_src_rows",
@@ -13,4 +16,5 @@ __all__ = [
     "segment_sum",
     "segment_mean",
     "segment_max",
+    "segment_min",
 ]

@@ -11,8 +11,9 @@ not ported):
   ``gout[seg_ids]``, P1 in source order over the same row offsets
   (``kernels/row_gather.py:row_gather_by_source``, positions equal to
   slots). An empty segment gives 0; mean divides by ``max(count, 1)``.
-* ``segment_max``: plain PyTorch (an XLA op in the JAX package, not a
-  kernel); the exact shift of ``edge_softmax`` and the max readout use it.
+* ``segment_max`` / ``segment_min``: plain PyTorch ``scatter_reduce`` (an
+  XLA op in the JAX package, not a kernel); the exact shift of
+  ``edge_softmax``, the max readout and ``gspmm``'s max/min use them.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from ..graph.split import RowSplit
 from ..kernels.row_gather import row_gather_by_source
 from ..kernels.seg_sum import seg_sum
 
-__all__ = ["segment_sum", "segment_mean", "segment_max"]
+__all__ = ["segment_sum", "segment_mean", "segment_max", "segment_min"]
 
 
 def _seg_sum_rows(data: torch.Tensor, indptr: torch.Tensor,
@@ -82,10 +83,21 @@ def segment_mean(data: torch.Tensor, seg_ids: torch.Tensor, indptr: torch.Tensor
     return out * inv.reshape((-1,) + (1,) * (out.dim() - 1))
 
 
-def segment_max(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """``out[r] = max_{j: seg_ids[j] = r} data[j]`` over the first axis;
-    a segment with no element gives 0 (DGL semantics)."""
+def _segment_extremum(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+                      how: str) -> torch.Tensor:
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     index = seg_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
-    return out.scatter_reduce_(0, index, data, "amax", include_self=False)
+    return out.scatter_reduce_(0, index, data, how, include_self=False)
+
+
+def segment_max(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``out[r] = max_{j: seg_ids[j] = r} data[j]`` over the first axis;
+    a segment with no element gives 0 (DGL semantics), and a non-finite
+    maximum is kept (the JAX package maps it to 0)."""
+    return _segment_extremum(data, seg_ids, num_segments, "amax")
+
+
+def segment_min(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``segment_max``'s counterpart with the minimum."""
+    return _segment_extremum(data, seg_ids, num_segments, "amin")

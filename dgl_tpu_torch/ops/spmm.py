@@ -1,29 +1,41 @@
 """g-SpMM: message passing as one sparse-dense product per direction.
 
-Counterpart of ``dgl_tpu/ops/spmm.py:gspmm`` for the ops of the ported
-paths::
+Counterpart of ``dgl_tpu/ops/spmm.py:gspmm``::
 
-    out[v] = reduce_{e=(u,v)} x[u]   (copy_u / copy_lhs)
-    out[v] = reduce_{e=(u,v)} e[e]   (copy_e / copy_rhs)
-    reduce ∈ {sum, mean}
+    out[v] = reduce_{e=(u,v)} op(x[u], e[e])
+    op ∈ {copy_u, copy_e, add, sub, mul, div},  reduce ∈ {sum, mean, max, min}
 
-Zero-in-degree nodes give 0. ``copy_u``: the forward is one K1 launch over
-the dst-sorted CSR (mean divides by the clamped in-degree inside the
-kernel); the backward scales the output cotangent by the same
+Zero-in-degree nodes give 0. ``copy_u`` sum/mean: the forward is one K1
+launch over the dst-sorted CSR (mean divides by the clamped in-degree inside
+the kernel); the backward scales the output cotangent by the same
 ``1/max(deg, 1)`` for mean and aggregates it with one K1 launch over the
-reverse CSR, as ``_lane_copy_u_bwd`` does in the JAX package. ``copy_e``:
-one K2 launch (``ops/gather.py:seg_sum_dst``) over edge features in
-canonical order, any trailing shape; mean scales its result by
-``1/max(deg, 1)``; the backward is a row gather by dst (P1 in source
-order over the dst CSR).
+reverse CSR, as ``_lane_copy_u_bwd`` does in the JAX package. ``copy_e``
+sum/mean: one K2 launch (``ops/gather.py:seg_sum_dst``) over edge features
+in canonical order, any trailing shape; mean scales its result by
+``1/max(deg, 1)``; the backward is a row gather by dst (P1 in source order
+over the dst CSR).
+
+Binary ops with sum/mean combine ``x[src]`` with ``e`` under broadcasting
+(``x`` (N, H, D) with ``e`` (E, H, 1), as ``_combine`` does): the message
+is ``gather_src_rows`` (P1), the elementwise op, then ``seg_sum_dst`` (K2),
+and autograd runs through their adjoints (K1 by ``rev.eid``, P1 by dst), as
+``_spmm_xe`` computes. RGCN's relation-weighted sums, which would be
+``mul`` by a per-edge scalar, call ``ops/rel.py:gspmm_rel`` instead, with
+the graph's weights laid out once, so they build no (E, R, D) message.
+max/min: the messages (``gather_src_rows`` and the op, or ``e``)
+reduced by ``scatter_reduce`` (amax/amin), plain PyTorch as in the JAX
+package, which computes them outside any Pallas kernel; a row with no
+in-edge is 0, and a non-finite extremum is kept (the JAX package maps it to
+0, ``dgl_tpu/ops/segment.py:109``).
 
 ``lowering="scatter"`` is a second lowering the caller names, the PyG twin
 (``dgl_tpu/ops/spmm.py:604-626``, the JAX package's
-``DGL_TPU_LOWERING=scatter``): the (E, ...) messages are built with
-``index_select`` (``copy_u``) or taken as given (``copy_e``), reduced with a
-plain ``index_add_`` by dst, mean scaled by ``1/max(deg, 1)``, and autograd
-differentiates the gather into a scatter. No K1 or K2 runs and the reverse
-CSR is not used. It changes ``gspmm`` only.
+``DGL_TPU_LOWERING=scatter``), for sum and mean: the (E, ...) messages are
+built with ``index_select`` (and the op) or taken as given (``copy_e``),
+reduced with a plain ``index_add_`` by dst, mean scaled by
+``1/max(deg, 1)``, and autograd differentiates the gather into a scatter.
+No K1 or K2 runs and the reverse CSR is not used. max/min take the same
+path under either lowering.
 """
 
 from __future__ import annotations
@@ -34,23 +46,15 @@ import torch
 
 from ..graph.graph import Graph
 from ..kernels.csr_spmm import csr_spmm
-from .gather import seg_sum_dst
+from .gather import gather_src_rows, seg_sum_dst
+from .segment import segment_max, segment_min
 
 __all__ = ["gspmm"]
 
 _COPY_U = ("copy_u", "copy_lhs")
 _COPY_E = ("copy_e", "copy_rhs")
-# ops and reduces of the JAX package that later slices of the port bring
-_LATER_OPS = {
-    "add": "slice D (binary ops with edge weights)",
-    "sub": "slice D (binary ops with edge weights)",
-    "mul": "slice D (binary ops with edge weights)",
-    "div": "slice D (binary ops with edge weights)",
-}
-_LATER_REDUCES = {
-    "max": "a later slice (segment max/min reductions)",
-    "min": "a later slice (segment max/min reductions)",
-}
+_BINARY = {"add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div}
+_EXTREMA = {"max": segment_max, "min": segment_min}
 
 
 def _inv_deg(g: Graph, dtype) -> torch.Tensor:
@@ -73,12 +77,14 @@ class _CopyU(torch.autograd.Function):
         return grad_x, None, None
 
 
+def _scale_mean(g: Graph, out: torch.Tensor) -> torch.Tensor:
+    return out * _inv_deg(g, out.dtype).reshape((-1,) + (1,) * (out.dim() - 1))
+
+
 def _scatter(g: Graph, msg: torch.Tensor, mean: bool) -> torch.Tensor:
     out = torch.zeros((g.num_dst_nodes,) + tuple(msg.shape[1:]), dtype=msg.dtype,
                       device=msg.device).index_add_(0, g.dst, msg)
-    if mean:
-        out = out * _inv_deg(g, out.dtype).reshape((-1,) + (1,) * (out.dim() - 1))
-    return out
+    return _scale_mean(g, out) if mean else out
 
 
 def gspmm(
@@ -90,46 +96,50 @@ def gspmm(
     *,
     lowering: str = "fused",
 ) -> torch.Tensor:
-    """Generalized SpMM; the port serves ``copy_u``/``copy_lhs`` and
-    ``copy_e``/``copy_rhs`` with ``sum``/``mean``.
+    """Generalized SpMM (see the module docstring).
 
     Args:
       g: graph with its reverse (``from_edges`` builds both).
-      op: message op; ``copy_u`` uses only ``x``, ``copy_e`` only ``e``.
-      reduce: ``sum`` or ``mean``.
-      x: (num_src_nodes, D) float32 source-node features.
+      op: message op; ``copy_u`` uses only ``x``, ``copy_e`` only ``e``, the
+        binary ops combine both with broadcasting.
+      reduce: ``sum``, ``mean``, ``max`` or ``min``.
+      x: (num_src_nodes, ...) float32 source-node features; 2-D for ``copy_u``.
       e: (num_edges, ...) float32 edge features in canonical order.
-      lowering: ``fused`` (K1 / K2) or ``scatter`` (the PyG twin, above).
+      lowering: ``fused`` (the kernels) or ``scatter`` (the PyG twin, above).
     Returns:
-      (num_dst_nodes, D) or (num_dst_nodes, ...) aggregated features.
+      (num_dst_nodes, ...) aggregated features.
     """
-    if op in _LATER_OPS:
-        raise NotImplementedError(f"spmm op {op!r} is ported in {_LATER_OPS[op]}")
-    if op not in _COPY_U + _COPY_E:
+    if op not in _COPY_U + _COPY_E + tuple(_BINARY):
         raise ValueError(f"unknown spmm op: {op!r}")
-    if reduce in _LATER_REDUCES:
-        raise NotImplementedError(f"spmm reduce {reduce!r} is ported in {_LATER_REDUCES[reduce]}")
-    if reduce not in ("sum", "mean"):
+    if reduce not in ("sum", "mean") + tuple(_EXTREMA):
         raise ValueError(f"unknown spmm reduce: {reduce!r}")
     if lowering not in ("fused", "scatter"):
         raise ValueError(f"unknown spmm lowering: {lowering!r}")
-    if op in _COPY_E:
-        if e is None:
-            raise ValueError(f"spmm op {op!r} requires edge features e")
-        if lowering == "scatter":
-            return _scatter(g, e, reduce == "mean")
-        out = seg_sum_dst(g, e)
-        if reduce == "mean":
-            out = out * _inv_deg(g, out.dtype).reshape((-1,) + (1,) * (out.dim() - 1))
-        return out
-    if x is None:
+    if op not in _COPY_U and e is None:
+        raise ValueError(f"spmm op {op!r} requires edge features e")
+    if op not in _COPY_E and x is None:
         raise ValueError(f"spmm op {op!r} requires node features x")
-    if x.dim() != 2 or x.shape[0] != g.num_src_nodes:
+    mean = reduce == "mean"
+    if reduce in _EXTREMA:
+        msg = e if op in _COPY_E else gather_src_rows(g, x)
+        if op in _BINARY:
+            msg = _BINARY[op](msg, e)
+        return _EXTREMA[reduce](msg, g.dst, g.num_dst_nodes)
+    if op in _COPY_E:
+        if lowering == "scatter":
+            return _scatter(g, e, mean)
+        out = seg_sum_dst(g, e)
+        return _scale_mean(g, out) if mean else out
+    if op in _COPY_U and (x.dim() != 2 or x.shape[0] != g.num_src_nodes):
         raise ValueError(
             f"x must be (num_src_nodes={g.num_src_nodes}, D), got {tuple(x.shape)}"
         )
     if lowering == "scatter":
-        return _scatter(g, x.index_select(0, g.src), reduce == "mean")
+        msg = x.index_select(0, g.src)
+        return _scatter(g, _BINARY[op](msg, e) if op in _BINARY else msg, mean)
     if g.reverse is None:
         raise ValueError("gspmm needs the graph's reverse for its backward")
-    return _CopyU.apply(x, g, reduce == "mean")
+    if op in _COPY_U:
+        return _CopyU.apply(x, g, mean)
+    out = seg_sum_dst(g, _BINARY[op](gather_src_rows(g, x), e))
+    return _scale_mean(g, out) if mean else out

@@ -84,3 +84,16 @@ def test_scan_covers_the_sage_driver_and_graph_classification():
                 "dgl_tpu_torch/models/gcn_graph.py", "dgl_tpu_torch/ops/sddmm.py",
                 "dgl_tpu_torch/ops/segment.py"):
         assert rel in scanned, rel
+
+
+def test_scan_covers_the_rgcn_slice_and_the_kernel_sweep():
+    """The walk reaches the relation ops, RGCN's layer, model and driver,
+    and the kernel sweep's subpackage; the drivers' copies of the JAX
+    drivers' numpy helpers (masked_bce, mean_multilabel_auc) live in the
+    scanned benchmarks/common.py."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("dgl_tpu_torch/ops/rel.py", "dgl_tpu_torch/models/rgcn.py",
+                "dgl_tpu_torch/benchmarks/node_classification/main_rgcn.py",
+                "dgl_tpu_torch/kernel/__init__.py", "dgl_tpu_torch/kernel/bench_kernels.py",
+                "dgl_tpu_torch/benchmarks/common.py", "dgl_tpu_torch/convert.py"):
+        assert rel in scanned, rel

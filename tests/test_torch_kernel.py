@@ -369,3 +369,40 @@ def test_row_gather_by_source_matches_plain_on_card(dtype):
                 assert torch.equal(got, row_gather_by_source(x, plan.indptr, plan.pos, split))
             assert torch.equal(row_gather_by_source(x, plan.indptr, None, plan.split),
                                row_gather_by_source_plain(x, plan.indptr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_relation_passes_and_binary_gspmm_match_the_cpu_on_card(reduce):
+    """gspmm_rel (R weighted K1 launches each way), gspmm's mul by an edge
+    scalar, a binary op and max on the card against the same calls on CPU
+    tensors (the plain versions), with a hub row in both CSRs."""
+    from dgl_tpu_torch import from_edges, gspmm
+    from dgl_tpu_torch.ops import RelEdgeWeights, gspmm_rel
+
+    dev = _card()
+    rng = np.random.default_rng(3)
+    n, e, r, d = 3000, 60_000, 4, 32
+    src = np.concatenate([rng.integers(0, n, e), np.full(5000, 7)])
+    dst = np.concatenate([rng.integers(0, n - 100, e), rng.integers(0, n - 100, 5000)])
+    w = rng.uniform(0.1, 1.0, (len(src), r)).astype(np.float32)
+    y = rng.normal(1.0, 1.0, (r, n, d)).astype(np.float32)
+    cot = rng.standard_normal((n, d)).astype(np.float32)
+    res = {}
+    for where in ("cpu", dev):
+        g = from_edges(src, dst, n, device=where)
+        weights = RelEdgeWeights.build(g, torch.from_numpy(w).to(where)[g.eid.long()])
+        yk = torch.from_numpy(y).to(where).requires_grad_()
+        before = csr_spmm.launches
+        out = gspmm_rel(reduce, g, yk, weights)
+        out.backward(torch.from_numpy(cot).to(where))
+        launched = csr_spmm.launches - before
+        x = yk.detach()[0]
+        ew = weights.fwd[0].unsqueeze(1)
+        res[str(where)] = [out.detach(), yk.grad,
+                           gspmm(g, "mul", reduce, x=x, e=ew),
+                           gspmm(g, "add", reduce, x=x, e=x.index_select(0, g.dst.long())),
+                           gspmm(g, "copy_u", "max", x=x)]
+        assert launched == (2 * r if where == dev else 0)
+    for got, want in zip(res[str(dev)], res["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

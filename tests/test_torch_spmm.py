@@ -96,8 +96,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
         ("copy_u", "avg", ValueError, "avg"),
         ("copy_e", "sum", ValueError, "requires edge features"),
         ("u_mul_e", "sum", ValueError, "u_mul_e"),
-        ("mul", "sum", NotImplementedError, "slice D"),
-        ("copy_u", "max", NotImplementedError, "later slice"),
+        ("mul", "sum", ValueError, "requires edge features"),
+        ("add", "min", ValueError, "requires edge features"),
     ],
 )
 def test_gspmm_rejects_bad_or_later_ops(op, reduce, exc, match):
