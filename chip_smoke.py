@@ -137,13 +137,32 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      is timed (or an OOM row, only for torch.OutOfMemoryError), and
      gsddmm's two gathers in source order beside the index order at each
      width;
-  14. kernels: one line listing every ported kernel with its numbers, K1's,
+  14. ns_main: ns_sage and ns_gat on the full reddit graph at the drivers'
+     defaults (fanouts 10,25, batch 1000, hidden 16; ns_gat 8 heads): ns_sage
+     with the device sampler for 7 epochs (one evaluation, two epochs in
+     "Avg epoch time"), with --host-sampler and with --no-replace for one
+     epoch each, ns_gat for 2 epochs with one evaluation; the device-sampler
+     runs go on for NS_PROFILE_STEPS profiled steps (busy, idle share, top
+     kernels). Every counter set to 0 before a run and read after it: P1 in
+     index order once a step, no K1, K2 or K3 in a step, K1 (ns_sage) and
+     K3 forward (ns_gat) in the evaluations as ns_launches derives them, no
+     combine (reddit's dst CSR has no long row); losses finite and falling;
+     the reference's lines; ns_gat's training peak above its graph, data
+     and samplers under ns_gat_memory_bound. Then one device-sampler step of
+     each model under set_sync_debug_mode("error"), P1 on a real step's
+     input_nodes bit for bit against x[idx] and timed beside x[idx],
+     index_select and the bound of its distinct rows, and K3 forward at
+     both evaluation shapes on reddit as given (H = 8, D = 16 and H = 1,
+     D = 41) held by check_k3_fwd and timed;
+  15. kernels: one line listing every ported kernel with its numbers, K1's,
      K2's and K3's with T, long rows, chunks and combine launches, K3's at
      arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
      K1's at the SAGE widths and K1's and K2's launches on the new paths,
      P1 in source order beside P1 in index order with its plan's build
      time and its launches on the pubmed GAT and GCN runs, K1's launches on
-     the RGCN run and its weighted times at proteins' D = 32.
+     the RGCN run and its weighted times at proteins' D = 32; the NS runs'
+     launches of P1 in index order, K1 and K3 forward, P1's times on a
+     step's input_nodes and K3 forward's at H = 8.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -2342,6 +2361,221 @@ def phase_kernel_sweep(graphs):
     return rows, orders
 
 
+# -- neighbour sampling: ns_sage and ns_gat on full reddit ------------------
+
+NS_RUNS = {  # key: (driver, its flags) at the drivers' defaults (fanouts 10,25, batch 1000, hidden 16)
+    # one evaluation (after epoch 5) and epochs 6 and 7 in "Avg epoch time"
+    "sage": ("ns_sage", ["--num-epochs", "7"]),
+    "sage_host": ("ns_sage", ["--num-epochs", "1", "--host-sampler"]),
+    "sage_noreplace": ("ns_sage", ["--num-epochs", "1", "--no-replace"]),
+    # 8 heads; one evaluation, after epoch 1
+    "gat": ("ns_gat", ["--num-epochs", "2", "--eval-every", "1"]),
+}
+NS_PROFILE_STEPS = 20  # further steps of the "sage" and "gat" runs under torch.profiler
+NS_FANOUTS, NS_BATCH, NS_HEADS, NS_HIDDEN = (10, 25), 1000, 8, 16
+
+
+def ns_launches(kind, layers, steps, evals):
+    """Launches of a run of ns_sage (``kind`` "sage") or ns_gat ("gat"),
+    from the code (benchmarks/sampling/pipeline.py, nn/conv.py, ops/spmm.py):
+    a step gathers its features with P1 in index order once and runs no K1,
+    K2 or K3 (the block forms are reshapes); an evaluation is one full-graph
+    forward without gradients, one K1 forward a SAGEConv layer (it
+    aggregates once, projected first or not) or one K3 forward a fused
+    GATConv layer."""
+    return {"row_gather_async": steps, "row_gather_by_source": 0, "seg_sum": 0,
+            "csr_spmm": layers * evals if kind == "sage" else 0,
+            "gat_attention_fwd": layers * evals if kind == "gat" else 0, "gat_attention_bwd": 0}
+
+
+def ns_gat_memory_bound(blocks, in_feats, heads, hidden):
+    """The bytes an ns_gat step may add above its graph, data and samplers,
+    from the block sizes and the code: P1's (n0, in) output, which the
+    first projection keeps for its weight gradient, and eight float32
+    (n0, H·D) buffers, n0 the outermost block's sources: the projection z
+    and its gradient, the (nd, f, H, D) product with attn_r and the
+    einsum's operand, and their gradients (each at most n0·H·D)."""
+    n0 = blocks[0].num_src_nodes
+    return 4 * (n0 * in_feats + 8 * n0 * heads * hidden)
+
+
+def ns_step_no_host_sync(kind, csr, x, y):
+    """One device-sampler training step of ns_sage's or ns_gat's model
+    (make_train_step, as they run it) under set_sync_debug_mode("error"), sampling
+    included, after a warm-up step (the epoch's one upload of its seeds)."""
+    from dgl_tpu_torch.benchmarks.sampling.pipeline import make_train_step
+    from dgl_tpu_torch.models import GAT, GraphSAGE
+    from dgl_tpu_torch.sampling import DeviceNeighborSampler
+
+    dev = x.device
+    gen = torch.Generator().manual_seed(1)
+    if kind == "sage":
+        model = GraphSAGE(x.shape[1], NS_HIDDEN, int(y.max()) + 1, 2, dropout=0.5, device=dev,
+                          generator=gen)
+    else:
+        model = GAT(x.shape[1], NS_HIDDEN, int(y.max()) + 1, (NS_HEADS, 1), feat_drop=0.5,
+                    attn_drop=0.5, fused=True, device=dev, generator=gen)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=0.003), x, y,
+                           torch.Generator(device=dev).manual_seed(2))
+    sampler = DeviceNeighborSampler(csr, NS_FANOUTS, device=dev)
+    batches = sampler.batches(np.arange(3 * NS_BATCH), NS_BATCH,
+                              torch.Generator(device=dev).manual_seed(3))
+    step(next(batches))
+    out = []
+    no_host_sync(lambda: out.append(step(next(batches))), lambda: out[0][0].item())
+    if not math.isfinite(out[0][0].item()):
+        raise AssertionError(f"the {kind} step under the sync check gave a non-finite loss")
+
+
+def phase_ns_main():
+    """ns_sage and ns_gat on the full reddit graph (NS_RUNS), each run with
+    every launch and combine counter set to 0 just before it and read just
+    after it: P1 in index order once a step, no K1, K2 or K3 in a step, K1
+    (sage) or K3 forward (gat) in the evaluations as ns_launches derives
+    them, each launch over a CSR with long rows combining once; losses
+    finite and falling; the reference's lines; ns_gat's training memory
+    under ns_gat_memory_bound; the profiles of NS_PROFILE_STEPS steps. Then
+    one step of each model under the sync check, P1 on a real step's
+    input_nodes bit for bit against x[idx] and timed beside index_select and
+    its bound (the distinct rows read once), and K3 forward at both of the
+    evaluation's layers (reddit without self-loops, H = 8, D = 16 and
+    H = 1, D = 41) held by check_k3_fwd and timed."""
+    from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch.benchmarks.sampling import ns_gat, ns_sage
+    from dgl_tpu_torch.data import load_node_dataset
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+    from dgl_tpu_torch.kernels.gat_attention import (
+        gat_attention_bwd, gat_attention_fwd, gat_attention_fwd_plain)
+    from dgl_tpu_torch.kernels.row_gather import (
+        row_gather_async, row_gather_by_source, row_gather_plain)
+    from dgl_tpu_torch.kernels.seg_sum import seg_sum
+    from dgl_tpu_torch.sampling import CSRGraph, DeviceNeighborSampler
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    drivers = {"ns_sage": ns_sage, "ns_gat": ns_gat}
+    counters = {"row_gather_async": row_gather_async, "row_gather_by_source": row_gather_by_source,
+                "csr_spmm": csr_spmm, "seg_sum": seg_sum, "gat_attention_fwd": gat_attention_fwd,
+                "gat_attention_bwd": gat_attention_bwd}
+    res, launches, combines = {}, {}, {}
+    for key, (driver, argv) in NS_RUNS.items():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+            if hasattr(fn, "combines"):
+                fn.combines = 0
+        flags = argv + (["--profile", str(NS_PROFILE_STEPS)] if key in ("sage", "gat") else [])
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            r = drivers[driver].main(flags + ["--device", "cuda"])
+        r["run_s"] = time.perf_counter() - t0
+        launches[key] = {k: fn.launches for k, fn in counters.items()}
+        combines[key] = {k: fn.combines for k, fn in counters.items() if hasattr(fn, "combines")}
+        out = log.getvalue()
+        want_lines = ["Epoch 00000 | Step 00000 | Loss", "Speed (samples/sec)", "Epoch Time(s):"]
+        want_lines += ["Eval Acc", "Test Acc:"] if r["eval_epochs"] else []
+        want_lines += ["Avg epoch time:"] if r["avg_epoch_s"] is not None else []
+        missing = [ln for ln in want_lines if ln not in out]
+        if missing:
+            raise AssertionError(f"{key}: {driver} printed no {missing} line")
+        r["log_tail"] = out.splitlines()[-6:]
+        res[key] = r
+        torch.cuda.empty_cache()
+    data = load_node_dataset("reddit")
+    g = from_edges(data.src, data.dst, data.num_nodes, device=dev)
+    want_l, want_c = {}, {}
+    for key, r in res.items():
+        kind = "gat" if NS_RUNS[key][0] == "ns_gat" else "sage"
+        steps = r["steps"] + (NS_PROFILE_STEPS if r["profile"] else 0)
+        want_l[key] = ns_launches(kind, 2, steps, len(r["eval_epochs"]))
+        want_c[key] = {k: n * int(g.split.num_long > 0) if k in ("csr_spmm", "gat_attention_fwd")
+                       else 0 for k, n in want_l[key].items() if k in combines[key]}
+        losses = r["losses"]
+        if not (all(math.isfinite(v) for v in losses)
+                and statistics.mean(losses[-10:]) < statistics.mean(losses[:10])):
+            raise AssertionError(f"{key}: losses not finite and falling: {losses}")
+    if launches != want_l:
+        raise AssertionError(f"launches {launches}; want {want_l}")
+    if combines != want_c:
+        raise AssertionError(f"combine launches {combines}; want {want_c}")
+
+    x = torch.from_numpy(np.asarray(data.features, np.float32)).to(dev)
+    y = torch.from_numpy(np.asarray(data.labels)).to(dev)
+    csr = CSRGraph.from_edges(data.src, data.dst, data.num_nodes, device=dev)
+    sampler = DeviceNeighborSampler(csr, NS_FANOUTS, device=dev)
+    blocks = sampler.skeleton_blocks(NS_BATCH)
+    mem_bound = ns_gat_memory_bound(blocks, x.shape[1], NS_HEADS, NS_HIDDEN)
+    gat_extra = res["gat"]["train_peak_bytes"] - res["gat"]["setup_bytes"]
+    if not gat_extra < mem_bound:
+        raise AssertionError(f"ns_gat's training adds {gat_extra} B, over its bound {mem_bound} B")
+    for kind in ("sage", "gat"):
+        ns_step_no_host_sync(kind, csr, x, y)
+
+    # P1 on one real step's indices: the device sampler's first batch of a shuffled epoch
+    perm = np.random.default_rng(0).permutation(np.flatnonzero(data.train_mask))
+    idx = next(sampler.batches(perm, NS_BATCH, torch.Generator(device=dev).manual_seed(5))).input_nodes
+    got = row_gather_async(x, idx)
+    if not (torch.equal(got, x[idx.long()]) and torch.equal(got, row_gather_async(x, idx))):
+        raise AssertionError("P1 on a step's input_nodes differs from x[idx] or between runs")
+    bound, by, bound_rows = gather_bound(idx, 4 * x.shape[1])
+    p1 = {"rows": idx.numel(), "distinct_rows": torch.unique(idx).numel(), "d": x.shape[1],
+          "max_abs_err": (got - x[idx.long()]).abs().max().item(),
+          "ms": median_ms(lambda: row_gather_async(x, idx), reps=30, warmup=3),
+          "ms_tile128": median_ms(lambda: row_gather_async(x, idx, tile=128), reps=30, warmup=3),
+          "plain_ms": median_ms(lambda: row_gather_plain(x, idx), reps=30, warmup=3),
+          "library_ms": median_ms(lambda: x.index_select(0, idx), reps=30, warmup=3),
+          "bound_ms": bound, "bound_by": by, "bound_ms_e_rows": bound_rows}
+    del got
+
+    # K3 forward at both of the evaluation's layers on reddit as given:
+    # H = 8, D = 16, then H = 1, D = 41
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, e = g.num_dst_nodes, g.num_edges
+    kw = dict(negative_slope=0.2)
+    k3 = {}
+    for key, h, d in (("h8", NS_HEADS, NS_HIDDEN), ("h1_d41", 1, data.num_classes)):
+        v = 1.0 + torch.randn(n, h, d, device=dev, generator=gen)
+        a_s, a_d = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
+        acc = [0.0, 0.0, 0.0]
+        check_k3_fwd(f"reddit H={h} D={d}", g, v, a_s, a_d, kw, acc)
+        k3_args = (g.indptr, g.src, v, a_s, a_d)
+        bound, by = k3_fwd_bound(n, n, e, h, d)
+        k3[key] = {
+            "h": h, "d": d, "edges": e, "long_rows": g.split.num_long,
+            "ms": median_ms(lambda: gat_attention_fwd(*k3_args, split=g.split, **kw), reps=20,
+                            warmup=3),
+            "plain_ms": median_ms(lambda: gat_attention_fwd_plain(*k3_args, **kw), reps=3,
+                                  warmup=1),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": acc[0], "max_abs_err_f64": acc[1],
+            "max_bound_used": acc[2]}
+        del v, a_s, a_d, k3_args
+
+    def profile_fields(p):
+        return {k: p[k] for k in ("steps", "wall_ms_per_step", "device_busy_ms_per_step",
+                                  "device_idle_share")} | {
+            "kernels": [{"name": k["name"][:80], "device_ms": k["device_ms_per_step"],
+                         "calls": k["calls_per_step"]} for k in p["kernels"][:10]]}
+
+    fields = ("run_s", "load_s", "setup_s", "steps", "steps_per_epoch", "eval_epochs",
+              "epochs_s", "avg_epoch_s", "samples_per_s", "eval_acc", "test_acc",
+              "setup_bytes", "train_peak_bytes", "log_tail")
+    n_train = int(np.asarray(data.train_mask).sum())
+    emit("ns_main", seconds=time.perf_counter() - t_phase, device=res["sage"]["device"],
+         synthetic=res["sage"]["synthetic"], runs={k: NS_RUNS[k][1] for k in NS_RUNS},
+         train_nodes=n_train, input_nodes=blocks[0].num_src_nodes,
+         **{k: {f: r[f] for f in fields} | {
+             "losses_first_last": [r["losses"][:3], r["losses"][-3:]],
+             "epoch_samples_per_s": [n_train / t for t in r["epochs_s"]],
+             "launches": launches[k], "combines": combines[k],
+             "profile": profile_fields(r["profile"]) if r["profile"] else None}
+            for k, r in res.items()},
+         gat_train_extra_bytes=gat_extra, gat_memory_bound_bytes=mem_bound,
+         no_host_sync=True, p1_step=p1, k3_fwd_h8=k3["h8"],
+         k3_fwd_h1_d41=k3["h1_d41"])
+    return launches, p1, k3
+
+
 def _kernel_entry(name, source, replaces, launches, r, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2373,6 +2607,12 @@ def main():
     phase_kernel_sweep({"reddit": red_graph, "ogbn-arxiv": _raw_graph("ogbn-arxiv"),
                         "ogbn-proteins": prot_graph})
     del red_graph, prot_graph
+    torch.cuda.empty_cache()
+    nlaunch, ns_p1, ns_k3 = phase_ns_main()
+    rows["row_gather_async"].update(
+        **{f"launches_ns_{k}": nlaunch[k]["row_gather_async"] for k in nlaunch},
+        **{f"{f}_ns_step": ns_p1[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                "max_abs_err", "rows", "distinct_rows")})
     rows["row_gather_by_source"].update(
         launches_pubmed_gat=glaunch["pubmed"]["row_gather_by_source"],
         **{f"launches_gcn_{k}": v["row_gather_by_source"] for k, v in claunch.items()})
@@ -2430,6 +2670,9 @@ def main():
             # weighted launches at every (CSR, width) the run launches: fwd
             # the dst CSR (mean), bwd the reverse CSR (sum)
             "launches_rgcn": rlaunch,
+            # the NS runs: only their evaluations launch K1 (ns_sage: 2 a
+            # full-graph forward at D = 16), none in a step
+            **{f"launches_ns_{k}": v["csr_spmm"] for k, v in nlaunch.items()},
             "combines_rgcn": rcombines,
             **{f"{k}_proteins_{shape.split('_')[1]}_weighted_{shape.split('_')[0]}": r[k]
                for shape, r in rk1.items()
@@ -2461,7 +2704,13 @@ def main():
                         bound_ms_arxiv_d40=gred_arxiv40[name]["bound_ms"],
                         max_abs_err_arxiv_d40=gred_arxiv40[name]["max_abs_err"], **extra)
           for name, p, extra in (
-              ("gat_attention_fwd", "fwd", {}),
+              # the NS runs (ns_gat's evaluations: H = 8, D = 16, then
+              # H = 1, D = 41) and the forward at both shapes on reddit as given
+              ("gat_attention_fwd", "fwd", {
+                  **{f"launches_ns_{k}": v["gat_attention_fwd"] for k, v in nlaunch.items()},
+                  **{f"{f}_{key}": ns_k3[key][f] for key in ("h8", "h1_d41")
+                     for f in ("ms", "plain_ms", "bound_ms", "max_abs_err", "max_abs_err_f64",
+                               "max_bound_used")}}),
               ("gat_attention_bwd", "b2", {"gather_floor_ms": floors["k3_b2"]["gather_floor_ms"],
                                            "t_sweep": gred["gat_attention_bwd"]["t_sweep"]}))),
         # K2 at (E, 16) on reddit with self-loops over the dst CSR, the only

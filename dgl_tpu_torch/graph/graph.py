@@ -14,12 +14,18 @@ A node with no in-edges aggregates to 0.
 
 There is no padding and there are no sentinel edges: arrays hold exactly
 ``num_edges`` entries. Indices are int32.
+
+A sampled block (``sampling/neighbor.py``) sets ``block_fanout``: each of
+its ``num_dst_nodes`` destinations has exactly ``block_fanout`` in-edges,
+laid out by position (edge ``(i, j)`` runs from source slot
+``num_dst_nodes + i·block_fanout + j`` to destination ``i``), so the ops
+aggregate it by a reshape (``ops/spmm.py``, ``nn/conv.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,7 +33,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .split import RowSplit, row_split
 
-__all__ = ["Graph", "from_edges"]
+__all__ = ["Graph", "from_edges", "per_layer"]
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -42,10 +48,17 @@ class Graph:
     num_dst_nodes: int
     split: RowSplit  # the long rows of this CSR and their chunks
     reverse: Optional["Graph"] = None
+    block_fanout: Optional[int] = None  # set on positional sampled blocks
 
     @property
     def num_edges(self) -> int:
         return int(self.src.shape[0])
+
+    @property
+    def is_block(self) -> bool:
+        """True for a bipartite graph (``num_src_nodes != num_dst_nodes``),
+        such as a sampled block, whose models pass ``(h, h[:num_dst_nodes])``."""
+        return self.num_src_nodes != self.num_dst_nodes
 
     def in_degrees(self) -> torch.Tensor:
         """(num_dst_nodes,) int32 in-edge count per destination."""
@@ -74,6 +87,16 @@ class Graph:
             f"Graph(num_src={self.num_src_nodes}, num_dst={self.num_dst_nodes}, "
             f"num_edges={self.num_edges}, device={self.src.device})"
         )
+
+
+def per_layer(graphs: Union[Graph, Sequence[Graph]], n_layers: int) -> List[Graph]:
+    """The graph of each of ``n_layers`` layers: one ``Graph`` for all of
+    them, or a list of one block a layer, whose length must be ``n_layers``."""
+    if isinstance(graphs, Graph):
+        return [graphs] * n_layers
+    if len(graphs) != n_layers:
+        raise ValueError(f"expected {n_layers} blocks, got {len(graphs)}")
+    return list(graphs)
 
 
 def _build_sorted(

@@ -1,4 +1,4 @@
-"""GAT over one full graph.
+"""GAT over one full graph or a list of sampled blocks.
 
 Counterpart of ``dgl_tpu/models/gat.py:GAT`` (the reference's
 ``main_dgl_citation_gat.py`` net): layer 0 without feature or attention
@@ -6,20 +6,22 @@ dropout, hidden layers with elu and their heads concatenated, the output
 layer averaging its heads. ``fused`` picks GATConv's form for every layer.
 Dropout masks and attention-dropout seeds come from the ``generator``
 passed to ``forward``; the initial weights from the CPU ``generator``
-passed to the constructor. The JAX model's ``remat`` is a TPU memory
+passed to the constructor. Over blocks (``ns-gat-dgl.py:22-60``) layer
+``i`` runs on ``graphs[i]`` with ``(h, h[:num_dst_nodes])`` and takes
+GATConv's positional block form. The JAX model's ``remat`` is a TPU memory
 workaround and is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..graph.graph import Graph
+from ..graph.graph import Graph, per_layer
 from ..nn import GATConv
 
 __all__ = ["GAT"]
@@ -62,10 +64,11 @@ class GAT(nn.Module):
             width = h * d
         self.to(dev)
 
-    def forward(self, g: Graph, x: torch.Tensor, *,
+    def forward(self, graphs: Union[Graph, Sequence[Graph]], x: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``graphs``: one graph, or one block per layer, outermost first."""
         h = x
-        for i, conv in enumerate(self.convs):
-            h = conv(g, h, generator=generator)
+        for i, (conv, g) in enumerate(zip(self.convs, per_layer(graphs, len(self.convs)))):
+            h = conv(g, (h, h[:g.num_dst_nodes]) if g.is_block else h, generator=generator)
             h = h.mean(1) if i == len(self.convs) - 1 else h.flatten(1)
         return h

@@ -1,25 +1,27 @@
-"""GraphSAGE over one full graph.
+"""GraphSAGE over one full graph or a list of sampled blocks.
 
-Counterpart of ``dgl_tpu/models/sage.py:GraphSAGE`` (full-graph part):
+Counterpart of ``dgl_tpu/models/sage.py:GraphSAGE``:
 * ``batch_norm=False``: the 2-layer citation/reddit net, relu inside the
   hidden convs and dropout only on the last conv's input;
 * ``batch_norm=True``: the OGB net, conv → BN → relu → dropout between
   layers.
 Dropout masks come from the ``generator`` passed to ``forward``; the
 initial weights from the CPU ``generator`` passed to the constructor.
-``lowering`` goes to every layer's ``gspmm`` (``ops/spmm.py``).
+``lowering`` goes to every layer's ``gspmm`` (``ops/spmm.py``). Over
+blocks (``ns-sage-dgl.py:21-48``) layer ``i`` runs on ``graphs[i]`` with
+``(h, h[:num_dst_nodes])``: a block's destinations are its leading sources.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..graph.graph import Graph
+from ..graph.graph import Graph, per_layer
 from ..nn import MaskedBatchNorm, SAGEConv
 from ..nn.conv import dropout as feature_dropout
 
@@ -64,7 +66,7 @@ class GraphSAGE(nn.Module):
 
     def forward(
         self,
-        g: Graph,
+        graphs: Union[Graph, Sequence[Graph]],
         x: torch.Tensor,
         *,
         x_agg: Optional[torch.Tensor] = None,
@@ -73,10 +75,12 @@ class GraphSAGE(nn.Module):
         """``x_agg`` (optional) is the precomputed ``gspmm(g, copy_u, aggr, x)``
         of the input features: in full-graph training layer 1's aggregation
         never changes, so it can be hoisted out of the step (exact, since
-        aggregation commutes with the projection)."""
+        aggregation commutes with the projection). ``graphs``: one graph, or
+        one block per layer, outermost first."""
         h = x
-        for i, conv in enumerate(self.convs):
-            h = conv(g, h, x_agg=x_agg if i == 0 else None, generator=generator)
+        for i, (conv, g) in enumerate(zip(self.convs, per_layer(graphs, len(self.convs)))):
+            feat = (h, h[:g.num_dst_nodes]) if g.is_block else h
+            h = conv(g, feat, x_agg=x_agg if i == 0 else None, generator=generator)
             if self.batch_norm and i < len(self.convs) - 1:
                 h = F.relu(self.bns[i](h))
                 h = feature_dropout(h, self.dropout, self.training, generator)

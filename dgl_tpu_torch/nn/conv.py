@@ -4,12 +4,16 @@ Counterpart of ``dgl_tpu/nn/conv.py``; the port has ``SAGEConv``,
 ``GATConv``, ``GCNConv``, ``GCNConvEdge`` and ``RelGraphConv``. ``lowering``
 (``fused`` or ``scatter``) is handed to every ``gspmm`` a layer calls
 (``ops/spmm.py``).
+
+``SAGEConv`` and ``GATConv`` take a sampled block's features as a pair
+``(x_src, x_dst)``, the reference's convention (``ns-gat-dgl.py:51-57``);
+a tensor ``x`` stands for ``(x, x)``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +29,8 @@ from .init import kaiming_uniform_fan_in, relu_gain, xavier_uniform_
 
 __all__ = ["SAGEConv", "GATConv", "GCNConv", "GCNConvEdge", "RelGraphConv", "dropout"]
 
+Features = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
 
 def dropout(
     x: torch.Tensor, p: float, training: bool, generator: Optional[torch.Generator] = None
@@ -37,15 +43,25 @@ def dropout(
     return x * mask / keep
 
 
+def _drop_pair(x: Features, p: float, training: bool,
+               generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x_src, x_dst)`` of a tensor or a pair, each side with its own
+    dropout mask (one mask where they are the same tensor)."""
+    x_src, x_dst = (x[0], x[1]) if isinstance(x, (tuple, list)) else (x, x)
+    dropped = dropout(x_src, p, training, generator)
+    return dropped, dropped if x_dst is x_src else dropout(x_dst, p, training, generator)
+
+
 class SAGEConv(nn.Module):
     """GraphSAGE convolution: ``fc_self(x) + fc_neigh(agg(x)) + bias``.
 
     The reference's hand-built SAGEConv: mean or sum aggregation of source
     features, xavier-uniform (relu gain) weights, bias only on the neighbour
-    term, added after aggregation.
+    term, added after aggregation. On a block ``x`` is ``(x_src, x_dst)``:
+    ``feat_drop`` acts on both, ``fc_self`` on ``x_dst``.
 
-    When ``out_feats < in_feats`` the neighbour term projects first and
-    aggregates after (aggregation commutes with the linear map), so the SpMM
+    When ``out_feats`` is below ``x_src``'s width the neighbour term projects
+    first and aggregates after (aggregation commutes with the linear map), so the SpMM
     moves ``out_feats``-wide rows. ``x_agg``, a precomputed
     ``gspmm(g, copy_u, aggr, x)``, replaces the aggregation entirely; it is
     invalid with ``feat_drop``, which must act before aggregation.
@@ -82,25 +98,24 @@ class SAGEConv(nn.Module):
     def forward(
         self,
         g: Graph,
-        x: torch.Tensor,
+        x: Features,
         *,
         x_agg: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        if self.feat_drop > 0.0:
-            if x_agg is not None:
-                raise ValueError(
-                    "x_agg (precomputed aggregation) is invalid with feat_drop: "
-                    "dropout must be applied before aggregation"
-                )
-            x = dropout(x, self.feat_drop, self.training, generator)
+        if self.feat_drop > 0.0 and x_agg is not None:
+            raise ValueError(
+                "x_agg (precomputed aggregation) is invalid with feat_drop: "
+                "dropout must be applied before aggregation"
+            )
+        x_src, x_dst = _drop_pair(x, self.feat_drop, self.training, generator)
         if x_agg is not None:
             h_neigh = self.fc_neigh(x_agg)
-        elif self.out_feats < self.in_feats:
-            h_neigh = gspmm(g, "copy_u", self.aggr, x=self.fc_neigh(x), lowering=self.lowering)
+        elif self.out_feats < x_src.shape[-1]:
+            h_neigh = gspmm(g, "copy_u", self.aggr, x=self.fc_neigh(x_src), lowering=self.lowering)
         else:
-            h_neigh = self.fc_neigh(gspmm(g, "copy_u", self.aggr, x=x, lowering=self.lowering))
-        out = self.fc_self(x) + h_neigh + self.fc_neigh_bias
+            h_neigh = self.fc_neigh(gspmm(g, "copy_u", self.aggr, x=x_src, lowering=self.lowering))
+        out = self.fc_self(x_dst) + h_neigh + self.fc_neigh_bias
         if self.activation is not None:
             out = self.activation(out)
         return out
@@ -130,10 +145,18 @@ class GATConv(nn.Module):
       ``gspmm(copy_e, sum)``; its sums are K2 launches. Attention dropout is
       an ordinary mask from ``generator``.
 
-    Left out: the JAX layer's positional sampled-block path (slice E) and
-    its memory-safe form for graphs whose (E, H, D) messages pass the budget
-    (slice F, for ``cluster_gat`` on products: it needs a gradient wrt the
-    per-edge ``alpha``); both raise ``NotImplementedError``.
+    On a positional sampled block (``g.block_fanout``, ``x`` the pair
+    ``(x_src, x_dst)``) both forms give way to the block's own: destination
+    ``i``'s ``f`` sources are slots ``nd + i·f ...`` of ``W x_src``, so the
+    logits, a softmax over ``f``, attention dropout (a mask from
+    ``generator``) and the weighted sum are reshapes and an einsum, no
+    kernel, as ``dgl_tpu/nn/conv.py:157-172`` computes them; ``fused`` is
+    ignored there.
+
+    Left out: the JAX layer's memory-safe form for graphs whose (E, H, D)
+    messages pass the budget (slice F, for ``cluster_gat`` on products: it
+    needs a gradient wrt the per-edge ``alpha``); it raises
+    ``NotImplementedError``.
 
     ``generator`` (a CPU generator) draws the initial weights: ``fc``
     xavier-uniform (gain 1), ``attn_l``/``attn_r`` uniform in
@@ -173,26 +196,36 @@ class GATConv(nn.Module):
         self.residual = residual
         self.to(dev)
 
-    def forward(self, g: Graph, x: torch.Tensor, *,
+    def forward(self, g: Graph, x: Features, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if isinstance(x, (tuple, list)):
-            raise NotImplementedError("GATConv over sampled blocks (x_src, x_dst) is ported in slice E")
-        if self.feat_drop > 0.0:
-            x = dropout(x, self.feat_drop, self.training, generator)
+        x_src, x_dst = _drop_pair(x, self.feat_drop, self.training, generator)
         h, d = self.num_heads, self.out_feats
-        z = self.fc(x).view(-1, h, d)
-        a_src = (z * self.attn_r).sum(-1)  # (N, H)
-        a_dst = (z * self.attn_l).sum(-1)
-        if self.fused:
-            out = self._fused(g, x, z, a_src, a_dst, generator)
+        z = self.fc(x_src).view(-1, h, d)
+        z_dst = z if x_dst is x_src else self.fc(x_dst).view(-1, h, d)
+        if g.block_fanout is not None:
+            out = self._block(g, z, z_dst, generator)
         else:
-            out = self._edge(g, z, a_src, a_dst, generator)
+            a_src = (z * self.attn_r).sum(-1)  # (N_src, H)
+            a_dst = (z_dst * self.attn_l).sum(-1)  # (N_dst, H)
+            if self.fused:
+                out = self._fused(g, x_src, z, a_src, a_dst, generator)
+            else:
+                out = self._edge(g, z, a_src, a_dst, generator)
         if self.residual:
-            res = x if self.res_fc is None else self.res_fc(x)
+            res = x_dst if self.res_fc is None else self.res_fc(x_dst)
             out = out + res.view(-1, h, d)
         if self.activation is not None:
             out = self.activation(out)
         return out
+
+    def _block(self, g, z, z_dst, generator):
+        nd, f = g.num_dst_nodes, g.block_fanout
+        z_n = z[nd: nd + nd * f].view(nd, f, self.num_heads, self.out_feats)
+        logits = F.leaky_relu((z_n * self.attn_r).sum(-1)  # (nd, f, H)
+                              + (z_dst[:nd] * self.attn_l).sum(-1).unsqueeze(1),
+                              self.negative_slope)
+        alpha = dropout(torch.softmax(logits, 1), self.attn_drop, self.training, generator)
+        return torch.einsum("nfh,nfhd->nhd", alpha, z_n)
 
     def _fused(self, g, x, z, a_src, a_dst, generator):
         h, d, in_d = self.num_heads, self.out_feats, x.shape[-1]

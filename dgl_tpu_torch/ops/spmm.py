@@ -28,6 +28,12 @@ package, which computes them outside any Pallas kernel; a row with no
 in-edge is 0, and a non-finite extremum is kept (the JAX package maps it to
 0, ``dgl_tpu/ops/segment.py:109``).
 
+A positional sampled block (``g.block_fanout`` set, ``sampling/neighbor.py``)
+takes ``copy_u`` with any reduce as ``x[nd : nd + nd·f]`` viewed (nd, f, ...)
+and reduced over ``f``, as ``dgl_tpu/ops/spmm.py:636-649`` does: no K1 or K2
+launch, and autograd differentiates the reshape. It comes before
+``lowering``: the layout is the block's semantics, not a lowering.
+
 ``lowering="scatter"`` is a second lowering the caller names, the PyG twin
 (``dgl_tpu/ops/spmm.py:604-626``, the JAX package's
 ``DGL_TPU_LOWERING=scatter``), for sum and mean: the (E, ...) messages are
@@ -87,6 +93,18 @@ def _scatter(g: Graph, msg: torch.Tensor, mean: bool) -> torch.Tensor:
     return _scale_mean(g, out) if mean else out
 
 
+_BLOCK_REDUCE = {"sum": torch.sum, "mean": torch.mean, "max": torch.amax, "min": torch.amin}
+
+
+def _block_reduce(g: Graph, x: torch.Tensor, reduce: str) -> torch.Tensor:
+    """``copy_u`` over a positional block: destination ``i``'s sources are
+    the ``f`` slots ``nd + i·f ...``, so a reshape and a reduce over them."""
+    nd, f = g.num_dst_nodes, g.block_fanout
+    if x.shape[0] != g.num_src_nodes:
+        raise ValueError(f"x must have num_src_nodes={g.num_src_nodes} rows, got {tuple(x.shape)}")
+    return _BLOCK_REDUCE[reduce](x[nd: nd + nd * f].reshape((nd, f) + tuple(x.shape[1:])), 1)
+
+
 def gspmm(
     g: Graph,
     op: str,
@@ -120,6 +138,8 @@ def gspmm(
     if op not in _COPY_E and x is None:
         raise ValueError(f"spmm op {op!r} requires node features x")
     mean = reduce == "mean"
+    if g.block_fanout is not None and op in _COPY_U:
+        return _block_reduce(g, x, reduce)
     if reduce in _EXTREMA:
         msg = e if op in _COPY_E else gather_src_rows(g, x)
         if op in _BINARY:

@@ -1,3 +1,6 @@
 from .dataloader import GraphBatchLoader, prefetch
+from .device import DeviceNeighborSampler
+from .neighbor import CSRGraph, MiniBatch, MultiLayerNeighborSampler, NodeDataLoader
 
-__all__ = ["GraphBatchLoader", "prefetch"]
+__all__ = ["GraphBatchLoader", "prefetch", "CSRGraph", "MiniBatch", "MultiLayerNeighborSampler",
+           "NodeDataLoader", "DeviceNeighborSampler"]

@@ -187,5 +187,8 @@ def test_gat_entry_points_default_to_cuda():
         pytest.skip("checks the error raised where there is no card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         dgl_tpu_torch.GAT(4, 2, 3, (1, 1))
-    with pytest.raises(NotImplementedError, match="slice E"):
-        dgl_tpu_torch.GATConv(4, 2, device="cpu")(None, (torch.zeros(3, 4), torch.zeros(2, 4)))
+    # the sampled-block input (x_src, x_dst), ported with slice E, runs on the CPU
+    from dgl_tpu_torch.sampling import MultiLayerNeighborSampler
+    block = MultiLayerNeighborSampler([2]).skeleton_blocks(3, "cpu")[0]  # 3 dst, 9 src
+    out = dgl_tpu_torch.GATConv(4, 2, device="cpu")(block, (torch.zeros(9, 4), torch.zeros(3, 4)))
+    assert out.shape == (3, 1, 2)

@@ -97,3 +97,16 @@ def test_scan_covers_the_rgcn_slice_and_the_kernel_sweep():
                 "dgl_tpu_torch/kernel/__init__.py", "dgl_tpu_torch/kernel/bench_kernels.py",
                 "dgl_tpu_torch/benchmarks/common.py", "dgl_tpu_torch/convert.py"):
         assert rel in scanned, rel
+
+
+def test_scan_covers_the_sampling_slice():
+    """The walk reaches the samplers, the native bindings and the NS
+    drivers; the samplers' C++ source sits beside its bindings."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("dgl_tpu_torch/sampling/neighbor.py", "dgl_tpu_torch/sampling/device.py",
+                "dgl_tpu_torch/csrc/native.py",
+                "dgl_tpu_torch/benchmarks/sampling/pipeline.py",
+                "dgl_tpu_torch/benchmarks/sampling/ns_sage.py",
+                "dgl_tpu_torch/benchmarks/sampling/ns_gat.py"):
+        assert rel in scanned, rel
+    assert os.path.exists(os.path.join(ROOT, "dgl_tpu_torch", "csrc", "graph_ops.cpp"))
