@@ -154,7 +154,30 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      index_select and the bound of its distinct rows, and K3 forward at
      both evaluation shapes on reddit as given (H = 8, D = 16 and H = 1,
      D = 41) held by check_k3_fwd and timed;
-  15. kernels: one line listing every ported kernel with its numbers, K1's,
+  15. cluster_main: the full products graph partitioned once (metis,
+     k = 15000), alone on the host, into cluster_sage's partition cache:
+     its seconds, edge cut and balance, every node's part in
+     [0, k) and the parts covering every node once; cluster_sage with
+     SAGE and with GAT (fused, K3) on full products at the driver's
+     defaults (psize 15000, 32 parts a step, 3 layers of 256, GAT 4 heads
+     of 64), 5 epochs with a full-graph evaluation each and 30 profiled
+     steps, and cluster_gcn_lp on arxiv (dot predictor, 5 epochs, MRR
+     every epoch, --yardsticks), every counter set to 0 before a run and
+     read after it: P1 in index order once a batch, K1 / K3 / K2 / P1 in
+     source order a step and an evaluation as cluster_launches derives
+     them; losses finite and falling; the reference's lines; cluster GAT's
+     training peak above its data and graph under
+     cluster_gat_memory_bound; each batch's host collation; one step of
+     each model under set_sync_debug_mode("error"), and 35 steps of SAGE
+     and of GAT on batches collated first, their host enqueue timed
+     (cluster_host_split); both K3 passes at
+     H = 4, D = 64 and H = 1, D = 47 and K1 at D = 100 and 256 on one
+     products cluster batch (k3_shape, k1_width), P1 on its nodes; K3
+     forward on the whole products graph at H = 4, D = 64, rows held to
+     float64 sums on their sub-CSR; one forward of GATConv's memory-safe
+     form on the whole products graph, its peak under
+     memsafe_memory_bound, its output against the fused form's;
+  16. kernels: one line listing every ported kernel with its numbers, K1's,
      K2's and K3's with T, long rows, chunks and combine launches, K3's at
      arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
      K1's at the SAGE widths and K1's and K2's launches on the new paths,
@@ -162,7 +185,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      time and its launches on the pubmed GAT and GCN runs, K1's launches on
      the RGCN run and its weighted times at proteins' D = 32; the NS runs'
      launches of P1 in index order, K1 and K3 forward, P1's times on a
-     step's input_nodes and K3 forward's at H = 8.
+     step's input_nodes and K3 forward's at H = 8; the cluster runs'
+     launches (launches_cluster_*), K1, K3 and P1 at a cluster batch's
+     shapes (*_cluster_*) and K3 forward on the whole products graph
+     (*_products_h4_d64).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -2576,6 +2602,439 @@ def phase_ns_main():
     return launches, p1, k3
 
 
+# -- cluster-batched training: cluster_sage (SAGE, GAT) and cluster_gcn_lp --
+
+CLUSTER_RUNS = {  # key: (driver, its flags) at the drivers' defaults
+    # full products, psize 15000, 32 parts a step, 3 layers of 256 (GAT: 4
+    # heads of 64, the last layer 1 head): a full-graph evaluation every
+    # epoch, epochs 4 and 5 in "Training time/epoch", then profiled steps
+    "sage": ("cluster_sage", ["--model", "sage", "--n-epochs", "5", "--eval"]),
+    "gat": ("cluster_sage", ["--model", "gat", "--n-epochs", "5", "--eval"]),
+    # arxiv, psize 2000, the dot predictor: an MRR evaluation every epoch,
+    # and the untrained encoder's and the raw features' MRR before training
+    "lp": ("cluster_gcn_lp", ["--n-epochs", "5", "--eval", "--yardsticks"]),
+}
+CLUSTER_PROFILE_STEPS = 30  # further steps of the sage and gat runs, the loader included
+CLUSTER_PSIZE, CLUSTER_LAYERS, CLUSTER_HIDDEN, CLUSTER_HEADS = 15000, 3, 256, 4
+PRODUCTS_KEY = "ogbn-products_s1.0"  # cluster_sage's partition cache key at --scale 1
+_KERNEL_COUNTERS = ("row_gather_async", "row_gather_by_source", "csr_spmm", "seg_sum",
+                    "gat_attention_fwd", "gat_attention_bwd")
+
+
+def cluster_launches(kind, steps, batches, evals, in_feats, classes, layers=CLUSTER_LAYERS,
+                     hidden=CLUSTER_HIDDEN):
+    """Launches of a run of cluster_sage ("sage", "gat") or cluster_gcn_lp
+    with the dot predictor ("lp"), from the code (sampling/cluster.py,
+    nn/conv.py, ops/spmm.py, ops/sddmm.py, ops/gather.py): every batch taken
+    from the iterator gathers its features by P1 in index order once;
+    a SAGE step launches K1 as sage_k1_launches derives it, a fused GAT step
+    one K3 forward and one b2 a layer; an LP step its SAGE encoder's K1 and,
+    for the scores of the batch's graph and of its negative graph, two P1
+    gathers in source order each (u_dot_v's gather_src_rows and
+    gather_dst), whose adjoints are one K1 and one K2; an evaluation is one
+    full-graph forward without gradients, one K1 (SAGE) or K3 forward (GAT)
+    a layer."""
+    out = dict.fromkeys(_KERNEL_COUNTERS, 0)
+    out["row_gather_async"] = batches
+    if kind == "sage":
+        out["csr_spmm"] = (steps * len(sage_k1_launches(in_feats, hidden, classes, layers, False))
+                           + evals * layers)
+    elif kind == "gat":
+        out["gat_attention_fwd"] = layers * (steps + evals)
+        out["gat_attention_bwd"] = layers * steps
+    else:
+        enc = len(sage_k1_launches(in_feats, hidden, hidden, layers, False))
+        out.update(csr_spmm=steps * (enc + 2) + evals * layers, seg_sum=2 * steps,
+                   row_gather_by_source=4 * steps)
+    return out
+
+
+def cluster_gat_memory_bound(n, e, in_feats, classes, heads=CLUSTER_HEADS, hidden=CLUSTER_HIDDEN,
+                             layers=CLUSTER_LAYERS, n_params=0):
+    """The bytes a cluster GAT step may add above the data and the full
+    graph, from the code (sampling/cluster.py, models/gat.py, nn/conv.py,
+    kernels/gat_attention.py), n and e the largest batch's nodes and edges:
+    two batches on the card (the step's and the next one's copies): their
+    graphs' CSRs both ways (src, dst, eid, indptr in int32; the row splits
+    in int64 at most 2 words an edge) and x, y and the mask; a layer from
+    width w to H·D: dropout's mask and output (2 n·w), z, K3's out and w1,
+    the elu output and their gradients (8 n·H·D), and 12 (n, H) scalars
+    (a_src, a_dst, inv_s, w1s, shift, w3 and their gradients); the
+    parameters with their gradients and Adam's two moments (4 copies)."""
+    batch = 4 * (6 * e + 2 * n) + 8 * 2 * e + 4 * n * in_feats + 9 * n
+    per_layer, w = 0, in_feats
+    for i in range(layers):
+        h, d = (1, classes) if i == layers - 1 else (heads, hidden // heads)
+        per_layer += 4 * n * (2 * w + 8 * h * d + 12 * h)
+        w = h * d
+    return 2 * batch + per_layer + 16 * n_params
+
+
+def memsafe_memory_bound(n, e, heads, d):
+    """The bytes one forward of GATConv's memory-safe form without gradients
+    may add above its graph, x and weights, from the code
+    (nn/conv.py:GATConv._memory_safe, ops/softmax.py, ops/rel.py): five
+    (E, H) float32 tensors live at once (edge_softmax's logits, exp,
+    denominator, its clamp and the quotient; then alpha and its layouts
+    in RelEdgeWeights.build), one (E, H) bool (the rescue test); z, its
+    head-major copy, the per-head sums and their stack (four (N, H, D)),
+    and eight (N, H) scalars."""
+    return 4 * 5 * e * heads + e * heads + 4 * 4 * n * heads * d + 4 * 8 * n * heads
+
+
+def partition_checks():
+    """partition_assignment of the full products graph (metis, k = 15000)
+    into cluster_sage's cache, timed alone: nothing else runs beside the
+    serial host partitioner. Then every node's part in [0, k) and the
+    parts' lists covering every node once; seconds, edge cut and balance."""
+    from dgl_tpu_torch.data import data_root, load_node_dataset
+    from dgl_tpu_torch.graph.partition import (get_partition_list, partition_assignment,
+                                               partition_stats)
+
+    t0 = time.perf_counter()
+    data = load_node_dataset("ogbn-products")
+    t1 = time.perf_counter()
+    part = partition_assignment(data.src, data.dst, data.num_nodes, CLUSTER_PSIZE,
+                                method="metis", seed=0, cache_dir=data_root(),
+                                cache_key=PRODUCTS_KEY)
+    r = {"load_s": t1 - t0, "partition_s": time.perf_counter() - t1}
+    k = CLUSTER_PSIZE
+    if not (part.shape == (data.num_nodes,) and part.min() >= 0 and part.max() < k):
+        raise AssertionError(f"products partition out of [0, {k}): {part.min()} .. {part.max()}")
+    lists = get_partition_list(part, k)
+    cover = np.concatenate(lists)
+    if not (len(cover) == data.num_nodes and np.array_equal(np.sort(cover),
+                                                            np.arange(data.num_nodes))):
+        raise AssertionError("the products parts do not cover every node once")
+    sizes = np.array([len(a) for a in lists])
+    return r | partition_stats(data.src, data.dst, part, k) | {
+        "nodes": data.num_nodes, "edges": len(data.src), "empty_parts": int((sizes == 0).sum()),
+        "part_nodes_min_max": [int(sizes.min()), int(sizes.max())]}
+
+
+def k3_fwd_full(g, h, d, gen, rows_n=20000):
+    """K3 forward on the whole graph at H = h, D = d (v is N·H·D float32,
+    beyond the L2): two runs bitwise equal, CUDA-event median against the
+    bound, and the rows of ``rows_n`` random nodes and of the 50 longest
+    rows held to a float64 plain run on their sub-CSR (the plain version
+    of the whole graph would gather an (E, H, D) buffer)."""
+    from dgl_tpu_torch.kernels.gat_attention import gat_attention_fwd, gat_attention_fwd_plain
+
+    dev = g.indptr.device
+    n, e = g.num_dst_nodes, g.num_edges
+    v = 1.0 + torch.randn(n, h, d, device=dev, generator=gen)
+    a_s, a_d = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
+    kw = dict(negative_slope=0.2)
+    call = lambda: gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)  # noqa: E731
+    got = call()
+    if not all(torch.equal(x, y) for x, y in zip(got, call())):
+        raise AssertionError("K3 forward on full products: two runs differ")
+    ip = g.indptr.long()
+    deg = ip[1:] - ip[:-1]
+    rows = torch.unique(torch.cat([torch.randperm(n, device=dev, generator=gen)[:rows_n],
+                                   deg.topk(50).indices]))
+    rdeg = deg[rows]
+    sub_ip = torch.zeros(len(rows) + 1, dtype=torch.int64, device=dev)
+    sub_ip[1:] = rdeg.cumsum(0)
+    start = torch.repeat_interleave(ip[rows] - sub_ip[:-1], rdeg)
+    sub_src = g.src[start + torch.arange(int(sub_ip[-1]), device=dev)]
+    v64, s64, d64 = v.double(), a_s.double(), a_d[rows].double()
+    want = gat_attention_fwd_plain(sub_ip, sub_src, v64, s64, d64, **kw)
+    absrun = gat_attention_fwd_plain(sub_ip, sub_src, v64.abs(), s64, d64, **kw)
+    amp = d64.abs() + s64.abs().max() + want[4].abs()
+    mags = [absrun[0], absrun[1], want[2].abs(), want[3].abs(), want[4].abs()]
+    acc = [0.0, 0.0, 0.0]
+    _merge(acc, [check(f"products K3 fwd {nm}", x[rows], sub_ip, (w, m), None, slack=(2, 8),
+                       amp=amp)
+                 for nm, x, w, m in zip(("out", "w1", "inv_s", "w1s", "shift"), got, want, mags)])
+    bound, by = k3_fwd_bound(n, n, e, h, d)
+    return {"h": h, "d": d, "nodes": n, "edges": e, "v_bytes": v.numel() * 4,
+            "rows_checked": len(rows), "edges_checked": int(sub_ip[-1]),
+            "ms": median_ms(call, reps=10, warmup=2),
+            # the plain version of the whole graph gathers (E, H, D): 63 GB at H = 4, D = 64
+            "plain_ms": None, "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": None, "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
+            "long_rows": g.split.num_long, "chunks": g.split.num_chunks}
+
+
+def memsafe_forward(g, x, heads=CLUSTER_HEADS, d=CLUSTER_HIDDEN // CLUSTER_HEADS):
+    """One forward (no gradient) of GATConv's memory-safe edge form on the
+    whole graph: its peak device memory above the graph, x and the layer
+    against memsafe_memory_bound, its time, and its output against the
+    fused form's (K3) with the same weights (rows of at most HUB_DEG
+    in-edges at RTOL/ATOL; the largest difference on any row reported)."""
+    from dgl_tpu_torch.nn import GATConv
+    from dgl_tpu_torch.nn import conv as conv_mod
+
+    dev = x.device
+    layer = GATConv(x.shape[1], d, heads, device=dev, generator=torch.Generator().manual_seed(11))
+    layer.eval()
+    e, n = g.num_edges, g.num_dst_nodes
+    edge_msg_bytes = 4 * e * heads * d
+    if not edge_msg_bytes > conv_mod._EDGE_MSG_LIMIT_BYTES:
+        raise AssertionError("products' edge messages are under the limit: no memory-safe form")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = layer(g, x)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated() - before
+    bound = memsafe_memory_bound(n, e, heads, d)
+    if not (extra <= bound and torch.isfinite(out).all()):
+        raise AssertionError(f"memory-safe GATConv: {extra} B above its inputs (bound {bound} B), "
+                             f"finite {bool(torch.isfinite(out).all())}")
+    with torch.no_grad():
+        ms = median_ms(lambda: layer(g, x), reps=3, warmup=0)
+        layer.fused = True
+        fused = layer(g, x)
+        layer.fused = False
+    short = (g.in_degrees() <= HUB_DEG)
+    if not torch.allclose(out[short], fused[short], rtol=RTOL, atol=ATOL):
+        raise AssertionError("memory-safe GATConv differs from the fused form: max abs err "
+                             f"{(out[short] - fused[short]).abs().max().item()}")
+    return {"nodes": n, "edges": e, "heads": heads, "d": d, "in_feats": x.shape[1],
+            "extra_bytes": extra, "bound_bytes": bound, "edge_message_bytes": edge_msg_bytes,
+            "first_s": seconds, "ms": ms,
+            "max_abs_err_vs_fused": (out - fused).abs().max().item()}
+
+
+def cluster_batch_checks(batch, x_full, gen):
+    """The kernels at the shapes one products cluster batch gives them:
+    both K3 passes at H = 4, D = 64 and H = 1, D = 47 (k3_shape, with the
+    driver's attention dropout) and K1 at D = 100 and 256 forward (mean,
+    dst CSR) and backward (sum, reverse CSR) (k1_width); P1 in index order
+    on the batch's nodes bit for bit against x[idx], timed beside
+    index_select and its bound."""
+    from dgl_tpu_torch.kernels.row_gather import row_gather_async, row_gather_plain
+
+    g = batch.graph
+    out = {"nodes": g.num_dst_nodes, "edges": g.num_edges,
+           "max_in_degree": int(g.in_degrees().max()), **_split_fields(g)}
+    for h, d in ((CLUSTER_HEADS, CLUSTER_HIDDEN // CLUSTER_HEADS), (1, 47)):
+        out[f"k3_h{h}_d{d}"] = k3_shape(f"cluster batch H={h} D={d}", g, h, d, gen, keep=0.5)
+    out["k1"] = {d: {"fwd": k1_width("cluster batch fwd", g, d, True, gen, plain=True),
+                     "bwd": k1_width("cluster batch bwd", g.reverse, d, False, gen, plain=True)}
+                 for d in (100, CLUSTER_HIDDEN)}
+    idx = torch.from_numpy(batch.nodes).cuda()
+    got = row_gather_async(x_full, idx)
+    if not (torch.equal(got, x_full[idx]) and torch.equal(got, batch.x)):
+        raise AssertionError("P1 on a cluster batch's nodes differs from x[idx]")
+    bound, by, _ = gather_bound(idx, 4 * x_full.shape[1])
+    out["p1"] = {"rows": idx.numel(), "d": x_full.shape[1], "max_abs_err": 0.0,
+                 "ms": median_ms(lambda: row_gather_async(x_full, idx), reps=30, warmup=3),
+                 "plain_ms": median_ms(lambda: row_gather_plain(x_full, idx), reps=30, warmup=3),
+                 "library_ms": median_ms(lambda: x_full.index_select(0, idx), reps=30, warmup=3),
+                 "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def cluster_steps_no_host_sync(sage_iter, lp_iter):
+    """One training step each of cluster_sage's SAGE and GAT models on a
+    products batch and of cluster_gcn_lp's on an arxiv batch with its
+    negatives, as the drivers build them (make_model, make_train_step),
+    each after a warm-up step, once its batch has arrived, under
+    set_sync_debug_mode("error")."""
+    from dgl_tpu_torch.benchmarks.link_prediction import cluster_gcn_lp
+    from dgl_tpu_torch.benchmarks.sampling import cluster_sage
+    from dgl_tpu_torch.models import GraphSAGE
+
+    dev = torch.device("cuda")
+    losses = {}
+    for kind, it in (("sage", sage_iter), ("gat", sage_iter), ("lp", lp_iter)):
+        if kind == "lp":
+            args = cluster_gcn_lp.parser().parse_args([])
+            model = GraphSAGE(it.features.shape[1], args.n_hidden, args.n_hidden,
+                              num_layers=args.n_layers, dropout=args.dropout, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+            step = cluster_gcn_lp.make_train_step(
+                model, None, torch.optim.Adam(model.parameters(), lr=args.lr),
+                torch.Generator(device=dev).manual_seed(0))
+        else:
+            args = cluster_sage.parser().parse_args(["--model", kind])
+            model = cluster_sage.make_model(args, it.features.shape[1],
+                                            int(it.labels.max()) + 1, dev, 0)
+            step = cluster_sage.make_train_step(
+                model, torch.optim.Adam(model.parameters(), lr=args.lr),
+                torch.Generator(device=dev).manual_seed(0))
+        batches = iter(it)
+        step(next(batches))  # warm-up: lazy allocations and the optimiser's state
+        batch = next(batches)
+        torch.cuda.synchronize()
+        out = []
+        no_host_sync(lambda: out.append(step(batch)), lambda: out[0].item())
+        batches.close()
+        losses[kind] = out[0].item()
+        if not math.isfinite(losses[kind]):
+            raise AssertionError(f"the cluster {kind} step under the sync check gave {losses[kind]}")
+    return losses
+
+
+def cluster_host_split(it, kind, steps=35, warmup=5):
+    """A cluster step's host time without the loader: ``warmup + steps``
+    batches collated first (the prefetch thread has ended when the steps
+    run), then the steps of a fresh model of cluster_sage's, each timed on
+    the host without a sync (its enqueue) and together with one (their
+    wall). Beside the driver's per-step phases it says how much of a step is
+    its own enqueue and how much the loader's thread adds."""
+    import itertools
+
+    from dgl_tpu_torch.benchmarks.sampling import cluster_sage
+
+    dev = torch.device("cuda")
+    args = cluster_sage.parser().parse_args(["--model", kind])
+    model = cluster_sage.make_model(args, it.features.shape[1], int(it.labels.max()) + 1, dev, 0)
+    step = cluster_sage.make_train_step(model, torch.optim.Adam(model.parameters(), lr=args.lr),
+                                        torch.Generator(device=dev).manual_seed(0))
+    batches = list(itertools.islice(iter(it), warmup + steps))
+    for b in batches[:warmup]:
+        step(b)
+    torch.cuda.synchronize()
+    host = []
+    t0 = time.perf_counter()
+    for b in batches[warmup:]:
+        t1 = time.perf_counter()
+        step(b)
+        host.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    return {"steps": steps, "enqueue_ms_median": 1e3 * statistics.median(host),
+            "wall_ms_per_step": 1e3 * (time.perf_counter() - t0) / steps}
+
+
+def phase_cluster_main():
+    """Slice F on the card. The products partition (cached for the drivers)
+    made and checked by partition_checks; cluster_sage with SAGE and
+    with GAT on full products and cluster_gcn_lp on arxiv (CLUSTER_RUNS),
+    each run with every counter set to 0 just before it and read just
+    after it: launches as cluster_launches derives them, the reference's
+    lines, losses finite and falling; GAT's training peak above its data
+    and graph under cluster_gat_memory_bound; the profiles. Then one step
+    of each model under the sync check, a step's host time without the
+    loader (cluster_host_split), the kernels at one batch's shapes
+    (cluster_batch_checks), K3 forward on the whole products graph
+    (k3_fwd_full) and one forward of GATConv's memory-safe form there
+    (memsafe_forward)."""
+    from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch.benchmarks.link_prediction import cluster_gcn_lp
+    from dgl_tpu_torch.benchmarks.sampling import cluster_sage
+    from dgl_tpu_torch.data import NODE_DATASET_STATS, data_root, load_node_dataset
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+    from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
+    from dgl_tpu_torch.kernels.row_gather import row_gather_async, row_gather_by_source
+    from dgl_tpu_torch.kernels.seg_sum import seg_sum
+    from dgl_tpu_torch.sampling.cluster import ClusterIter
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    part = partition_checks()
+    drivers = {"cluster_sage": cluster_sage, "cluster_gcn_lp": cluster_gcn_lp}
+    counters = {"row_gather_async": row_gather_async, "row_gather_by_source": row_gather_by_source,
+                "csr_spmm": csr_spmm, "seg_sum": seg_sum, "gat_attention_fwd": gat_attention_fwd,
+                "gat_attention_bwd": gat_attention_bwd}
+    res, launches, want = {}, {}, {}
+    for key, (driver, argv) in CLUSTER_RUNS.items():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        flags = argv + (["--profile", str(CLUSTER_PROFILE_STEPS)] if key != "lp" else [])
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            r = drivers[driver].main(flags + ["--device", "cuda"])
+        r["run_s"] = time.perf_counter() - t0
+        launches[key] = {k: fn.launches for k, fn in counters.items()}
+        out = log.getvalue()
+        lines = ["Training time/epoch"] + (["Run: 01, Epoch: 00, Loss:", "Train MRR:", "Yardsticks"]
+                                           if key == "lp" else ["Run 00 | Epoch 00000 | Loss"])
+        lines += ["Final Train", "Final Test", "partition[metis]"]
+        missing = [ln for ln in lines if ln not in out]
+        if missing:
+            raise AssertionError(f"{key}: {driver} printed no {missing} line")
+        r["log_tail"] = out.splitlines()[-8:]
+        losses = r["losses"][0] if key != "lp" else r["losses"]
+        if not (all(math.isfinite(v) for v in losses)
+                and statistics.mean(losses[-20:]) < statistics.mean(losses[:20])):
+            raise AssertionError(f"{key}: losses not finite and falling: {losses}")
+        ds = "ogbn-arxiv" if key == "lp" else "ogbn-products"
+        _, _, feat, classes = NODE_DATASET_STATS[ds]
+        evals = len(r["mrr"]) + 1 if key == "lp" else len(r["accs"])
+        steps = r["steps"] + (r["profile"]["steps"] if r["profile"] else 0)
+        want[key] = cluster_launches(key, steps, r["batches"], evals, feat, classes)
+        res[key] = r
+        torch.cuda.empty_cache()
+    if launches != want:
+        raise AssertionError(f"cluster launches {launches}; want {want}")
+    gat = res["gat"]
+    n_params = sum(p.numel() for p in cluster_sage.make_model(
+        cluster_sage.parser().parse_args(["--model", "gat"]), 100, 47, torch.device("cpu"),
+        0).parameters())
+    gat_bound = cluster_gat_memory_bound(gat["max_batch_nodes"], gat["max_batch_edges"], 100, 47,
+                                         n_params=n_params)
+    gat_extra = gat["train_peak_bytes"] - gat["setup_bytes"]
+    if not gat_extra < gat_bound:
+        raise AssertionError(f"cluster GAT's training adds {gat_extra} B, over its bound "
+                             f"{gat_bound} B")
+
+    data = load_node_dataset("ogbn-products")
+    sage_iter = ClusterIter(PRODUCTS_KEY, data.src, data.dst, data.num_nodes, data.features,
+                            data.labels, data.train_mask, CLUSTER_PSIZE, 32, method="metis",
+                            cache_dir=data_root(), device=dev)
+    arxiv = load_node_dataset("ogbn-arxiv")
+    lp_iter = ClusterIter("ogbn-arxiv_lp_sync", arxiv.src, arxiv.dst, arxiv.num_nodes,
+                          arxiv.features, arxiv.labels, np.ones(arxiv.num_nodes, bool), 2000, 32,
+                          method="metis", cache_dir=data_root(), with_negatives=True, device=dev)
+    sync_losses = cluster_steps_no_host_sync(sage_iter, lp_iter)
+    del lp_iter
+    host_split = {kind: cluster_host_split(sage_iter, kind) for kind in ("sage", "gat")}
+    gen = torch.Generator(device=dev).manual_seed(12)
+    batch = sage_iter.first()
+    batch_checks = cluster_batch_checks(batch, sage_iter.features, gen)
+    del batch
+    g = from_edges(data.src, data.dst, data.num_nodes, device=dev)
+    k3_full = k3_fwd_full(g, CLUSTER_HEADS, CLUSTER_HIDDEN // CLUSTER_HEADS, gen)
+    torch.cuda.empty_cache()
+    memsafe = memsafe_forward(g, sage_iter.features)
+    del g, sage_iter
+    torch.cuda.empty_cache()
+
+    def profile_fields(p):
+        return {k: p[k] for k in ("steps", "wall_ms_per_step", "device_busy_ms_per_step",
+                                  "device_idle_share")} | {
+            "kernels": [{"name": k["name"][:80], "device_ms": k["device_ms_per_step"],
+                         "calls": k["calls_per_step"]} for k in p["kernels"][:10]],
+            "host_ops": [{"name": k["name"][:60], "self_cpu_ms": k["self_cpu_ms_per_step"],
+                          "calls": k["calls_per_step"]} for k in p["host_ops"][:10]]}
+
+    fields = ("run_s", "load_s", "setup_s", "partition", "steps", "batches", "steps_per_epoch",
+              "epochs_s", "epoch_s", "log_tail")
+    runs = {}
+    for key, r in res.items():
+        c = np.asarray(r["collate_ms"])
+        runs[key] = {f: r[f] for f in fields} | {
+            "launches": launches[key], "losses_first_last": [
+                (r["losses"][0] if key != "lp" else r["losses"])[:3],
+                (r["losses"][0] if key != "lp" else r["losses"])[-3:]],
+            "collate_ms_median_p90_max": [float(np.median(c)), float(np.percentile(c, 90)),
+                                          float(c.max())],
+            "profile": profile_fields(r["profile"]) if r["profile"] else None}
+        if key == "lp":
+            runs[key] |= {"mrr": r["mrr"], "yardsticks": r["yardsticks"]}
+        else:
+            runs[key] |= {f: r[f] for f in ("accs", "max_batch_nodes", "max_batch_edges",
+                                            "setup_bytes", "train_peak_bytes", "eval_peak_bytes")}
+            runs[key]["phases_s_last_epoch"] = r["phases_s"][-1]
+    emit("cluster_main", seconds=time.perf_counter() - t_phase, device=res["sage"]["device"],
+         synthetic=res["sage"]["synthetic"], runs_flags={k: v[1] for k, v in CLUSTER_RUNS.items()},
+         partition=part, **runs, gat_train_extra_bytes=gat_extra, gat_memory_bound_bytes=gat_bound,
+         no_host_sync=sync_losses, host_split=host_split, batch=batch_checks,
+         k3_fwd_products=k3_full,
+         memory_safe=memsafe)
+    return launches, batch_checks, k3_full
+
+
 def _kernel_entry(name, source, replaces, launches, r, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2609,6 +3068,18 @@ def main():
     del red_graph, prot_graph
     torch.cuda.empty_cache()
     nlaunch, ns_p1, ns_k3 = phase_ns_main()
+    torch.cuda.empty_cache()
+    cl_launch, cl_batch, cl_k3 = phase_cluster_main()
+    rows["row_gather_async"].update(
+        **{f"launches_cluster_{k}": v["row_gather_async"] for k, v in cl_launch.items()},
+        **{f"{f}_cluster_batch": cl_batch["p1"][f] for f in ("ms", "plain_ms", "library_ms",
+                                                              "bound_ms", "max_abs_err", "rows")})
+    rows["row_gather_by_source"]["launches_cluster_lp"] = cl_launch["lp"]["row_gather_by_source"]
+    cluster_k3 = {name: {f"{f}_cluster_{shape}": cl_batch[f"k3_{shape}"][name][f]
+                         for shape in ("h4_d64", "h1_d47")
+                         for f in ("ms", "plain_ms", "bound_ms", "max_abs_err", "max_abs_err_f64",
+                                   "max_bound_used")}
+                  for name in ("gat_attention_fwd", "gat_attention_bwd")}
     rows["row_gather_async"].update(
         **{f"launches_ns_{k}": nlaunch[k]["row_gather_async"] for k in nlaunch},
         **{f"{f}_ns_step": ns_p1[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2673,6 +3144,14 @@ def main():
             # the NS runs: only their evaluations launch K1 (ns_sage: 2 a
             # full-graph forward at D = 16), none in a step
             **{f"launches_ns_{k}": v["csr_spmm"] for k, v in nlaunch.items()},
+            # the cluster runs (SAGE on products: 5 a step; LP on arxiv: 7 a
+            # step, the encoder's and u_dot_v's two adjoints), and K1 at D =
+            # 100 and 256 on one products cluster batch each way
+            "launches_cluster_sage": cl_launch["sage"]["csr_spmm"],
+            "launches_cluster_lp": cl_launch["lp"]["csr_spmm"],
+            **{f"{k}_cluster_d{d}_{side}": cl_batch["k1"][d][side][k]
+               for d in cl_batch["k1"] for side in ("fwd", "bwd")
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
             "combines_rgcn": rcombines,
             **{f"{k}_proteins_{shape.split('_')[1]}_weighted_{shape.split('_')[0]}": r[k]
                for shape, r in rk1.items()
@@ -2708,11 +3187,21 @@ def main():
               # H = 1, D = 41) and the forward at both shapes on reddit as given
               ("gat_attention_fwd", "fwd", {
                   **{f"launches_ns_{k}": v["gat_attention_fwd"] for k, v in nlaunch.items()},
+                  # cluster GAT (3 a step and 3 an evaluation), the batch's
+                  # shapes, and the whole products graph at H = 4, D = 64
+                  "launches_cluster_gat": cl_launch["gat"]["gat_attention_fwd"],
+                  **cluster_k3["gat_attention_fwd"],
+                  **{f"{f}_products_h4_d64": cl_k3[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                                 "max_abs_err_f64",
+                                                                 "max_bound_used")},
                   **{f"{f}_{key}": ns_k3[key][f] for key in ("h8", "h1_d41")
                      for f in ("ms", "plain_ms", "bound_ms", "max_abs_err", "max_abs_err_f64",
                                "max_bound_used")}}),
               ("gat_attention_bwd", "b2", {"gather_floor_ms": floors["k3_b2"]["gather_floor_ms"],
-                                           "t_sweep": gred["gat_attention_bwd"]["t_sweep"]}))),
+                                           "t_sweep": gred["gat_attention_bwd"]["t_sweep"],
+                                           "launches_cluster_gat":
+                                               cl_launch["gat"]["gat_attention_bwd"],
+                                           **cluster_k3["gat_attention_bwd"]}))),
         # K2 at (E, 16) on reddit with self-loops over the dst CSR, the only
         # CSR the edge form runs it over (forward sums and spread_dst's
         # adjoint); launches from the pubmed GAT run of gat_main. The
@@ -2742,6 +3231,8 @@ def main():
             "max_abs_err_rev": k2r["max_abs_err"],
             # the GCN driver's runs (gspmm(copy_e, sum) and the readouts)
             **{f"launches_gcn_{k}": v["seg_sum"] for k, v in claunch.items()},
+            # cluster LP: u_dot_v's gather_dst adjoints, 2 a step
+            "launches_cluster_lp": cl_launch["lp"]["seg_sum"],
             **{f"combines_gcn_{k}": v["seg_sum"] for k, v in ccombines.items()},
             # the mean and sum readouts and gspmm(copy_e, sum) on a molhiv
             # batch at D = 256

@@ -1,4 +1,4 @@
-"""Carry GraphSAGE, GAT, GCN and RGCN weights from the JAX package's flax parameter tree.
+"""Carry GraphSAGE, GAT, GCN, RGCN and link-predictor weights from the JAX package's flax parameter tree.
 
 The tree is given as nested dicts of numpy arrays (``jax`` is not needed
 to call this). A flax ``Dense`` kernel is ``(in, out)``; a torch ``Linear``
@@ -14,7 +14,8 @@ import torch
 
 __all__ = ["sage_state_dict_from_flax", "gat_state_dict_from_flax",
            "gcn_graph_state_dict_from_flax", "gcn_mol_state_dict_from_flax",
-           "rel_graph_conv_state_dict_from_flax", "rgcn_state_dict_from_flax"]
+           "rel_graph_conv_state_dict_from_flax", "rgcn_state_dict_from_flax",
+           "predictor_state_dict_from_flax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -145,4 +146,20 @@ def rgcn_state_dict_from_flax(params: Mapping) -> dict:
         if not name.startswith("rgcn_"):
             raise KeyError(f"unexpected RGCN parameter group {name!r}")
         sd.update(rel_graph_conv_state_dict_from_flax(sub, f"convs.{_layer(name)}."))
+    return sd
+
+
+def predictor_state_dict_from_flax(params: Mapping) -> dict:
+    """A ``state_dict`` for ``dgl_tpu_torch.nn.MLPPredictor`` or
+    ``PairMLPPredictor`` from the ``params`` of the JAX package's: ``lin_i``
+    to ``lins.i``, ``lin_out`` to ``lin_out``, ``Dense`` kernels transposed.
+    ``DotPredictor`` has no parameters."""
+    sd = {}
+    for name, sub in params.items():
+        if name == "lin_out":
+            _dense(sd, "lin_out", sub)
+        elif name.startswith("lin_"):
+            _dense(sd, f"lins.{_layer(name)}", sub)
+        else:
+            raise KeyError(f"unexpected predictor parameter group {name!r}")
     return sd

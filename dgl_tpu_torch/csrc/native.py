@@ -1,4 +1,4 @@
-"""ctypes bindings of the port's host-side neighbour samplers.
+"""ctypes bindings of the port's host-side graph runtime.
 
 ``graph_ops.cpp`` is compiled with ``g++`` at first use, with the JAX
 package's flags, into ``csrc/_build/`` (listed in ``.gitignore``). The
@@ -7,9 +7,11 @@ temporary name, then renamed into place, so a process that finds it finds
 it whole, however many build it at once. A failed build raises: there is no
 NumPy fallback, whose random stream would differ.
 
-Counterpart of ``dgl_tpu/csrc/native.py:sample_neighbors`` and
-``:sample_neighbors_noreplace``; the same seed draws the same neighbours
-wherever the OpenMP team size is the same.
+Counterpart of ``dgl_tpu/csrc/native.py``: ``sample_neighbors`` and
+``sample_neighbors_noreplace`` (the same seed draws the same neighbours
+wherever the OpenMP team size is the same), ``SubgraphExtractor``,
+``partition_multilevel``, ``partition_lp`` and ``build_csr``, each with the
+JAX binding's output bit for bit (``partition_lp`` at one OpenMP thread).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import threading
 import numpy as np
 
 __all__ = ["BUILD_DIR", "build", "load", "sample_neighbors", "sample_neighbors_noreplace",
-           "NOREPLACE_MAX_FANOUT"]
+           "NOREPLACE_MAX_FANOUT", "SubgraphExtractor", "partition_multilevel", "partition_lp",
+           "build_csr"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -33,6 +36,16 @@ _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-fopenmp", "-std=c++17"]
 NOREPLACE_MAX_FANOUT = 64  # Floyd's scratch in graph_ops.cpp
 
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
+_u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
+_i64, _u64 = ctypes.c_int64, ctypes.c_uint64
+_SIGNATURES = {  # name: (argtypes, restype)
+    "sample_neighbors": ([_i64p, _i64p, _i64p, _i64, _i64, _u64, _i64p], None),
+    "sample_neighbors_noreplace": ([_i64p, _i64p, _i64p, _i64, _i64, _u64, _i64p], None),
+    "node_subgraph": ([_i64p, _i64p, _i64, _i64p, _i64, _i64p, _u8p, _i64p, _i64p], _i64),
+    "partition_lp": ([_i64p, _i64p, _i64, _i64, _i64, _i64, _u64, _i64p], None),
+    "partition_multilevel": ([_i64p, _i64p, _i64, _i64, _i64, _u64, _i64p], _i64),
+    "build_csr": ([_i64p, _i64p, _i64, _i64, _i64p, _i64p, _i64p], None),
+}
 
 
 def _lib_path() -> str:
@@ -61,13 +74,11 @@ def build() -> str:
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """The samplers' library, built if needed (one handle per process)."""
+    """The runtime's library, built if needed (one handle per process)."""
     lib = ctypes.CDLL(build())
-    for name in ("sample_neighbors", "sample_neighbors_noreplace"):
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = [_i64p, _i64p, _i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64,
-                       _i64p]
-        fn.restype = None
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -100,3 +111,72 @@ def sample_neighbors_noreplace(indptr, indices, seeds, fanout: int, seed: int) -
         raise ValueError(f"noreplace fanout is capped at {NOREPLACE_MAX_FANOUT} "
                          "(Floyd scratch in graph_ops.cpp)")
     return _sample("sample_neighbors_noreplace", indptr, indices, seeds, fanout, seed)
+
+
+def _as_i64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, np.int64)
+
+
+class SubgraphExtractor:
+    """Node-induced subgraph extraction over a by-source CSR (``indptr``,
+    ``indices``), its ``num_nodes``-sized scratch allocated once.
+
+    ``extract(nodes)`` returns the (src, dst) int64 edges with both ends in
+    ``nodes``, relabelled to positions in ``nodes``, grouped by source
+    position in CSR order (``node_subgraph`` in ``graph_ops.cpp``: the
+    same for any OpenMP team size). Calls are serialised on the scratch,
+    so a prefetch thread and the main thread may share one extractor."""
+
+    def __init__(self, indptr, indices, num_nodes: int):
+        self.indptr = _as_i64(indptr)
+        self.indices = _as_i64(indices)
+        self.num_nodes = num_nodes
+        self._mapping = np.zeros(num_nodes, dtype=np.int64)
+        self._present = np.zeros(num_nodes, dtype=np.uint8)
+        self._scratch_lock = threading.Lock()
+
+    def extract(self, nodes):
+        nodes = _as_i64(nodes)
+        cap = int(self.indptr[nodes + 1].sum() - self.indptr[nodes].sum())
+        out_src = np.empty(max(cap, 1), dtype=np.int64)
+        out_dst = np.empty(max(cap, 1), dtype=np.int64)
+        with self._scratch_lock:
+            n = load().node_subgraph(self.indptr, self.indices, self.num_nodes, nodes,
+                                     len(nodes), self._mapping, self._present, out_src, out_dst)
+        return out_src[:n], out_dst[:n]
+
+
+def partition_multilevel(src, dst, num_nodes: int, k: int, seed: int) -> np.ndarray:
+    """(num_nodes,) int64 part of every node in [0, k): the multilevel k-way
+    partition (heavy-edge matching coarsening, BFS growing, boundary
+    refinement under a 1.08 imbalance cap: the METIS recipe). Serial and
+    deterministic given the seed."""
+    part = np.empty(num_nodes, dtype=np.int64)
+    load().partition_multilevel(_as_i64(src), _as_i64(dst), len(src), num_nodes, k,
+                                seed & 0xFFFFFFFFFFFFFFFF, part)
+    return part
+
+
+def partition_lp(src, dst, num_nodes: int, k: int, rounds: int, seed: int) -> np.ndarray:
+    """(num_nodes,) int64 label-propagation partition into k parts.
+
+    Its rounds read and write the part array from every OpenMP thread
+    without synchronisation (``graph_ops.cpp``, as in the JAX package), so
+    the result depends on the threads' interleaving: it equals the JAX
+    binding's, and is reproducible, only with one thread
+    (``OMP_NUM_THREADS=1``)."""
+    part = np.empty(num_nodes, dtype=np.int64)
+    load().partition_lp(_as_i64(src), _as_i64(dst), len(src), num_nodes, k, rounds,
+                        seed & 0xFFFFFFFFFFFFFFFF, part)
+    return part
+
+
+def build_csr(key, val, num_nodes: int):
+    """Counting-sort CSR of an edge list by ``key``: (indptr, val in key
+    order, the input position of each slot), int64, stable."""
+    key, val = _as_i64(key), _as_i64(val)
+    indptr = np.empty(num_nodes + 1, dtype=np.int64)
+    out_val = np.empty(len(val), dtype=np.int64)
+    out_eid = np.empty(len(val), dtype=np.int64)
+    load().build_csr(key, val, len(key), num_nodes, indptr, out_val, out_eid)
+    return indptr, out_val, out_eid

@@ -1,8 +1,9 @@
 from .conv import GATConv, GCNConv, GCNConvEdge, RelGraphConv, SAGEConv, dropout
 from .encoders import AtomEncoder, BondEncoder, CategoricalEncoder
-from .init import kaiming_uniform_fan_in, relu_gain, xavier_uniform_
+from .init import kaiming_uniform_fan_in, lecun_normal_, relu_gain, xavier_uniform_
 from .norm import MaskedBatchNorm
 from .pooling import AvgPooling, MaxPooling, SumPooling
+from .predictors import DotPredictor, MLPPredictor, PairMLPPredictor
 
 __all__ = [
     "SAGEConv",
@@ -17,8 +18,12 @@ __all__ = [
     "CategoricalEncoder",
     "AtomEncoder",
     "BondEncoder",
+    "DotPredictor",
+    "MLPPredictor",
+    "PairMLPPredictor",
     "dropout",
     "relu_gain",
     "xavier_uniform_",
     "kaiming_uniform_fan_in",
+    "lecun_normal_",
 ]

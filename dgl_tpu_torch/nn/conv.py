@@ -143,7 +143,14 @@ class GATConv(nn.Module):
       the hash of the edge id, its seed one int32 drawn from ``generator``.
     * edge: gather ``W x`` per edge, ``edge_softmax`` with the bound shift,
       ``gspmm(copy_e, sum)``; its sums are K2 launches. Attention dropout is
-      an ordinary mask from ``generator``.
+      an ordinary mask from ``generator``. Where the (E, H, D) messages
+      would pass ``_EDGE_MSG_LIMIT_BYTES``, the JAX layer's switch, it takes
+      the memory-safe form (``dgl_tpu/nn/conv.py:185-203``): the logits from
+      the node-side dots gathered per edge, (E, H) only, ``edge_softmax``
+      with the bound shift, and the weighted sum with the H heads as H
+      relations through ``gspmm_rel`` (weighted K1 launches each way; the
+      gradient wrt ``alpha`` from per-edge dots, an (E, D) buffer a head);
+      no (E, H, D) tensor.
 
     On a positional sampled block (``g.block_fanout``, ``x`` the pair
     ``(x_src, x_dst)``) both forms give way to the block's own: destination
@@ -152,11 +159,6 @@ class GATConv(nn.Module):
     ``generator``) and the weighted sum are reshapes and an einsum, no
     kernel, as ``dgl_tpu/nn/conv.py:157-172`` computes them; ``fused`` is
     ignored there.
-
-    Left out: the JAX layer's memory-safe form for graphs whose (E, H, D)
-    messages pass the budget (slice F, for ``cluster_gat`` on products: it
-    needs a gradient wrt the per-edge ``alpha``); it raises
-    ``NotImplementedError``.
 
     ``generator`` (a CPU generator) draws the initial weights: ``fc``
     xavier-uniform (gain 1), ``attn_l``/``attn_r`` uniform in
@@ -243,17 +245,24 @@ class GATConv(nn.Module):
 
     def _edge(self, g, z, a_src, a_dst, generator):
         h, d = self.num_heads, self.out_feats
+        bound = F.leaky_relu(a_src.detach().amax(0, keepdim=True) + a_dst, self.negative_slope)
         if g.num_edges * h * d * z.element_size() > _EDGE_MSG_LIMIT_BYTES:
-            raise NotImplementedError(
-                "GATConv's memory-safe edge form (per-edge messages over "
-                f"{_EDGE_MSG_LIMIT_BYTES >> 30} GiB) is ported in slice F; use fused=True"
-            )
+            return self._memory_safe(g, z, a_src, a_dst, bound, generator)
         z_e = gather_src_rows(g, z.reshape(-1, h * d)).view(-1, h, d)
         logits = F.leaky_relu((z_e * self.attn_r).sum(-1) + gather_dst(g, a_dst), self.negative_slope)
-        bound = F.leaky_relu(a_src.detach().amax(0, keepdim=True) + a_dst, self.negative_slope)
         alpha = edge_softmax(g, logits, dst_bound=bound)
         alpha = dropout(alpha, self.attn_drop, self.training, generator)
         return gspmm(g, "copy_e", "sum", e=z_e * alpha.unsqueeze(-1))
+
+    def _memory_safe(self, g, z, a_src, a_dst, bound, generator):
+        """(E, H) logits, softmax and dropout; the heads' weighted sums as
+        the relations of ``gspmm_rel``, on ``z`` laid out head-major."""
+        logits = F.leaky_relu(gather_src_rows(g, a_src) + gather_dst(g, a_dst),
+                              self.negative_slope)
+        alpha = dropout(edge_softmax(g, logits, dst_bound=bound), self.attn_drop, self.training,
+                        generator)
+        out = gspmm_rel("sum", g, z.permute(1, 0, 2), alpha, per_relation=True)
+        return out.permute(1, 0, 2)
 
 
 class GCNConv(nn.Module):

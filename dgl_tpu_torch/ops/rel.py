@@ -16,8 +16,9 @@ mean dividing by the shared in-degree, zero-in-degree rows 0.
   ``1/max(deg, 1)`` for mean.
 * Backward wrt ``w``: only when autograd asks for it, the per-edge dot
   ``⟨y[src, r], g_out[dst]⟩`` in plain PyTorch (an (E, D) buffer a
-  relation). RGCN's edge weights are dataset constants, so a training step
-  never computes it.
+  relation). RGCN's edge weights are dataset constants, so its training
+  step never computes it; GATConv's memory-safe form, whose weights are
+  the attention ``alpha`` (heads as relations), does.
 
 No (E, R, D) or (E, D) buffer is built on the forward or on the backward
 wrt ``y``. Why R passes and not one fused relation kernel: on

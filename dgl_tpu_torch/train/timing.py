@@ -55,17 +55,21 @@ class EpochTimer:
 
 
 class PhaseTimer:
-    """Accumulate wallclock per named phase within an epoch loop."""
+    """Accumulate wallclock per named phase within an epoch loop. A phase
+    ends in a device synchronise unless ``sync=False``: then it measures
+    the host's time in it (for a step, the time to enqueue its kernels),
+    and the loop it is in stays free of host syncs."""
 
     def __init__(self, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.totals: Dict[str, float] = defaultdict(float)
 
     @contextlib.contextmanager
-    def phase(self, name: str):
+    def phase(self, name: str, sync: bool = True):
         t0 = time.perf_counter()
         yield
-        synchronize(self.device)
+        if sync:
+            synchronize(self.device)
         self.totals[name] += time.perf_counter() - t0
 
     def summary(self) -> str:
@@ -105,9 +109,10 @@ def event_times_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) ->
 def device_profile(step: Callable[[], object], epochs: int, device: torch.device,
                    unit: str = "epoch") -> dict:
     """Run ``step`` ``epochs`` more times under ``torch.profiler``: wall
-    time, device busy time and the kernels by device time, each per call of
-    ``step``, which the keys name ``unit`` (a full-graph epoch is one
-    step; a graph-classification driver profiles single train steps)."""
+    time, device busy time, the kernels by device time and the host's
+    operators by their own CPU time (``host_ops``, the top 12), each per
+    call of ``step``, which the keys name ``unit`` (a full-graph epoch is
+    one step; a graph-classification driver profiles single train steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -132,5 +137,13 @@ def device_profile(step: Callable[[], object], epochs: int, device: torch.device
     ]
     rows.sort(key=lambda r: -r[f"device_ms_{per}"])
     busy_ms = sum(r[f"device_ms_{per}"] for r in rows)
+    host = [
+        {"name": ev.key, f"calls_{per}": ev.count / epochs,
+         f"self_cpu_ms_{per}": ev.self_cpu_time_total / 1e3 / epochs}
+        for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CPU and ev.count > 0
+    ]
+    host.sort(key=lambda r: -r[f"self_cpu_ms_{per}"])
     return {f"{unit}s": epochs, f"wall_ms_{per}": wall_ms, f"device_busy_ms_{per}": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels": rows}
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels": rows,
+            "host_ops": host[:12]}

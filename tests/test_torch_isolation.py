@@ -110,3 +110,20 @@ def test_scan_covers_the_sampling_slice():
                 "dgl_tpu_torch/benchmarks/sampling/ns_gat.py"):
         assert rel in scanned, rel
     assert os.path.exists(os.path.join(ROOT, "dgl_tpu_torch", "csrc", "graph_ops.cpp"))
+
+
+def test_scan_covers_the_cluster_slice():
+    """The walk reaches the partitioner, the cluster iterator, the link
+    predictors and both cluster drivers; the partitioner's and the
+    extractor's C++ sits beside its bindings."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("dgl_tpu_torch/graph/partition.py", "dgl_tpu_torch/graph/transforms.py",
+                "dgl_tpu_torch/sampling/cluster.py", "dgl_tpu_torch/nn/predictors.py",
+                "dgl_tpu_torch/benchmarks/sampling/cluster_sage.py",
+                "dgl_tpu_torch/benchmarks/link_prediction/__init__.py",
+                "dgl_tpu_torch/benchmarks/link_prediction/cluster_gcn_lp.py"):
+        assert rel in scanned, rel
+    with open(os.path.join(ROOT, "dgl_tpu_torch", "csrc", "graph_ops.cpp")) as f:
+        src = f.read()
+    for fn in ("node_subgraph", "partition_lp", "partition_multilevel", "build_csr"):
+        assert f" {fn}(" in src, fn
