@@ -7,7 +7,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   1. device: requires CUDA, prints the card's name and power limit, turns
      TF32 off for float32 matmuls and convolutions;
   2. build: builds every kernel from the sources in dgl_tpu_torch/kernels/csrc
-     and prints ptxas' registers and spills of every variant;
+     (and, beside them, K3 with the per-edge dropout key, timed in
+     gat_reddit) and prints ptxas' registers and spills of every variant;
   3. random: K1 (csr_spmm) on random CSRs with empty rows and hub rows of
      10^5 edges, D in {1, 16, 41, 602}, sum and mean, with and without edge
      weights, forward and backward through gspmm's autograd, on inputs
@@ -57,7 +58,11 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      T sweep (256, 512, 1024) of K2 and of each K3 pass whose CSR has a row
      over 256 edges, and the bytes bounds; K3's checks and times also at
      arxiv's shapes (bidirected with self-loops, H = 4, D = 16 and the last
-     layer's D = 40, long rows in both CSRs); a fused GATConv's forward and
+     layer's D = 40, long rows in both CSRs); both K3 passes with dropout
+     on arxiv (H = 4, D = 16) and reddit timed with the package's
+     per-(edge, head) dropout key and with the per-edge key of before (a
+     second build of gat_attention.cu, -DK3_DROP_KEY_PER_EDGE), in turns,
+     the two builds equal at H = 1; a fused GATConv's forward and
      backward, and seg_sum_dst's, under set_sync_debug_mode("error");
      gather_src_rows' adjoint timed as
      one K1 launch and as index_select + K2 (reddit at W = 16, pubmed at
@@ -87,7 +92,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      after it. reddit and arxiv: K3 forward and b2 exactly 3 per step each,
      K2 and K1 none, the combines their graphs' plans give (see
      phase_gat_main); reddit's training peak device memory above the graph
-     and data held below one (E, 16) float32 buffer; pubmed: K3 none, K2
+     and data held below one (E, 16) float32 buffer, arxiv's below
+     fused_gat_memory_bound (derived from the shapes); pubmed: K3 none, K2
      exactly 12 per step plus one per edge-softmax rescue, K1 3 per step,
      K1's combine once per K1 launch (pubmed's reverse CSR has long rows)
      and K2's none, P1 in source order 18 per step plus two per rescue
@@ -131,13 +137,29 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      training's peak above its inputs below one (E, 32) float32 buffer,
      losses falling and equal on the first step, the device profile (busy,
      idle share, K1's share);
-  13. kernel_sweep: dgl_tpu_torch.kernel.bench_kernels at its defaults
+  13. gcmc_main: GCMC on ml-100k at the driver's defaults (seed 123,
+     943 users, 1682 movies, 85,000 training ratings, 10 relations): K1 on
+     each relation CSR at D = 100 forward (dst CSR) and backward (reverse
+     CSR) and on the decoder graph's reverse CSR by eid at D = 75, every
+     row held to float64 sums, rows of at most HUB_DEG terms to the plain
+     version, small integers bit for bit, timed beside torch.sparse.mm and
+     the bound; P1 in source order on the decoder's two gathers bit for bit
+     against x[idx]; K2 at W = 75 on the decoder's dst CSR (check_k2); one
+     iteration under set_sync_debug_mode("error"); the driver (up to 2,000
+     iterations, an RMSE evaluation every 5, then GCMC_PROFILE profiled
+     iterations) with every counter set to 0 before it and read after it:
+     K1's, K2's and P1-in-source-order launches and combines as
+     gcmc_per_iter derives them; losses finite and falling; the
+     reference's two lines and both CSV files; the best test RMSE below
+     the test RMSE of predicting the training ratings' mean (printed); the
+     profile (busy, idle share, top kernels);
+  14. kernel_sweep: dgl_tpu_torch.kernel.bench_kernels at its defaults
      (copy_lhs sum SpMM, add SDDMM, widths 1-128) on reddit, ogbn-arxiv and
      ogbn-proteins as given, each point held to its plain version before it
      is timed (or an OOM row, only for torch.OutOfMemoryError), and
      gsddmm's two gathers in source order beside the index order at each
      width;
-  14. ns_main: ns_sage and ns_gat on the full reddit graph at the drivers'
+  15. ns_main: ns_sage and ns_gat on the full reddit graph at the drivers'
      defaults (fanouts 10,25, batch 1000, hidden 16; ns_gat 8 heads): ns_sage
      with the device sampler for 7 epochs (one evaluation, two epochs in
      "Avg epoch time"), with --host-sampler and with --no-replace for one
@@ -154,7 +176,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      index_select and the bound of its distinct rows, and K3 forward at
      both evaluation shapes on reddit as given (H = 8, D = 16 and H = 1,
      D = 41) held by check_k3_fwd and timed;
-  15. cluster_main: the full products graph partitioned once (metis,
+  16. cluster_main: the full products graph partitioned once (metis,
      k = 15000), alone on the host, into cluster_sage's partition cache:
      its seconds, edge cut and balance, every node's part in
      [0, k) and the parts covering every node once; cluster_sage with
@@ -177,7 +199,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      float64 sums on their sub-CSR; one forward of GATConv's memory-safe
      form on the whole products graph, its peak under
      memsafe_memory_bound, its output against the fused form's;
-  16. kernels: one line listing every ported kernel with its numbers, K1's,
+  17. kernels: one line listing every ported kernel with its numbers, K1's,
      K2's and K3's with T, long rows, chunks and combine launches, K3's at
      arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
      K1's at the SAGE widths and K1's and K2's launches on the new paths,
@@ -188,7 +210,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      step's input_nodes and K3 forward's at H = 8; the cluster runs'
      launches (launches_cluster_*), K1, K3 and P1 at a cluster batch's
      shapes (*_cluster_*) and K3 forward on the whole products graph
-     (*_products_h4_d64).
+     (*_products_h4_d64); the GCMC run's launches of K1, K2 and P1 in
+     source order (launches_gcmc, combines_gcmc) and their times at its
+     shapes (*_gcmc_*); both K3 passes' times with each dropout key
+     (ms_edge_head_key_*, ms_edge_key_*).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -197,6 +222,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -319,14 +345,46 @@ def _ptxas_lines(log):
     return lines
 
 
+K3_EDGE_KEY = {}  # "lib": K3 built with the per-edge dropout key (phase_build)
+
+
+def _start_k3_edge_key_build():
+    """nvcc on gat_attention.cu with -DK3_DROP_KEY_PER_EDGE: the dropout key
+    before the per-(edge, head) key, one mask an edge for every head; built
+    only to time the two keys side by side (k3_key_times). Returns the
+    process, the library's path and its temporary path."""
+    from dgl_tpu_torch.kernels import build as kb
+
+    path = kb._lib_path("gat_attention").replace("libgat_attention_",
+                                                 "libgat_attention_edge_key_")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    os.makedirs(kb.BUILD_DIR, exist_ok=True)
+    proc = subprocess.Popen([kb.nvcc_path(), *kb._FLAGS, "-DK3_DROP_KEY_PER_EDGE", "-o", tmp,
+                             kb.SOURCES["gat_attention"]],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, path, tmp
+
+
 def phase_build():
+    """Every kernel of the package (build: one nvcc a source, all at once),
+    and beside them K3 with the per-edge dropout key."""
+    import ctypes
+
     from dgl_tpu_torch.kernels.build import build
 
     t0 = time.perf_counter()
+    edge_key = _start_k3_edge_key_build()
     info = build()
+    proc, path, tmp = edge_key
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for gat_attention with the per-edge key:\n{log}")
+    os.replace(tmp, path)
+    K3_EDGE_KEY["lib"] = ctypes.CDLL(path)
     ptxas = {name: _ptxas_lines(b["log"]) for name, b in info.items()}
     emit("build", seconds=time.perf_counter() - t0,
-         kernels={name: b["seconds"] for name, b in info.items()}, ptxas=ptxas)
+         kernels={name: b["seconds"] for name, b in info.items()}, ptxas=ptxas,
+         k3_edge_key_ptxas=_ptxas_lines(log))
 
 
 def _random_graph(rng, n, hub_edges):
@@ -987,6 +1045,53 @@ def k3_shape(name, g, h, d, gen, keep):
     return res
 
 
+def k3_key_times(g, h, d, gen, keep):
+    """Both K3 passes on ``g`` at H = h, D = d with dropout, timed with the
+    package's per-(edge, head) dropout key and with the per-edge key of the
+    K3_DROP_KEY_PER_EDGE build (phase_build), in turns (package, edge key,
+    edge key, package): each key's time is the mean of its two CUDA-event
+    medians of 20 calls. The two builds' forwards must agree bit for bit at
+    H = 1, where the keys are equal, and differ at H > 1."""
+    from unittest import mock
+
+    from dgl_tpu_torch.kernels import gat_attention as ga
+
+    dev, rev, n = g.indptr.device, g.reverse, g.num_dst_nodes
+    v, g_out = (1.0 + torch.randn(n, h, d, device=dev, generator=gen) for _ in range(2))
+    a_s, a_d = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
+    kw = dict(negative_slope=0.2, keep=keep, seed=torch.tensor([20260], dtype=torch.int32,
+                                                                device=dev))
+
+    def edge_key():
+        return mock.patch.object(ga, "load", lambda name: K3_EDGE_KEY["lib"])
+
+    def fwd(v, a_s, a_d):
+        return ga.gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
+
+    out, _, inv_s, _, shift = fwd(v, a_s, a_d)
+    node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
+    with edge_key():
+        out_edge = fwd(v, a_s, a_d)[0]
+    one = [t[:, :1].contiguous() for t in (v, a_s, a_d)]
+    with edge_key():
+        out_edge_h1 = fwd(*one)[0]
+    if not torch.equal(fwd(*one)[0], out_edge_h1) or (h > 1 and torch.equal(out, out_edge)):
+        raise AssertionError("K3's two dropout keys: equal outputs where they should differ, "
+                             "or different ones at H = 1")
+    calls = {"gat_attention_fwd": lambda: fwd(v, a_s, a_d),
+             "gat_attention_bwd": lambda: ga.gat_attention_bwd(
+                 rev.indptr, rev.src, rev.eid, g_out, node, a_s, split=rev.split, **kw)}
+    res = {}
+    for name, call in calls.items():
+        t = {"edge_head_key": [], "edge_key": []}
+        for key in ("edge_head_key", "edge_key", "edge_key", "edge_head_key"):
+            with edge_key() if key == "edge_key" else contextlib.nullcontext():
+                t[key].append(median_ms(call, reps=20, warmup=2))
+        res[name] = {f"ms_{k}": statistics.mean(v) for k, v in t.items()}
+        res[name]["edge_head_over_edge"] = res[name]["ms_edge_head_key"] / res[name]["ms_edge_key"]
+    return res
+
+
 def adjoint_times(g, w, gen):
     """gather_src_rows' adjoint on (E, w) cotangents, two ways: the port's
     one K1 launch over the reverse CSR indexed by rev.eid, and the JAX
@@ -1083,6 +1188,8 @@ def phase_gat_reddit():
     arxiv = _gat_graph("ogbn-arxiv", dev)
     res_arxiv = k3_shape("ogbn-arxiv", arxiv, 4, 16, gen, REDDIT_KEEP)
     res_arxiv40 = k3_shape("ogbn-arxiv D=40", arxiv, 4, 40, gen, REDDIT_KEEP)
+    key_times = {"arxiv": k3_key_times(arxiv, 4, 16, gen, REDDIT_KEEP),
+                 "reddit": k3_key_times(g, h, d, gen, REDDIT_KEEP)}
     arxiv_fields = {"nodes": arxiv.num_dst_nodes, "edges": arxiv.num_edges, "heads": 4,
                     "d": [16, 40], **_split_fields(arxiv)}
     del arxiv
@@ -1140,8 +1247,9 @@ def phase_gat_reddit():
          **{f"{k}_ms_arxiv_d40": r["ms"] for k, r in res_arxiv40.items()},
          k3_b2_t_sweep=res["gat_attention_bwd"]["t_sweep"],
          k3_fwd_t_sweep_arxiv=res_arxiv["gat_attention_fwd"]["t_sweep"],
-         arxiv=arxiv_fields, detail=res, detail_arxiv=res_arxiv, detail_arxiv_d40=res_arxiv40)
-    return res, res_arxiv, res_arxiv40, g
+         arxiv=arxiv_fields, detail=res, detail_arxiv=res_arxiv, detail_arxiv_d40=res_arxiv40,
+         k3_key_times=key_times)
+    return res, res_arxiv, res_arxiv40, key_times, g
 
 
 # -- P1 and P2: the row gather ----------------------------------------------
@@ -1523,6 +1631,30 @@ def graph_gather_checks(g, gen):
                          "calls": k["calls_per_call"]} for k in kernels[:8]]}
 
 
+def fused_gat_memory_bound(n, in_feats, hidden, classes, heads):
+    """The bytes a full-graph training step of main_gat's fused GAT may add
+    above its graph and data, from the code (models/gat.py, nn/conv.py,
+    kernels/gat_attention.py, benchmarks/common.py), in float32 elements a
+    node: what the forward keeps for the backward, a layer i from width w
+    to H·D: dropout's mask and output (2 w, none in layer 0, which has no
+    feature dropout), z, K3's out and w1 and elu's output (4 H·D; the last
+    layer keeps the head mean's D instead of an elu output, counted as H·D),
+    a_src, a_dst, inv_s, w1s and shift (5 H); the loss's log-softmax (the
+    classes); and the backward's largest live set beside it, at the widest
+    layer: the output cotangent, grad_v, w2 and two products of the closed
+    forms (5 H·D). The parameters, Adam's moments and the (N, H) gradients
+    are below 1 % of it. An (E, H·D) per-edge tensor at arxiv's first
+    layer (2,111,439 edges: 540 MB) on top of the measured peak would pass
+    it."""
+    per_node, w = classes, in_feats
+    for i, h in enumerate(heads):
+        d = classes if i == len(heads) - 1 else hidden
+        per_node += (2 * w if i else 0) + 4 * h * d + 5 * h
+        w = h * d
+    widest = max(h * (classes if i == len(heads) - 1 else hidden) for i, h in enumerate(heads))
+    return 4 * n * (per_node + 5 * widest)
+
+
 def phase_gat_main():
     """main_gat's three paths, each with every counter set to 0 just
     before it and read just after it.
@@ -1544,6 +1676,7 @@ def phase_gat_main():
     fused_memory (phase gat_reddit) is the check that sees an (E, 1) one.
     """
     from dgl_tpu_torch.benchmarks.node_classification import main_gat
+    from dgl_tpu_torch.data import NODE_DATASET_STATS
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
     from dgl_tpu_torch.kernels.gat_attention import B2_COMBINES, gat_attention_bwd, gat_attention_fwd
     from dgl_tpu_torch.kernels.row_gather import row_gather_by_source
@@ -1621,6 +1754,12 @@ def phase_gat_main():
         raise AssertionError(f"reddit fused training adds {train_extra['reddit']} B to the "
                              f"{res['reddit']['setup_bytes']} B of its graph and data: an (E, 16) "
                              f"buffer ({edge_buffer} B) or more")
+    cfg, (n_arxiv, _, f_arxiv, c_arxiv) = (main_gat.DATASET_CFG["ogbn-arxiv"],
+                                           NODE_DATASET_STATS["ogbn-arxiv"])
+    arxiv_bound = fused_gat_memory_bound(n_arxiv, f_arxiv, cfg["hidden"], c_arxiv, cfg["heads"])
+    if not train_extra["ogbn-arxiv"] < arxiv_bound:
+        raise AssertionError(f"arxiv fused training adds {train_extra['ogbn-arxiv']} B to its "
+                             f"graph and data, over fused_gat_memory_bound's {arxiv_bound} B")
     emit("gat_main", device=res["reddit"]["device"], synthetic=res["reddit"]["synthetic"],
          **{f"{k}_epoch_s": res[ds]["epoch_s"] for ds, k in _GAT_KEYS.items()},
          **{f"{k}_epochs_s": res[ds]["epochs_s"] for ds, k in _GAT_KEYS.items()},
@@ -1636,6 +1775,7 @@ def phase_gat_main():
          reddit_train_extra_bytes=train_extra["reddit"],
          reddit_train_extra_floats_per_node=train_extra["reddit"] / (4 * n),
          arxiv_train_extra_bytes=train_extra["ogbn-arxiv"],
+         arxiv_train_memory_bound_bytes=arxiv_bound,
          pubmed_setup_bytes=res["pubmed"]["setup_bytes"],
          pubmed_train_peak_bytes=res["pubmed"]["train_peak_bytes"],
          reddit_edge_buffer_bytes=edge_buffer,
@@ -2319,6 +2459,265 @@ def phase_rgcn_main():
     del weights
     torch.cuda.empty_cache()
     return k1, runs["default"]["launches"], runs["default"]["combines"], g
+
+
+# -- GCMC on ml-100k: K1 on bipartite relation CSRs, P1 and K2 in the decoder
+
+GCMC_SEED = 123  # the driver's --seed
+GCMC_BASES = 2  # the driver's --gen_r_num_basis_func
+GCMC_REL_D = 100  # a relation's width: --gcn_agg_units 500 stacked over the 5 ratings
+GCMC_OUT_D = 75  # --gcn_out_units: the decoder's width
+GCMC_PROFILE = 20  # further iterations under torch.profiler after the run
+
+
+def gcmc_per_iter(enc, dec, train=True, num_basis=GCMC_BASES):
+    """K1, K2 and P1-in-source-order launches, and K1's and K2's combine
+    launches, of one GCMC training iteration (``train``) or one RMSE
+    evaluation on encoder graph ``enc`` and decoder graph ``dec``, from the
+    code (nn/gcmc.py, ops/spmm.py, ops/sddmm.py, ops/gather.py): each
+    relation's GCMCGraphConv is one K1 over its dst CSR and, as x·W needs a
+    gradient, one K1 over its reverse CSR backward; each decoder basis is one
+    u_dot_v, two P1 gathers (gather_src_rows over the reverse CSR,
+    gather_dst over the dst CSR) whose adjoints are one K1 over the reverse
+    CSR by eid and one K2 over the dst CSR. A launch over a CSR with long
+    rows combines once. An evaluation runs the forwards only. Returns
+    (launches, combines)."""
+    launches = {"csr_spmm": 0, "seg_sum": 0, "row_gather_by_source": 2 * num_basis}
+    combines = {"csr_spmm": 0, "seg_sum": 0}
+    long = lambda gg: int(gg.split.num_long > 0)  # noqa: E731
+    for g in enc.relations.values():
+        launches["csr_spmm"] += 1 + train
+        combines["csr_spmm"] += long(g) + train * long(g.reverse)
+    if train:
+        launches["csr_spmm"] += num_basis
+        combines["csr_spmm"] += num_basis * long(dec.reverse)
+        launches["seg_sum"] = num_basis
+        combines["seg_sum"] = num_basis * long(dec)
+    return launches, combines
+
+
+def k1_exact(name, gg, d, gen, by_eid=False):
+    """K1 over one CSR on small integers: every row equal to the float64 sum
+    bit for bit, hub rows included."""
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+
+    idx, n_src = (gg.eid, gg.num_edges) if by_eid else (gg.src, gg.num_src_nodes)
+    x = torch.randint(-4, 5, (n_src, d), device=gg.indptr.device, generator=gen).float()
+    check(f"{name} D={d} integer", csr_spmm(gg.indptr, idx, x, split=gg.split), gg.indptr,
+          reference64_sparse(gg.indptr, idx, x, n_src, False), exact=True)
+
+
+def p1_stream(name, x, indptr, pos, split, idx, gen):
+    """P1 in source order over one CSR of the decoder graph (``pos`` the
+    output positions, None for the dst CSR's own order): bit for bit
+    against x[idx] and its plain version, two runs equal, CUDA-event
+    medians beside index_select and the bound."""
+    from dgl_tpu_torch.kernels.row_gather import row_gather_by_source, row_gather_by_source_plain
+
+    kern = lambda: row_gather_by_source(x, indptr, pos, split)  # noqa: E731
+    got, want = kern(), x.index_select(0, idx)
+    if not (torch.equal(got, want) and torch.equal(got, kern())
+            and torch.equal(row_gather_by_source_plain(x, indptr, pos), want)):
+        raise AssertionError(f"gcmc {name}: P1 in source order differs from x[idx]")
+    bound, by, _ = gather_bound(idx, x.shape[1] * x.element_size())
+    return {"rows": idx.numel(), "row_bytes": x.shape[1] * x.element_size(),
+            "ms": median_ms(kern, reps=30, warmup=3),
+            "plain_ms": median_ms(lambda: row_gather_by_source_plain(x, indptr, pos), reps=10,
+                                  warmup=2),
+            "library_ms": median_ms(lambda: x.index_select(0, idx), reps=30, warmup=3),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0}
+
+
+def gcmc_kernel_checks(data, gen):
+    """K1, P1 and K2 at GCMC's shapes on the training graphs. K1 on each of
+    the 10 relation CSRs at D = 100, forward on the dst CSR and backward on
+    the reverse CSR, and at D = 75 on the decoder graph's reverse CSR by eid
+    (gather_src_rows' adjoint): every row held to float64 sums, rows of at
+    most HUB_DEG terms to the plain version, small integers bit for bit, two
+    runs equal, timed beside torch.sparse.mm and the bytes bound (k1_width).
+    P1 in source order on the decoder's two gathers at (E, 75): bit for bit
+    against x[idx]. K2 at W = 75 on the decoder's dst CSR (gather_dst's
+    adjoint) through check_k2, timed beside segment_reduce, index_add_ and
+    the bound."""
+    from dgl_tpu_torch.kernels.seg_sum import csr_rows, seg_sum, seg_sum_plain
+
+    enc, dec, _ = data.train
+    dev = dec.indptr.device
+    k1 = {}
+    for (_, rel, _), g in enc.relations.items():
+        for side, gg in (("fwd", g), ("bwd", g.reverse)):
+            k1[f"{rel}_{side}"] = k1_width(f"gcmc {rel} {side}", gg, GCMC_REL_D, False, gen,
+                                           plain=True)
+            k1[f"{rel}_{side}"].update(rows=gg.num_dst_nodes, edges=gg.num_edges,
+                                       longest_row=int(gg.in_degrees().max()),
+                                       long_rows=gg.split.num_long)
+            k1_exact(f"gcmc {rel} {side}", gg, GCMC_REL_D, gen)
+    k1["dec_adjoint"] = k1_width("gcmc decoder adjoint", dec.reverse, GCMC_OUT_D, False, gen,
+                                 plain=True, by_eid=True)
+    k1_exact("gcmc decoder adjoint", dec.reverse, GCMC_OUT_D, gen, by_eid=True)
+    rev = dec.reverse
+    u = 1.0 + torch.randn(dec.num_src_nodes, GCMC_OUT_D, device=dev, generator=gen)
+    v = 1.0 + torch.randn(dec.num_dst_nodes, GCMC_OUT_D, device=dev, generator=gen)
+    p1 = {"src": p1_stream("gather_src_rows", u, rev.indptr, rev.eid, rev.split, dec.src.long(),
+                           gen),
+          "dst": p1_stream("gather_dst", v, dec.indptr, None, dec.split, dec.dst.long(), gen)}
+    n, e, w = dec.num_dst_nodes, dec.num_edges, GCMC_OUT_D
+    msg = 1.0 + torch.randn(e, w, device=dev, generator=gen)
+    ints = torch.randint(-4, 5, (e, w), device=dev, generator=gen).float()
+    acc = [0.0, 0.0, 0.0]
+    check_k2("gcmc decoder", dec.indptr, msg, ints, acc, dec.split)
+    rows, offsets = csr_rows(dec.indptr, e), dec.indptr.long()
+    bound, by = k2_bound(n, e, w)
+    k2 = {"rows": n, "edges": e, "w": w, "long_rows": dec.split.num_long,
+          "ms": median_ms(lambda: seg_sum(dec.indptr, msg, split=dec.split), reps=30, warmup=3),
+          "plain_ms": median_ms(lambda: seg_sum_plain(dec.indptr, msg), reps=10, warmup=2),
+          "library_ms": median_ms(lambda: torch.segment_reduce(msg, "sum", offsets=offsets),
+                                  reps=30, warmup=3),
+          "index_add_ms": median_ms(lambda: torch.zeros(n, w, device=dev).index_add_(0, rows, msg),
+                                    reps=30, warmup=3),
+          "bound_ms": bound, "bound_by": by, "max_abs_err": acc[0], "max_abs_err_f64": acc[1],
+          "max_bound_used": acc[2]}
+    return k1, p1, k2
+
+
+def gcmc_step_no_host_sync(data):
+    """One training iteration of the driver's model (make_train_step, as the
+    driver builds it) under set_sync_debug_mode("error"), after one
+    warm-up iteration; its loss read back outside."""
+    from dgl_tpu_torch.benchmarks.link_prediction import gcmc
+    from dgl_tpu_torch.models import GCMCNet
+
+    dev = torch.device("cuda")
+    ufeat, ifeat = (torch.from_numpy(f).to(dev) for f in (data.user_feat, data.movie_feat))
+    model = GCMCNet([str(r) for r in data.rating_vals], ufeat.shape[1], ifeat.shape[1],
+                    msg_units=len(data.rating_vals) * GCMC_REL_D, out_units=GCMC_OUT_D, device=dev,
+                    generator=torch.Generator().manual_seed(GCMC_SEED))
+    step = gcmc.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=0.01), 1.0, data.train[:2],
+        (ufeat, ifeat, data.norms), torch.from_numpy(data.train[2]).to(dev),
+        torch.tensor(data.rating_vals, dtype=torch.float32, device=dev),
+        torch.Generator(device=dev).manual_seed(GCMC_SEED))
+    step()
+    out = []
+    no_host_sync(lambda: out.append(step()), lambda: out[0][0].item())
+    loss = float(out[0][0])
+    if not math.isfinite(loss):
+        raise AssertionError(f"the GCMC iteration under the sync check gave loss {loss}")
+    return loss
+
+
+def phase_gcmc_main():
+    """GCMC on ml-100k at the driver's defaults (seed 123): the data's
+    shapes (943 users, 1682 movies, 85,000 training ratings, 10 relations),
+    each relation CSR's longest row and long rows; gcmc_kernel_checks; one
+    iteration under the sync check; then the driver (gcmc.run at its
+    defaults, up to 2,000 iterations, an RMSE evaluation every 5, and
+    GCMC_PROFILE profiled iterations) with every counter set to 0 before it
+    and read after it: K1's, K2's and P1-in-source-order launches and K1's
+    and K2's combines equal gcmc_per_iter's for its iterations and its
+    valid and test evaluations; losses finite and falling; the reference's
+    two lines and both CSV files; the best test RMSE below the yardstick of
+    predicting the training ratings' mean; the profile (busy, idle share,
+    top kernels)."""
+    import tempfile
+
+    from dgl_tpu_torch.benchmarks.link_prediction import gcmc
+    from dgl_tpu_torch.data.movielens import load_movielens
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+    from dgl_tpu_torch.kernels.row_gather import row_gather_by_source
+    from dgl_tpu_torch.kernels.seg_sum import seg_sum
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    data = load_movielens("ml-100k", seed=GCMC_SEED, device=dev)
+    load_s = time.perf_counter() - t_phase
+    enc, dec, y_tr = data.train
+    if (data.num_users, data.num_movies, len(y_tr), len(enc.relations)) != (943, 1682, 85_000, 10):
+        raise AssertionError(f"ml-100k is not full size: {data.num_users} users, "
+                             f"{data.num_movies} movies, {len(y_tr)} ratings, "
+                             f"{len(enc.relations)} relations")
+    shapes = {rel: {"edges": g.num_edges, "longest_dst_row": int(g.in_degrees().max()),
+                    "long_dst_rows": g.split.num_long,
+                    "longest_src_row": int(g.reverse.in_degrees().max()),
+                    "long_src_rows": g.reverse.split.num_long}
+              for (_, rel, _), g in enc.relations.items()}
+    shapes["decoder"] = {"edges": dec.num_edges, "longest_movie_row": int(dec.in_degrees().max()),
+                         "long_movie_rows": dec.split.num_long,
+                         "longest_user_row": int(dec.reverse.in_degrees().max()),
+                         "long_user_rows": dec.reverse.split.num_long}
+    ratings = np.asarray(data.rating_vals, np.float64)
+    yardstick = float(np.sqrt(np.mean((ratings[data.test[2]] - ratings[y_tr].mean()) ** 2)))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    k1, p1, k2 = gcmc_kernel_checks(data, gen)
+    sync_loss = gcmc_step_no_host_sync(data)
+    torch.cuda.empty_cache()
+
+    counters = {"csr_spmm": csr_spmm, "seg_sum": seg_sum}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = fn.combines = 0
+    row_gather_by_source.launches = 0
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as save_dir, contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        r = gcmc.run(gcmc.parser().parse_args(["--device", "cuda", "--save_dir", save_dir,
+                                               "--profile", str(GCMC_PROFILE)]))
+        run_s = time.perf_counter() - t0
+        csv_rows = {}
+        for name in ("train_metrics.csv", "valid_metrics.csv"):
+            with open(f"{save_dir}/{name}") as f:
+                csv_rows[name] = f.read().splitlines()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches["row_gather_by_source"] = row_gather_by_source.launches
+    combines = {k: fn.combines for k, fn in counters.items()}
+    per = {"iter": gcmc_per_iter(enc, dec),
+           "valid": gcmc_per_iter(*data.valid[:2], train=False),
+           "test": gcmc_per_iter(*data.test[:2], train=False)}
+    times = {"iter": r["iters"] + GCMC_PROFILE, **r["evals"]}
+    want_l = {k: sum(times[s] * per[s][0][k] for s in per) for k in launches}
+    want_c = {k: sum(times[s] * per[s][1][k] for s in per) for k in combines}
+    if (launches, combines) != (want_l, want_c):
+        raise AssertionError(f"GCMC launches {launches}, combines {combines}; want {want_l}, "
+                             f"{want_c} ({times})")
+    text = log.getvalue()
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("Training time/iter", "Best valid RMSE"))]
+    if len(lines) != 2:
+        raise AssertionError(f"the GCMC driver printed {lines}")
+    if [rows[0].split(",")[0] for rows in csv_rows.values()] != ["iter", "iter"] or min(
+            len(rows) for rows in csv_rows.values()) < 2:
+        raise AssertionError(f"the GCMC driver's CSV files: {csv_rows}")
+    losses = r["losses"]
+    if not (all(math.isfinite(v) for v in losses) and statistics.mean(losses[-20:]) < losses[0]):
+        raise AssertionError(f"the GCMC loss is not finite or did not fall: {losses[:5]} .. "
+                             f"{losses[-5:]}")
+    if not r["best_test"] < yardstick:
+        raise AssertionError(f"GCMC's best test RMSE {r['best_test']} is not below the "
+                             f"mean-rating yardstick {yardstick}")
+    prof = r["profile"]
+    emit("gcmc_main", seconds=time.perf_counter() - t_phase, device=r["device"],
+         synthetic=r["synthetic"], users=data.num_users, movies=data.num_movies,
+         train_ratings=len(y_tr),
+         train_ratings_by_value={str(v): int((y_tr == i).sum())
+                                 for i, v in enumerate(data.rating_vals)},
+         load_s=load_s, run_s=run_s, driver_load_s=r["load_s"], shapes=shapes,
+         k1=k1, p1_by_source=p1, k2=k2, no_host_sync=True, sync_check_loss=sync_loss,
+         iters=r["iters"], evals=r["evals"], profiled_iters=GCMC_PROFILE,
+         launches=launches, combines=combines,
+         per_iter_derived={s: {"launches": p[0], "combines": p[1]} for s, p in per.items()},
+         iter_s=r["iter_s"], lines=lines, best_valid=r["best_valid"], best_test=r["best_test"],
+         mean_rating_yardstick=yardstick, losses_head=losses[:10], losses_tail=losses[-10:],
+         train_rmse_tail=r["train_rmse"][-5:], valid_rmse=r["valid_rmse"][::20],
+         csv_rows={k: len(v) - 1 for k, v in csv_rows.items()},
+         profile={k: prof[k] for k in ("iters", "wall_ms_per_iter", "device_busy_ms_per_iter",
+                                       "device_idle_share")},
+         profile_kernels=[{"name": k["name"][:80], "device_ms": k["device_ms_per_iter"],
+                           "calls": k["calls_per_iter"]} for k in prof["kernels"][:12]],
+         profile_launches_per_iter=sum(k["calls_per_iter"] for k in prof["kernels"]),
+         host_ops=prof["host_ops"][:8])
+    print(f"GCMC mean-rating yardstick (test RMSE of the training ratings' mean): {yardstick:.4f}",
+          flush=True)
+    return {"launches": launches, "combines": combines, "k1": k1, "p1": p1, "k2": k2}
 
 
 # -- the SpMM / SDDMM kernel sweep (the suite's L0 tier) --------------------
@@ -3056,13 +3455,15 @@ def main():
     red, red_graph = phase_reddit()
     launches, combines = phase_main()
     phase_gat_random()
-    gred, gred_arxiv, gred_arxiv40, gat_graph = phase_gat_reddit()
+    gred, gred_arxiv, gred_arxiv40, key_times, gat_graph = phase_gat_reddit()
     floors, rows = phase_row_gather(red, red_graph, gred, gat_graph)
     del gat_graph
     glaunch, gcombines = phase_gat_main()
     slaunch, scombines, widths = phase_sage_main()
     claunch, ccombines, readout, gc_k1 = phase_gc_main()
     rk1, rlaunch, rcombines, prot_graph = phase_rgcn_main()
+    torch.cuda.empty_cache()
+    gcmc = phase_gcmc_main()
     phase_kernel_sweep({"reddit": red_graph, "ogbn-arxiv": _raw_graph("ogbn-arxiv"),
                         "ogbn-proteins": prot_graph})
     del red_graph, prot_graph
@@ -3084,6 +3485,21 @@ def main():
         **{f"launches_ns_{k}": nlaunch[k]["row_gather_async"] for k in nlaunch},
         **{f"{f}_ns_step": ns_p1[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                 "max_abs_err", "rows", "distinct_rows")})
+    # GCMC: K1 at D = 100 on the training relation with the most ratings,
+    # each way, and the decoder's gather_src_rows adjoint at D = 75; P1 in
+    # source order on the decoder's two gathers; K2 at W = 75
+    gk1 = gcmc["k1"]
+    top = max((k[:-4] for k in gk1 if k.endswith("_fwd") and not k.startswith("rev-")),
+              key=lambda rel: gk1[f"{rel}_fwd"]["edges"])
+    gcmc_k1 = {"gcmc_relation": top,
+               **{f"{k}_gcmc_d100_{side}": gk1[f"{top}_{side}"][k] for side in ("fwd", "bwd")
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
+               **{f"{k}_gcmc_dec_d75_adjoint": gk1["dec_adjoint"][k]
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}}
+    rows["row_gather_by_source"].update(
+        launches_gcmc=gcmc["launches"]["row_gather_by_source"],
+        **{f"{k}_gcmc_{side}": gcmc["p1"][side][k] for side in ("src", "dst")
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")})
     rows["row_gather_by_source"].update(
         launches_pubmed_gat=glaunch["pubmed"]["row_gather_by_source"],
         **{f"launches_gcn_{k}": v["row_gather_by_source"] for k, v in claunch.items()})
@@ -3153,6 +3569,12 @@ def main():
                for d in cl_batch["k1"] for side in ("fwd", "bwd")
                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
             "combines_rgcn": rcombines,
+            # the GCMC run on ml-100k (22 a training iteration: the 10
+            # relations each way and the decoder's 2 adjoints; 10 an
+            # evaluation) and K1 at its shapes
+            "launches_gcmc": gcmc["launches"]["csr_spmm"],
+            "combines_gcmc": gcmc["combines"]["csr_spmm"],
+            **gcmc_k1,
             **{f"{k}_proteins_{shape.split('_')[1]}_weighted_{shape.split('_')[0]}": r[k]
                for shape, r in rk1.items()
                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
@@ -3181,7 +3603,11 @@ def main():
                         ms_arxiv_d40=gred_arxiv40[name]["ms"],
                         plain_ms_arxiv_d40=gred_arxiv40[name]["plain_ms"],
                         bound_ms_arxiv_d40=gred_arxiv40[name]["bound_ms"],
-                        max_abs_err_arxiv_d40=gred_arxiv40[name]["max_abs_err"], **extra)
+                        max_abs_err_arxiv_d40=gred_arxiv40[name]["max_abs_err"],
+                        # both passes with dropout, the per-(edge, head) key
+                        # against the per-edge key of before, in one run
+                        **{f"{k}_{ds}": key_times[ds][name][k] for ds in key_times
+                           for k in ("ms_edge_head_key", "ms_edge_key")}, **extra)
           for name, p, extra in (
               # the NS runs (ns_gat's evaluations: H = 8, D = 16, then
               # H = 1, D = 41) and the forward at both shapes on reddit as given
@@ -3233,6 +3659,12 @@ def main():
             **{f"launches_gcn_{k}": v["seg_sum"] for k, v in claunch.items()},
             # cluster LP: u_dot_v's gather_dst adjoints, 2 a step
             "launches_cluster_lp": cl_launch["lp"]["seg_sum"],
+            # GCMC: the decoder's gather_dst adjoints, 2 an iteration, and
+            # K2 at W = 75 on the decoder's dst CSR
+            "launches_gcmc": gcmc["launches"]["seg_sum"],
+            "combines_gcmc": gcmc["combines"]["seg_sum"],
+            **{f"{k}_gcmc_d75": gcmc["k2"][k] for k in ("ms", "plain_ms", "library_ms",
+                                                       "index_add_ms", "bound_ms", "max_abs_err")},
             **{f"combines_gcn_{k}": v["seg_sum"] for k, v in ccombines.items()},
             # the mean and sum readouts and gspmm(copy_e, sum) on a molhiv
             # batch at D = 256

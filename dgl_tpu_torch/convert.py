@@ -1,4 +1,5 @@
-"""Carry GraphSAGE, GAT, GCN, RGCN and link-predictor weights from the JAX package's flax parameter tree.
+"""Carry GraphSAGE, GAT, GCN, RGCN, link-predictor and GCMC weights from the JAX package's flax
+parameter tree.
 
 The tree is given as nested dicts of numpy arrays (``jax`` is not needed
 to call this). A flax ``Dense`` kernel is ``(in, out)``; a torch ``Linear``
@@ -15,7 +16,7 @@ import torch
 __all__ = ["sage_state_dict_from_flax", "gat_state_dict_from_flax",
            "gcn_graph_state_dict_from_flax", "gcn_mol_state_dict_from_flax",
            "rel_graph_conv_state_dict_from_flax", "rgcn_state_dict_from_flax",
-           "predictor_state_dict_from_flax"]
+           "predictor_state_dict_from_flax", "gcmc_state_dict_from_flax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -162,4 +163,29 @@ def predictor_state_dict_from_flax(params: Mapping) -> dict:
             _dense(sd, f"lins.{_layer(name)}", sub)
         else:
             raise KeyError(f"unexpected predictor parameter group {name!r}")
+    return sd
+
+
+def gcmc_state_dict_from_flax(params: Mapping, prefix: str = "") -> dict:
+    """A ``state_dict`` for the port's ``GCMCNet``, ``GCMCLayer``,
+    ``GCMCGraphConv``, ``BiDecoder`` or ``DenseBiDecoder`` from the
+    ``params`` of the JAX package's same module: ``encoder``/``decoder`` to
+    their submodules, ``conv_<rel>/weight`` to ``convs.<rel>.weight`` and
+    ``W_r_<rating>`` to ``W_r.<rating>`` ((in, out) as they are), ``Ps`` as it
+    is, the ``Dense`` layers ``ufc``, ``ifc`` and ``combine_basis``
+    transposed."""
+    sd = {}
+    for name, sub in params.items():
+        if name in ("encoder", "decoder"):
+            sd.update(gcmc_state_dict_from_flax(sub, f"{prefix}{name}."))
+        elif name.startswith("conv_"):
+            sd[f"{prefix}convs.{name[len('conv_'):]}.weight"] = _t(sub["weight"])
+        elif name.startswith("W_r_"):
+            sd[f"{prefix}W_r.{name[len('W_r_'):]}"] = _t(sub)
+        elif name in ("weight", "Ps"):
+            sd[f"{prefix}{name}"] = _t(sub)
+        elif name in ("ufc", "ifc", "combine_basis"):
+            _dense(sd, f"{prefix}{name}", sub)
+        else:
+            raise KeyError(f"unexpected GCMC parameter group {name!r}")
     return sd

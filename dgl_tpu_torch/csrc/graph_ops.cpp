@@ -8,8 +8,8 @@
 // grow_partition and refine) and the counting-sort CSR build (build_csr).
 // The code is the original's, so both packages give the same output from
 // the same input and seed: bit for bit wherever the OpenMP team size is the
-// same, and everywhere for node_subgraph, partition_multilevel and
-// build_csr, which do not depend on it (partition_lp does: see its note).
+// same, and everywhere for node_subgraph, both partitioners and build_csr,
+// which do not depend on it (partition_lp runs serially here: see its note).
 // Host C++ only; the Python layer (native.py) builds and binds it with
 // ctypes.
 //
@@ -17,7 +17,6 @@
 // samplers and node_subgraph are thread-parallel with OpenMP.
 
 #include <algorithm>
-#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <utility>
@@ -183,10 +182,11 @@ int64_t node_subgraph(const int64_t *indptr, const int64_t *indices,
 
 // Label-propagation partitioner (the METIS role): k seeds, iterative
 // adoption over the edge list, then orphan round-robin. part: -1-initialized.
-// The adoption loop reads and writes `part` from every OpenMP thread
-// without synchronisation, as the original does: which neighbour's part a
-// node adopts depends on the threads' interleaving, so the output is
-// reproducible (and equal to the JAX package's) only with one thread.
+// Each round walks the edges in order on one thread. The original runs the
+// walk as an OpenMP loop whose threads read and write `part` without
+// synchronisation, so which neighbour's part a node adopts there depends on
+// the threads' interleaving; this serial walk is what the original computes
+// with one thread, whatever the team size.
 void partition_lp(const int64_t *src, const int64_t *dst, int64_t n_edges,
                   int64_t num_nodes, int64_t k, int64_t rounds, uint64_t seed,
                   int64_t *part) {
@@ -197,19 +197,18 @@ void partition_lp(const int64_t *src, const int64_t *dst, int64_t n_edges,
     if (part[v] < 0) part[v] = p;
   }
   for (int64_t r = 0; r < rounds; ++r) {
-    std::atomic<int64_t> changed(0);
-#pragma omp parallel for schedule(static)
+    bool changed = false;
     for (int64_t e = 0; e < n_edges; ++e) {
       int64_t s = src[e], d = dst[e];
       if (part[d] < 0 && part[s] >= 0) {
         part[d] = part[s];
-        changed.fetch_add(1, std::memory_order_relaxed);
+        changed = true;
       } else if (part[s] < 0 && part[d] >= 0) {
         part[s] = part[d];
-        changed.fetch_add(1, std::memory_order_relaxed);
+        changed = true;
       }
     }
-    if (changed.load() == 0) break;
+    if (!changed) break;
   }
   for (int64_t v = 0; v < num_nodes; ++v)
     if (part[v] < 0) part[v] = (int64_t)rng.bounded((uint64_t)k);

@@ -11,7 +11,8 @@ Counterpart of ``dgl_tpu/csrc/native.py``: ``sample_neighbors`` and
 ``sample_neighbors_noreplace`` (the same seed draws the same neighbours
 wherever the OpenMP team size is the same), ``SubgraphExtractor``,
 ``partition_multilevel``, ``partition_lp`` and ``build_csr``, each with the
-JAX binding's output bit for bit (``partition_lp`` at one OpenMP thread).
+JAX binding's output bit for bit (``partition_lp``, serial here, against
+the JAX binding at one OpenMP thread).
 """
 
 from __future__ import annotations
@@ -160,11 +161,11 @@ def partition_multilevel(src, dst, num_nodes: int, k: int, seed: int) -> np.ndar
 def partition_lp(src, dst, num_nodes: int, k: int, rounds: int, seed: int) -> np.ndarray:
     """(num_nodes,) int64 label-propagation partition into k parts.
 
-    Its rounds read and write the part array from every OpenMP thread
-    without synchronisation (``graph_ops.cpp``, as in the JAX package), so
-    the result depends on the threads' interleaving: it equals the JAX
-    binding's, and is reproducible, only with one thread
-    (``OMP_NUM_THREADS=1``)."""
+    Its rounds walk the edges serially (``graph_ops.cpp``), so the result
+    is reproducible at any ``OMP_NUM_THREADS`` and equals the JAX binding's
+    at one thread; the JAX binding runs the rounds on OpenMP threads that
+    race on the part array, so its result at more threads depends on their
+    interleaving."""
     part = np.empty(num_nodes, dtype=np.int64)
     load().partition_lp(_as_i64(src), _as_i64(dst), len(src), num_nodes, k, rounds,
                         seed & 0xFFFFFFFFFFFFFFFF, part)

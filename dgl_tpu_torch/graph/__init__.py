@@ -1,5 +1,7 @@
 from . import transforms
 from .batch import GraphBatch, batch_graphs, readout
 from .graph import Graph, from_edges
+from .hetero import HeteroGraph
 
-__all__ = ["Graph", "from_edges", "GraphBatch", "batch_graphs", "readout", "transforms"]
+__all__ = ["Graph", "from_edges", "HeteroGraph", "GraphBatch", "batch_graphs", "readout",
+           "transforms"]

@@ -3,8 +3,8 @@
 //
 //   out[d] = Σ_{j: s→d} m_j · α_j · v[s],   α_j = p_j / Σ_{j'→d} p_j',
 //   p_j = exp(z_j − shift[d]),  z_j = leaky_relu(a_src[s] + a_dst[d]),
-//   m_j = the dropout hash of the forward-canonical edge id j (1 without
-//   dropout), for every head h independently.
+//   m_j = the dropout factor of the forward-canonical edge id j under head
+//   h (1 without dropout), every head h independently.
 //
 // Replaces: dgl_tpu/kernels/lane_attention.py:_attn_pass, passes "fwd" and
 // "b2" (body _make_kernel, dropout _hash_keep, custom VJP _lane_gat_fwd /
@@ -35,11 +35,14 @@
 //   The gradients of a_src and a_dst are N-wide closed forms of these sums
 //   (kernels/gat_attention.py), as in _lane_gat_bwd.
 //
-// Dropout: murmur3 fmix32 of (eid ^ seed) as uint32, kept where its low 24
-// bits are below int(keep·2^24), scaled by float32(1/keep); bit for bit the
-// JAX package's _hash_keep. The mask multiplies the numerator terms only;
-// s stays unmasked. The seed is read from device memory, so drawing it on
-// the card needs no host sync.
+// Dropout: murmur3 fmix32 of (key ^ seed) as uint32, kept where its low 24
+// bits are below int(keep·2^24), scaled by float32(1/keep): the JAX
+// package's _hash_keep, keyed on key = eid·H + h (mod 2^32), so every
+// (edge, head) pair is dropped on its own, as DGL's GATConv and the edge
+// form drop them; at H = 1 the key is eid and the mask equals _hash_keep's
+// bit for bit (the lane kernel keys on eid alone, one mask for every head).
+// The mask multiplies the numerator terms only; s stays unmasked. The seed
+// is read from device memory, so drawing it on the card needs no host sync.
 //
 // What bounds it on this card: bytes. Per (d, h) and edge the forward reads
 // src[j], a_src[s] and v[s] (D floats), b2 dst[j] (and eid[j] with
@@ -103,8 +106,19 @@ struct Split {
   int64_t n_chunk_blocks;    // chunk_blocks(n_chunks): the launch's first blocks
 };
 
-__device__ __forceinline__ float keep_scale(int32_t eid, int32_t seed, const Drop& drop) {
-  uint32_t x = static_cast<uint32_t>(eid ^ seed);
+// The dropout key of forward-canonical edge e under head h. Built with
+// -DK3_DROP_KEY_PER_EDGE it is e for every head, the key before the per-head
+// mask, which chip_smoke.py builds only to time the two keys side by side.
+__device__ __forceinline__ uint32_t drop_key(int64_t e, int heads, int h) {
+#ifdef K3_DROP_KEY_PER_EDGE
+  return static_cast<uint32_t>(e);
+#else
+  return static_cast<uint32_t>(e) * static_cast<uint32_t>(heads) + static_cast<uint32_t>(h);
+#endif
+}
+
+__device__ __forceinline__ float keep_scale(uint32_t key, int32_t seed, const Drop& drop) {
+  uint32_t x = key ^ static_cast<uint32_t>(seed);
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
@@ -231,7 +245,7 @@ __device__ __forceinline__ void fwd_range(const int32_t* __restrict__ src,
         const float slope = z > 0.f ? 1.f : ns;
         const float p = expf(leaky(z, ns) - sh);
         const float keep =
-            drop.seed != nullptr ? keep_scale(static_cast<int32_t>(j), seed, drop) : 1.f;
+            drop.seed != nullptr ? keep_scale(drop_key(j, heads, h), seed, drop) : 1.f;
         pm = p * keep;
         pms = pm * slope;
         ps += p;
@@ -318,7 +332,8 @@ __device__ __forceinline__ void b2_range(const int32_t* __restrict__ dst,
         const float z = as + q.x;
         const float slope = z > 0.f ? 1.f : ns;
         const float alpha = expf(leaky(z, ns) - q.y) * q.z;
-        const float keep = drop.seed != nullptr ? keep_scale(e, seed, drop) : 1.f;
+        const float keep =
+            drop.seed != nullptr ? keep_scale(drop_key(e, heads, h), seed, drop) : 1.f;
         wv = alpha * keep;
         w2e = wv * slope;
         w3a += alpha * slope * q.w;

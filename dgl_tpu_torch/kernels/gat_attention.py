@@ -30,10 +30,14 @@ No atomics decide an order, so two runs are bitwise equal.
 ``gat_attention_plain`` is the whole function written with gathers and
 differentiated by autograd, the yardstick of the tests.
 
-Attention dropout is the JAX package's stateless hash of the
-forward-canonical edge id (``keep_mask``), so masks agree bit for bit with
-``dgl_tpu/kernels/lane_attention.py:_hash_keep`` and between the two
-passes. The seed is a (1,) int32 tensor on the operands' device.
+Attention dropout is the JAX package's stateless hash
+(``dgl_tpu/kernels/lane_attention.py:_hash_keep``, ``keep_mask``) keyed on
+``eid·H + h`` (``drop_keys``: ``eid`` the forward-canonical edge id, ``h``
+the head), so each (edge, head) pair is dropped on its own, as DGL's
+GATConv and the edge form drop them, and both passes draw the same mask.
+At H = 1 the key is ``eid`` and the mask equals the lane kernel's bit for
+bit; the lane kernel keys on ``eid`` alone at every H, one mask an edge for
+all heads. The seed is a (1,) int32 tensor on the operands' device.
 
 Counterpart of ``dgl_tpu/kernels/lane_attention.py:lane_gat_agg``. The
 softmax shift is the exact row maximum, where the JAX kernel uses the loose
@@ -62,6 +66,7 @@ __all__ = [
     "gat_attention_bwd",
     "gat_attention_bwd_plain",
     "keep_mask",
+    "drop_keys",
 ]
 
 _U32 = 0xFFFFFFFF
@@ -80,10 +85,18 @@ def _drop_consts(keep: float) -> Tuple[int, float]:
     return min(int(keep * float(1 << 24)), 1 << 24), float(np.float32(1.0 / keep))
 
 
-def keep_mask(eid: torch.Tensor, seed: torch.Tensor, keep: float) -> torch.Tensor:
-    """Per-edge dropout factor: murmur3 fmix32 of ``eid ^ seed`` as uint32,
-    ``1/keep`` where its low 24 bits fall below ``int(keep·2²⁴)``, else 0."""
-    x = torch.bitwise_xor(eid.to(torch.int32), seed.to(torch.int32)).to(torch.int64) & _U32
+def drop_keys(eid: torch.Tensor, heads: int) -> torch.Tensor:
+    """(E, heads) int64 dropout keys ``eid·heads + h mod 2³²`` of the
+    forward-canonical edge ids ``eid``."""
+    h = torch.arange(heads, dtype=torch.int64, device=eid.device)
+    return ((eid.to(torch.int64) & _U32).unsqueeze(1) * heads + h) & _U32
+
+
+def keep_mask(key: torch.Tensor, seed: torch.Tensor, keep: float) -> torch.Tensor:
+    """Dropout factor of each key (an edge id, or ``drop_keys``' per-head
+    key): murmur3 fmix32 of ``key ^ seed`` as uint32, ``1/keep`` where its
+    low 24 bits fall below ``int(keep·2²⁴)``, else 0."""
+    x = torch.bitwise_xor(key.to(torch.int64), seed.to(torch.int64)) & _U32
     x = x ^ (x >> 16)
     x = _mul32(x, 0x85EBCA6B)
     x = x ^ (x >> 13)
@@ -121,7 +134,10 @@ def gat_attention_fwd_plain(
     raw = a_src[s] + a_dst[rows]
     slope = torch.where(raw > 0, 1.0, negative_slope)
     p = torch.exp(_leaky(raw, negative_slope) - shift[rows])
-    pm = p if keep >= 1.0 else p * keep_mask(torch.arange(e, device=src.device), seed, keep)[:, None]
+    if keep < 1.0:
+        pm = p * keep_mask(drop_keys(torch.arange(e, device=src.device), p.shape[1]), seed, keep)
+    else:
+        pm = p
     vs = v[s]
     num = _zeros_like_rows(n, v).index_add_(0, rows, pm.unsqueeze(-1) * vs)
     w1u = _zeros_like_rows(n, v).index_add_(0, rows, (pm * slope).unsqueeze(-1) * vs)
@@ -148,7 +164,7 @@ def gat_attention_bwd_plain(
     raw = a_src[rows] + q[..., 0]
     slope = torch.where(raw > 0, 1.0, negative_slope)
     alpha = torch.exp(_leaky(raw, negative_slope) - q[..., 1]) * q[..., 2]
-    wv = alpha if keep >= 1.0 else alpha * keep_mask(eid, seed, keep)[:, None]
+    wv = alpha if keep >= 1.0 else alpha * keep_mask(drop_keys(eid, alpha.shape[1]), seed, keep)
     gd = g[d]
     grad_v = _zeros_like_rows(n, g).index_add_(0, rows, wv.unsqueeze(-1) * gd)
     w2 = _zeros_like_rows(n, g).index_add_(0, rows, (wv * slope).unsqueeze(-1) * gd)
@@ -169,7 +185,8 @@ def gat_attention_plain(
     ssum = _zeros_like_rows(n, a_dst).index_add(0, rows, p)
     alpha = p / ssum[rows]  # an edge's row is never empty
     if keep < 1.0:
-        alpha = alpha * keep_mask(torch.arange(e, device=src.device), seed, keep)[:, None]
+        alpha = alpha * keep_mask(drop_keys(torch.arange(e, device=src.device), alpha.shape[1]),
+                                  seed, keep)
     return _zeros_like_rows(n, v).index_add(0, rows, alpha.unsqueeze(-1) * v[s])
 
 

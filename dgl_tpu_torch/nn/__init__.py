@@ -1,5 +1,7 @@
 from .conv import GATConv, GCNConv, GCNConvEdge, RelGraphConv, SAGEConv, dropout
 from .encoders import AtomEncoder, BondEncoder, CategoricalEncoder
+from .gcmc import BiDecoder, DenseBiDecoder, GCMCGraphConv, GCMCLayer
+from .hetero import HeteroGraphConv
 from .init import kaiming_uniform_fan_in, lecun_normal_, relu_gain, xavier_uniform_
 from .norm import MaskedBatchNorm
 from .pooling import AvgPooling, MaxPooling, SumPooling
@@ -21,6 +23,11 @@ __all__ = [
     "DotPredictor",
     "MLPPredictor",
     "PairMLPPredictor",
+    "GCMCGraphConv",
+    "GCMCLayer",
+    "BiDecoder",
+    "DenseBiDecoder",
+    "HeteroGraphConv",
     "dropout",
     "relu_gain",
     "xavier_uniform_",

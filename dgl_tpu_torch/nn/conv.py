@@ -140,7 +140,8 @@ class GATConv(nn.Module):
       aggregation in one kernel launch each way, no per-edge tensor. When
       ``in_feats < out_feats`` it aggregates the narrow inputs and applies
       ``W`` per head after (``Σ α·(W x) = W·(Σ α x)``). Attention dropout is
-      the hash of the edge id, its seed one int32 drawn from ``generator``.
+      the hash of each (edge, head) pair's key, its seed one int32 drawn
+      from ``generator``.
     * edge: gather ``W x`` per edge, ``edge_softmax`` with the bound shift,
       ``gspmm(copy_e, sum)``; its sums are K2 launches. Attention dropout is
       an ordinary mask from ``generator``. Where the (E, H, D) messages

@@ -1,3 +1,4 @@
+from .logger import MetricLogger
 from .timing import EpochTimer, PhaseTimer, event_times_ms, synchronize, time_fn
 
-__all__ = ["EpochTimer", "PhaseTimer", "event_times_ms", "synchronize", "time_fn"]
+__all__ = ["MetricLogger", "EpochTimer", "PhaseTimer", "event_times_ms", "synchronize", "time_fn"]

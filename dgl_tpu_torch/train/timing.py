@@ -127,13 +127,15 @@ def device_profile(step: Callable[[], object], epochs: int, device: torch.device
         synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3 / epochs
     # device-side events only: the CPU ops that launched them carry the
-    # same time again
+    # same time again; a user annotation's range on the device timeline
+    # (the optimiser's step) spans kernels that are counted on their own
     per = f"per_{unit}"
     rows = [
         {"name": ev.key, f"calls_{per}": ev.count / epochs,
          f"device_ms_{per}": ev.self_device_time_total / 1e3 / epochs}
         for ev in prof.key_averages()
         if ev.device_type == DeviceType.CUDA and ev.count > 0
+        and not getattr(ev, "is_user_annotation", False)
     ]
     rows.sort(key=lambda r: -r[f"device_ms_{per}"])
     busy_ms = sum(r[f"device_ms_{per}"] for r in rows)

@@ -5,11 +5,14 @@ versions on CPU tensors) and ``gat_attention_plain`` against the JAX
 package on the same numpy inputs, values and the gradients of v, a_src and
 a_dst:
 
-* with dropout (keep 0.7, one shared int32 seed: the masks agree bit for
-  bit), four heads, a skewed source side and rows with no in-edges, against
-  ``lane_gat_agg(..., compute_dtype=float32, interpret=True)`` on fully
-  covered lane plans, the Pallas kernel run as
-  ``tests/test_attention_kernel.py`` runs it;
+* with dropout (keep 0.7, one shared int32 seed), a skewed source side
+  and rows with no in-edges: at one head against ``lane_gat_agg(...,
+  compute_dtype=float32, interpret=True)`` on fully covered lane plans, the
+  Pallas kernel run as ``tests/test_attention_kernel.py`` runs it (the
+  port's key ``eid·H + h`` is the lane kernel's ``eid`` there, so the masks
+  agree bit for bit); at four heads, where the lane kernel draws one mask
+  an edge for every head, against the JAX package's edge form with the
+  mask of a numpy copy of ``_hash_keep`` on the key ``eid·H + h``;
 * without dropout, one head, against the JAX package's edge form of the
   same function (``edge_softmax`` and ``gspmm(copy_e, sum)``).
 
@@ -44,8 +47,10 @@ from dgl_tpu_torch.kernels.gat_attention import (
     gat_attention_fwd,
     gat_attention_fwd_plain,
     gat_attention_plain,
+    drop_keys,
     keep_mask,
 )
+from dgl_tpu_torch.ops import edge_softmax, gather_dst, gather_src_rows, gspmm
 
 N, E, D = 60, 400, 8
 SEED = -1234567  # one int32 attention-dropout seed for both packages
@@ -90,18 +95,57 @@ def test_keep_mask_matches_hash_keep_bit_for_bit():
             assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
 
 
-def test_gat_attention_with_dropout_matches_lane_kernel():
-    keep = 0.7
-    src, dst, (v, a_s, a_d, tgt) = _problem(4, heads=4, skew=True)
-    gj = attach_lane_plans(dgl_tpu.from_edges(src, dst, N), dense_threshold=1,
-                           max_expansion=1e9, compute_dtype=jnp.float32)
-    assert len(gj.lane.plan.rem_src) == 0 and len(gj.reverse.lane.plan.rem_src) == 0
+def _np_hash_keep(key, seed, keep):
+    """``_hash_keep``'s steps in numpy on uint32 keys."""
+    x = key.astype(np.uint32) ^ np.uint32(seed & 0xFFFFFFFF)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x85EBCA6B)
+    x ^= x >> np.uint32(13)
+    x *= np.uint32(0xC2B2AE35)
+    x ^= x >> np.uint32(16)
+    thresh = np.uint32(min(int(keep * float(1 << 24)), 1 << 24))
+    return np.where((x & np.uint32(0xFFFFFF)) < thresh, np.float32(1.0 / keep), np.float32(0.0))
 
-    @jax.jit
-    def jax_loss(v, a_s, a_d):
-        out = lane_gat_agg(gj.lane.plan, gj.reverse.lane.plan, v, a_s, a_d, N, attn_keep=keep,
-                           seed=SEED, compute_dtype=jnp.float32, interpret=True)
-        return jnp.sum((out - tgt) ** 2), out
+
+def test_drop_keys_mask_matches_a_numpy_copy_of_the_hash():
+    eid = np.arange(20000, dtype=np.int64)
+    for heads in (1, 3, 4):
+        key = (eid[:, None] * heads + np.arange(heads)).astype(np.uint32)
+        for seed in (0, SEED, -(2**31)):
+            got = keep_mask(drop_keys(torch.from_numpy(eid), heads),
+                            torch.tensor([seed], dtype=torch.int32), 0.7)
+            assert got.shape == (len(eid), heads)
+            assert np.array_equal(got.numpy(), _np_hash_keep(key, seed, 0.7))
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_gat_attention_with_dropout_matches_lane_kernel(heads):
+    """H = 1: the lane kernel, whose key is the port's; H = 4: the JAX
+    edge form under the port's per-(edge, head) mask, from numpy."""
+    keep = 0.7
+    src, dst, (v, a_s, a_d, tgt) = _problem(4, heads=heads, skew=True)
+    if heads == 1:
+        gj = attach_lane_plans(dgl_tpu.from_edges(src, dst, N), dense_threshold=1,
+                               max_expansion=1e9, compute_dtype=jnp.float32)
+        assert len(gj.lane.plan.rem_src) == 0 and len(gj.reverse.lane.plan.rem_src) == 0
+
+        @jax.jit
+        def jax_loss(v, a_s, a_d):
+            out = lane_gat_agg(gj.lane.plan, gj.reverse.lane.plan, v, a_s, a_d, N, attn_keep=keep,
+                               seed=SEED, compute_dtype=jnp.float32, interpret=True)
+            return jnp.sum((out - tgt) ** 2), out
+    else:
+        gj = dgl_tpu.from_edges(src, dst, N)
+        src_c, dst_c = (np.pad(a, (0, gj.num_edges_padded - E)) for a in gj.edges_numpy())
+        keys = np.arange(gj.num_edges_padded)[:, None] * heads + np.arange(heads)
+        mask = _np_hash_keep(keys, SEED, keep)
+
+        @jax.jit
+        def jax_loss(v, a_s, a_d):
+            logits = jax.nn.leaky_relu(a_s[src_c] + a_d[dst_c], 0.2)
+            alpha = jax_edge_softmax(gj, logits) * mask
+            out = jax_gspmm(gj, "copy_e", "sum", e=alpha[..., None] * v[src_c])
+            return jnp.sum((out - tgt) ** 2), out
 
     (_, want), grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(v, a_s, a_d)
     _check_port(src, dst, (v, a_s, a_d, tgt), want, grads, keep)
@@ -121,6 +165,36 @@ def test_gat_attention_matches_jax_edge_form():
 
     (_, want), grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(v, a_s, a_d)
     _check_port(src, dst, (v, a_s, a_d, tgt), want, grads, 1.0)
+
+
+def test_fused_and_edge_forms_drop_the_same_edge_head_pairs_given_the_same_mask():
+    """K3 with dropout against the port's edge form (``edge_softmax``,
+    ``gspmm(copy_e, sum)``) whose attention is multiplied by K3's own mask,
+    ``keep_mask(drop_keys(eid, H))`` of the canonical edge ids: values and
+    gradients agree, and the mask differs between heads of one edge."""
+    keep, heads = 0.6, 4
+    src, dst, (v, a_s, a_d, tgt) = _problem(7, heads=heads, skew=True)
+    gt = dgl_tpu_torch.from_edges(src, dst, N, device="cpu")
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    mask = keep_mask(drop_keys(torch.arange(gt.num_edges), heads), seed, keep)
+    assert (mask != mask[:, :1]).any(1).float().mean() > 0.5
+
+    def edge_form(v, a_s, a_d):
+        logits = torch.nn.functional.leaky_relu(gather_src_rows(gt, a_s) + gather_dst(gt, a_d),
+                                                0.2)
+        alpha = edge_softmax(gt, logits) * mask
+        return gspmm(gt, "copy_e", "sum", e=alpha.unsqueeze(-1) * gather_src_rows(gt, v))
+
+    results = []
+    for fn in (lambda *a: gat_attention(gt, *a, keep=keep, seed=seed), edge_form):
+        ins = [torch.tensor(a, requires_grad=True) for a in (v, a_s, a_d)]
+        out = fn(*ins)
+        ((out - torch.from_numpy(tgt)) ** 2).sum().backward()
+        results.append([out.detach()] + [t.grad for t in ins])
+    # values within 2e-5, gradients within 5e-4 (the module's tolerances)
+    torch.testing.assert_close(results[0][0], results[1][0], rtol=2e-5, atol=2e-5)
+    for got, want, what in zip(results[0][1:], results[1][1:], ("v", "a_src", "a_dst")):
+        torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4, msg=what)
 
 
 def test_gat_passes_on_cpu_take_plain_versions_and_check_inputs():

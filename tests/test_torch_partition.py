@@ -4,12 +4,15 @@ nodes, isolated nodes, self-loops and duplicate edges; and
 ``graph/partition.py`` against ``dgl_tpu.graph.partition``: the same
 assignments, cache file names, statistics and part lists, each package
 reading the other's cache, and a concurrent cache write that leaves one
-whole file. ``partition_lp`` races across OpenMP threads (see its
-docstring), so it is compared with one thread."""
+whole file. The JAX binding's ``partition_lp`` races across OpenMP
+threads, so it is the reference only at one thread; the port's runs
+serially and is held to it with one thread and with four."""
 
 import contextlib
 import ctypes
 import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -98,6 +101,36 @@ def test_partition_lp_equals_the_jax_library_at_one_thread(gi):
             got = native.partition_lp(src, dst, n, k, 30, seed)
             np.testing.assert_array_equal(got, jax_native.partition_lp(src, dst, n, k, 30, seed))
             assert got.min() >= 0 and got.max() < k
+
+
+_LP_CASES = ((4, 0), (40, 3))  # (k, seed)
+_LP_IN_SUBPROCESS = f"""
+import sys
+import numpy as np
+from dgl_tpu_torch.csrc import native
+src, dst, n = np.load(sys.argv[1]), np.load(sys.argv[2]), int(sys.argv[3])
+np.save(sys.argv[4], np.stack([native.partition_lp(src, dst, n, k, 30, seed)
+                               for k, seed in {_LP_CASES!r}]))
+"""
+
+
+@pytest.mark.parametrize("gi", range(len(GRAPHS)))
+def test_partition_lp_with_four_threads_equals_the_jax_library_at_one_thread(gi, tmp_path):
+    """The port's binding in a process of OMP_NUM_THREADS=4 against the JAX
+    binding at one thread in this one."""
+    src, dst, n = GRAPHS[gi]
+    np.save(tmp_path / "src.npy", src)
+    np.save(tmp_path / "dst.npy", dst)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="4", PYTHONPATH=root)
+    out = tmp_path / "parts.npy"
+    subprocess.run([sys.executable, "-c", _LP_IN_SUBPROCESS, str(tmp_path / "src.npy"),
+                    str(tmp_path / "dst.npy"), str(n), str(out)],
+                   env=env, cwd=root, check=True, timeout=120)
+    with _omp_threads(1):
+        want = np.stack([jax_native.partition_lp(src, dst, n, k, 30, seed)
+                         for k, seed in _LP_CASES])
+    np.testing.assert_array_equal(np.load(out), want)
 
 
 @pytest.mark.parametrize("method", ["metis", "lp", "random"])
