@@ -115,7 +115,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      reverse CSR, held to float64 sums and timed beside torch.sparse.mm and
      its bound; load_s, setup_s, precompute_s, memory and each CSR's split;
   11. gc_main: main_gcn at full width on ENZYMES (600 graphs, 5 epochs),
-     ogbg-molhiv (41,127 graphs, 3 epochs, fused and scatter) and ogbg-ppa
+     ogbg-molhiv (41,127 graphs fused, the scatter lowering's run cut to
+     10,000; 3 epochs) and ogbg-ppa
      (cut to 2,000 graphs, 3 epochs), batch 64, every counter set to 0
      before a run and read after it: K1's, K2's and P1-in-source-order
      launches per step as derived from the code (gc_per_step), no combine; losses finite and
@@ -182,7 +183,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      [0, k) and the parts covering every node once; cluster_sage with
      SAGE and with GAT (fused, K3) on full products at the driver's
      defaults (psize 15000, 32 parts a step, 3 layers of 256, GAT 4 heads
-     of 64), 5 epochs with a full-graph evaluation each and 30 profiled
+     of 64), 4 epochs with a full-graph evaluation each and 30 profiled
      steps, and cluster_gcn_lp on arxiv (dot predictor, 5 epochs, MRR
      every epoch, --yardsticks), every counter set to 0 before a run and
      read after it: P1 in index order once a batch, K1 / K3 / K2 / P1 in
@@ -199,7 +200,43 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      float64 sums on their sub-CSR; one forward of GATConv's memory-safe
      form on the whole products graph, its peak under
      memsafe_memory_bound, its output against the fused form's;
-  17. kernels: one line listing every ported kernel with its numbers, K1's,
+  17. distributed: DIST_K = 2 ranks sharing cuda:0 over gloo, started by
+     dgl_tpu_torch/parallel/launch.py after the kernels are built (their
+     collectives stage through host memory: no time here is a multi-GPU
+     time). The drivers' --shard 2 (DIST_RUNS, epochs cut): reddit SAGE at
+     full size and width (602 -> 16 -> 41), ogbn-arxiv GAT at its driver
+     config (heads 4, 4, 4, bidirected, self-loops) and ogbn-proteins RGCN
+     at the driver's defaults (3 layers, hidden 32): partition and plan
+     seconds, nodes_per_shard, H and exchange_stats; losses finite and
+     falling; every rank's parameters bitwise equal; each rank's launches
+     over the run, the payloads' K1 adjoints among them as the exchange
+     counts them, equal to halo_sage_launches / halo_gat_launches /
+     halo_rgcn_launches times the steps; the trained logits (gathered on
+     rank 0, rows in the input order) against one card's forward at rtol
+     1e-4, atol 1e-5: SAGE against GraphSAGE over K1 at the converted
+     weights, GAT and RGCN against the same halo model over a plan of one
+     shard. Then one start of the ranks (checks.in_turn) for: one step's
+     gradients of reddit SAGE (dropout 0) and of arxiv GAT at seeded
+     weights, summed over the ranks, bitwise equal on both, held with one
+     card's (GraphSAGE over K1; HaloGAT over a plan of one shard, K3) to a
+     float64 run of the model in plain PyTorch (torch.sparse.mm; index_add_
+     with the exact row maximum) within DIST_GRAD_RTOL·|g| +
+     DIST_GRAD_ATOL·max|g| a tensor, the losses within 1e-5 relative, the
+     payloads' adjoints counted against the derivations; the exchange
+     alone on reddit's plan at D = 602 and 16 (each rank's median ms and
+     bytes); spmd: reddit's edges split over the ranks, sharded_gspmm mean
+     (K1 twice a rank) against one card's K1 and float64 sums (check),
+     replicated output and gradient equal on both ranks; dp: two ns_sage
+     minibatches of reddit (batch 1000, fanouts 25, 10), one SGD step,
+     the new parameters equal on both ranks and to the step of the two
+     ranks' mean gradient. At rank 0's part of reddit's and arxiv's plans:
+     K1 over the send graph's reverse CSR (the payloads' adjoint; D = 16,
+     and 68 and 164), over reddit's bipartite reverse CSR (D = 16), and K3
+     forward and b2 on arxiv's bipartite graph (H = 4, D = 16), against
+     their plain versions and float64 sums (check). Checkpoint: main_sage
+     on reddit, 6 epochs against 3 plus a resume of 3 from --ckpt-dir, the
+     losses equal bit for bit;
+  18. kernels: one line listing every ported kernel with its numbers, K1's,
      K2's and K3's with T, long rows, chunks and combine launches, K3's at
      arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
      K1's at the SAGE widths and K1's and K2's launches on the new paths,
@@ -213,7 +250,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      (*_products_h4_d64); the GCMC run's launches of K1, K2 and P1 in
      source order (launches_gcmc, combines_gcmc) and their times at its
      shapes (*_gcmc_*); both K3 passes' times with each dropout key
-     (ms_edge_head_key_*, ms_edge_key_*).
+     (ms_edge_head_key_*, ms_edge_key_*); the distributed phase's
+     launches on rank 0 (launches_halo_sage, launches_halo_rgcn,
+     launches_spmd, launches_send_adjoint; launches_halo_gat;
+     launches_halo_payload).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1975,7 +2015,7 @@ def phase_sage_main():
 GC_RUNS = {  # key: (dataset, lowering, num_graphs, epochs)
     "enzymes": ("ENZYMES", "fused", None, 5),
     "molhiv": ("ogbg-molhiv", "fused", None, 3),
-    "molhiv_scatter": ("ogbg-molhiv", "scatter", None, 3),
+    "molhiv_scatter": ("ogbg-molhiv", "scatter", 10000, 3),  # cut to 10,000 graphs (time)
     "ppa": ("ogbg-ppa", "fused", 2000, 3),
 }
 GC_PROFILE_STEPS = 64  # molhiv's profiled window: its idle share, not a whole epoch's trace
@@ -3006,9 +3046,10 @@ def phase_ns_main():
 CLUSTER_RUNS = {  # key: (driver, its flags) at the drivers' defaults
     # full products, psize 15000, 32 parts a step, 3 layers of 256 (GAT: 4
     # heads of 64, the last layer 1 head): a full-graph evaluation every
-    # epoch, epochs 4 and 5 in "Training time/epoch", then profiled steps
-    "sage": ("cluster_sage", ["--model", "sage", "--n-epochs", "5", "--eval"]),
-    "gat": ("cluster_sage", ["--model", "gat", "--n-epochs", "5", "--eval"]),
+    # epoch, epoch 4 in "Training time/epoch" (cut from 5 for time), then
+    # profiled steps
+    "sage": ("cluster_sage", ["--model", "sage", "--n-epochs", "4", "--eval"]),
+    "gat": ("cluster_sage", ["--model", "gat", "--n-epochs", "4", "--eval"]),
     # arxiv, psize 2000, the dot predictor: an MRR evaluation every epoch,
     # and the untrained encoder's and the raw features' MRR before training
     "lp": ("cluster_gcn_lp", ["--n-epochs", "5", "--eval", "--yardsticks"]),
@@ -3434,6 +3475,610 @@ def phase_cluster_main():
     return launches, batch_checks, k3_full
 
 
+# -- distributed: the halo exchange on ranks sharing the card ---------------
+
+def halo_sage_launches(layers):
+    """K1's and P1-in-source-order's launches on one rank in one HaloSAGE
+    step, from the code (parallel/halo.py, parallel/halo_train.py): a layer
+    gathers its payload (P1 over the send graph) and aggregates (K1 over
+    the rank's bipartite CSR); layer 1's input is data, so it has no
+    backward; every later layer runs K1 backward over the reverse CSR and
+    the payload's adjoint (K1 over the send graph's reverse CSR), which
+    ``exchange.send_adjoint_launches`` also counts (``send_adjoint``)."""
+    return {"csr_spmm": layers + 2 * (layers - 1), "row_gather_by_source": layers,
+            "send_adjoint": layers - 1}
+
+
+def halo_gat_launches(layers):
+    """K3's, K1's and P1's launches on one rank in one HaloGAT step: each
+    layer's projection needs a gradient, so each runs K3 forward and b2,
+    its payload's P1 and the payload's adjoint (K1, ``send_adjoint``)."""
+    return {"gat_attention_fwd": layers, "gat_attention_bwd": layers,
+            "row_gather_by_source": layers, "csr_spmm": layers, "send_adjoint": layers}
+
+
+def halo_rgcn_launches(layers, n_rel):
+    """Weighted K1's and P1's launches on one rank in one HaloRGCN step:
+    each layer's projections need a gradient, so each runs R weighted K1
+    passes forward (the rank's dst CSR) and R backward (its reverse CSR),
+    one P1 payload gather and the payload's adjoint (one K1,
+    ``send_adjoint``)."""
+    return {"csr_spmm": layers * (2 * n_rel + 1), "row_gather_by_source": layers,
+            "send_adjoint": layers}
+
+
+DIST_K = 2  # ranks sharing cuda:0 over gloo
+DIST_TIMEOUT = 600.0  # a start of the ranks' limit, the ranks killed past it
+DIST_RUNS = {  # key: (driver, its dataset, epochs): the drivers' configs, epochs cut
+    "sage": ("main_sage", "reddit", 5),
+    "gat": ("main_gat", "ogbn-arxiv", 5),
+    "rgcn": ("main_rgcn", "ogbn-proteins", 4),
+}
+DIST_DP_BATCH, DIST_DP_FANOUTS = 1000, (25, 10)  # ns_sage's defaults (outermost first)
+DIST_SAGE_LAYERS, DIST_GAT_LAYERS, DIST_RGCN_LAYERS = 2, 3, 3  # reddit's, arxiv's, proteins'
+# one step's gradients against a float64 run of the same model (dist_grads):
+# RTOL·|g64| + ATOL·max|g64| of its tensor is the CPU tests' gradient
+# tolerance against JAX; the sharded gradient may add NOISE times one card's
+# own distance from the float64 run; one card's is held at ONE_ATOL
+DIST_GRAD_RTOL, DIST_GRAD_ATOL, DIST_GRAD_NOISE, DIST_GRAD_ONE_ATOL = 1e-3, 1e-5, 4.0, 1e-4
+
+
+def _expect_launches(what, got, per_step, steps):
+    want = {name: per_step.get(name, 0) * steps for name in got}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, derived {want}")
+
+
+def _dist_forward_check(what, got, want):
+    """A sharded run's logits (input order) against one card's, rtol/atol
+    1e-4/1e-5: the rows' sums run in another order (local edges before
+    halo edges in each row)."""
+    got, want = torch.from_numpy(got), want.detach().cpu()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"{what}: sharded logits differ from one card's, max abs err {err}")
+    return err
+
+
+def _dist_run(kind, res, per_step, epochs):
+    """The common checks of a sharded run: finite, falling losses, the
+    parameters bitwise equal across the ranks, each rank's launches."""
+    (losses,) = res["losses"]
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"sharded {kind}: losses not finite and falling: {losses}")
+    for r, params in enumerate(res["params"][1:], 1):
+        for key, v in params.items():
+            if not np.array_equal(v, res["params"][0][key]):
+                raise AssertionError(f"sharded {kind}: rank {r}'s {key} differs from rank 0's")
+    for r, got in enumerate(res["launches"]):
+        _expect_launches(f"sharded {kind} rank {r}", got, per_step, epochs)
+    return {key: res[key] for key in ("partition_s", "build_s", "write_s", "ranks_s",
+                                      "nodes_per_shard", "rows_per_pair", "exchange_stats",
+                                      "epoch_s", "epochs_s", "num_edges", "synthetic")} | {
+        "losses": losses, "launches": res["launches"]}
+
+
+def _halo_sage_as_graphsage(params):
+    """HaloSAGE's (JAX-layout) weights as GraphSAGE's state dict."""
+    sd = {}
+    for i in range(len(params) // 3):
+        sd[f"convs.{i}.fc_self.weight"] = torch.from_numpy(params[f"layers.{i}.w_self"].T.copy())
+        sd[f"convs.{i}.fc_neigh.weight"] = torch.from_numpy(params[f"layers.{i}.w_neigh"].T.copy())
+        sd[f"convs.{i}.fc_neigh_bias"] = torch.from_numpy(params[f"layers.{i}.bias"])
+    return sd
+
+
+def _gat_edges(data):
+    """The graph main_gat shards on arxiv: bidirected, then self-loops
+    (numpy, input ids)."""
+    from dgl_tpu_torch.graph import transforms
+
+    n = data.num_nodes
+    s, d = transforms.to_bidirected(torch.from_numpy(np.asarray(data.src, np.int64)),
+                                    torch.from_numpy(np.asarray(data.dst, np.int64)), n)
+    return tuple(t.numpy() for t in transforms.add_self_loops(s, d, n))
+
+
+def _k1_halo_model(kind, data, params, dev, heads=None):
+    """The halo model ``kind`` at ``params`` over a plan of one shard (no
+    exchange: the whole graph in one CSR) and its forward's arguments,
+    rows in input order."""
+    from dgl_tpu_torch.parallel import halo
+    from dgl_tpu_torch.parallel.halo_train import HaloGAT, HaloRGCN
+
+    n = data.num_nodes
+    sd = {key: torch.from_numpy(v) for key, v in params.items()}
+    if kind == "gat":
+        plan, n_pad = halo.shard_fullgraph_boundary(*_gat_edges(data), n, 1)
+        shard = halo.place(plan, 0, dev)
+        w0, wl = sd["layers.0.w"], sd[f"layers.{len(heads) - 1}.w"]
+        model = HaloGAT(w0.shape[0], w0.shape[1] // heads[0], wl.shape[1] // heads[-1], heads,
+                        device=dev)
+        model.load_state_dict(sd)
+        x = torch.zeros(n_pad, w0.shape[0], device=dev)
+        x[:n] = torch.from_numpy(np.asarray(data.features, np.float32)).to(dev)
+        return model, (shard, x)
+    plan, n_pad, leids, heids = halo.shard_fullgraph_boundary(
+        np.asarray(data.src, np.int64), np.asarray(data.dst, np.int64), n, 1, return_eids=True)
+    shard = halo.place(plan, 0, dev)
+    w_loc, w_hal = halo.plan_layout_edata_boundary(plan, leids, heids,
+                                                   np.asarray(data.edge_feat, np.float32))
+    weights = shard.edge_weights(w_loc[0], w_hal[0])
+    del w_loc, w_hal
+    wr, wlast = sd["layers.0.w_rel"], sd[f"layers.{len(sd) // 3 - 1}.w_rel"]
+    model = HaloRGCN(wr.shape[1], wr.shape[2], wlast.shape[2], wr.shape[0], len(sd) // 3,
+                     device=dev)
+    model.load_state_dict(sd)
+    return model, (shard, torch.ones(n_pad, 1, device=dev), weights)
+
+
+def _k1_halo(kind, data, params, dev, heads=None):
+    """One card's forward of the same halo model (``_k1_halo_model``)."""
+    model, args = _k1_halo_model(kind, data, params, dev, heads)
+    with torch.no_grad():
+        return model.eval()(*args)[:data.num_nodes]
+
+
+def _node_inputs(data, dev):
+    """x, the labels and the training rows (float) on ``dev``."""
+    return (torch.from_numpy(np.asarray(data.features, np.float32)).to(dev),
+            torch.from_numpy(np.asarray(data.labels, np.int64)).to(dev),
+            torch.from_numpy(np.asarray(data.train_mask, bool)).to(dev).float())
+
+
+def _masked_ce(logits, y, m):
+    """The sharded train steps' loss on one card: the masked mean."""
+    ce = torch.nn.functional.cross_entropy(logits, y, reduction="none")
+    return (ce * m.to(ce.dtype)).sum() / m.sum().clamp(min=1.0).to(ce.dtype)
+
+
+class _Mean64(torch.autograd.Function):
+    """Float64 mean aggregation through torch.sparse.mm both ways (a plain
+    reference that shares no code with K1): ``a`` the dst CSR weighted
+    1/deg, ``at`` its transpose."""
+
+    @staticmethod
+    def forward(ctx, x, a, at):
+        ctx.at = at
+        return torch.sparse.mm(a, x)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        return (torch.sparse.mm(ctx.at, g_out) if ctx.needs_input_grad[0] else None), None, None
+
+
+def _mean64_operands(g):
+    from dgl_tpu_torch.kernels.seg_sum import csr_rows
+
+    inv = 1.0 / (g.indptr[1:] - g.indptr[:-1]).clamp(min=1).double()
+    rev = g.reverse
+    a = torch.sparse_csr_tensor(g.indptr.long(), g.src.long(), inv[csr_rows(g.indptr, g.num_edges)],
+                                size=(g.num_dst_nodes, g.num_src_nodes), check_invariants=False)
+    at = torch.sparse_csr_tensor(rev.indptr.long(), rev.src.long(), inv[rev.src.long()],
+                                 size=(g.num_src_nodes, g.num_dst_nodes), check_invariants=False)
+    return a, at
+
+
+def _params64(params, dev):
+    return {key: torch.from_numpy(v).to(dev).double().requires_grad_() for key, v in params.items()}
+
+
+def sage_grads_f64(g, data, params, dev):
+    """HaloSAGE's loss and gradients at ``params`` in float64 (plain
+    PyTorch, _Mean64), on one card, rows in input order."""
+    p = _params64(params, dev)
+    x, y, m = _node_inputs(data, dev)
+    a, at = _mean64_operands(g)
+    h, layers = x.double(), len(p) // 3
+    for i in range(layers):
+        agg = _Mean64.apply(h, a, at)
+        h = h @ p[f"layers.{i}.w_self"] + agg @ p[f"layers.{i}.w_neigh"] + p[f"layers.{i}.bias"]
+        if i < layers - 1:
+            h = torch.relu(h)
+    loss = _masked_ce(h, y, m)
+    return float(loss.detach()), dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+
+def sage_grads_one_card(g, data, params, dev):
+    """GraphSAGE over K1 (the main path) at HaloSAGE's weights, dropout 0:
+    the loss and its gradients under HaloSAGE's names and layouts."""
+    from dgl_tpu_torch.models import GraphSAGE
+
+    layers = len(params) // 3
+    w0, wl = params["layers.0.w_self"], params[f"layers.{layers - 1}.w_self"]
+    model = GraphSAGE(w0.shape[0], w0.shape[1], wl.shape[1], layers, dropout=0.0, device=dev)
+    model.load_state_dict(_halo_sage_as_graphsage(params))
+    x, y, m = _node_inputs(data, dev)
+    loss = _masked_ce(model.eval()(g, x), y, m)
+    loss.backward()
+    grads = {}
+    for i, conv in enumerate(model.convs):
+        grads[f"layers.{i}.w_self"] = conv.fc_self.weight.grad.T
+        grads[f"layers.{i}.w_neigh"] = conv.fc_neigh.weight.grad.T
+        grads[f"layers.{i}.bias"] = conv.fc_neigh_bias.grad
+    return float(loss.detach()), grads
+
+
+def gat_grads_f64(src, dst, data, params, heads, dev, negative_slope=0.2):
+    """HaloGAT's loss and gradients at ``params`` in float64 (plain
+    PyTorch: index_add_ sums, the softmax shifted by each row's exact
+    maximum), on one card, over the edges ``src``, ``dst`` (every row has
+    a self-loop)."""
+    p = _params64(params, dev)
+    x, y, m = _node_inputs(data, dev)
+    n = data.num_nodes
+    src, dst = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    h = x.double()
+    for i, nh in enumerate(heads):
+        z = (h @ p[f"layers.{i}.w"]).reshape(n, nh, -1)
+        a_src = (z * p[f"layers.{i}.attn_r"]).sum(-1)
+        a_dst = (z * p[f"layers.{i}.attn_l"]).sum(-1)
+        e = torch.nn.functional.leaky_relu(a_src[src] + a_dst[dst], negative_slope)
+        shift = torch.full((n, nh), -math.inf, dtype=e.dtype, device=dev).scatter_reduce(
+            0, dst.unsqueeze(1).expand(-1, nh), e.detach(), "amax")
+        w = torch.exp(e - shift[dst])
+        s = torch.zeros(n, nh, dtype=e.dtype, device=dev).index_add(0, dst, w)
+        num = torch.zeros(n, nh, z.shape[2], dtype=e.dtype, device=dev).index_add(
+            0, dst, w.unsqueeze(-1) * z[src])
+        agg = num / s.unsqueeze(-1)
+        h = torch.nn.functional.elu(agg.reshape(n, -1)) if i < len(heads) - 1 else agg.mean(1)
+    loss = _masked_ce(h, y, m)
+    return float(loss.detach()), dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+
+def gat_grads_one_card(data, params, heads, dev):
+    """HaloGAT over a plan of one shard (K3, no exchange) at ``params``:
+    the loss and its gradients."""
+    model, args = _k1_halo_model("gat", data, params, dev, heads)
+    x, y, m = _node_inputs(data, dev)
+    loss = _masked_ce(model(*args)[:data.num_nodes], y, m)
+    loss.backward()
+    return float(loss.detach()), {name: p.grad for name, p in model.named_parameters()}
+
+
+def dist_grads(what, ranks, one, want):
+    """One sharded step's gradients, summed over the ranks (``ranks``: each
+    rank's halo_grads), against one card's (``one``: loss, grads), each
+    measured from a float64 run (``want``: loss, grads): the ranks'
+    gradients bitwise equal; every entry g of the sharded gradient within
+    DIST_GRAD_RTOL·|g64| + DIST_GRAD_ATOL·max|g64| + DIST_GRAD_NOISE·e1 of
+    its tensor, e1 the largest distance of one card's gradient from the
+    float64 run (the float32 rounding of this computation on the main
+    path: a gradient whose rows cancel, as a_dst's do, keeps more of it);
+    one card's within DIST_GRAD_RTOL·|g64| + DIST_GRAD_ONE_ATOL·max|g64|;
+    both losses within 1e-5 relative of the float64 loss."""
+    for r, o in enumerate(ranks[1:], 1):
+        for key, v in o.items():
+            if key.startswith("grad.") and not np.array_equal(v, ranks[0][key]):
+                raise AssertionError(f"{what}: rank {r}'s summed {key} differs from rank 0's")
+    loss64, want = want
+    losses = {"sharded": float(ranks[0]["loss"]), "one_card": one[0]}
+    res = {"loss_f64": loss64, **{f"loss_{k}": v for k, v in losses.items()}}
+    bad = [f"{label} loss {v}, float64 {loss64}" for label, v in losses.items()
+           if abs(v - loss64) > 1e-5 * abs(loss64)]
+    used = 0.0
+    for key, w in want.items():
+        w = w.detach().cpu()
+        g_s = torch.from_numpy(ranks[0][f"grad.{key}"]).double()
+        g_1 = one[1][key].detach().cpu().double()
+        err_s, err_1 = (g_s - w).abs(), (g_1 - w).abs()
+        base = DIST_GRAD_RTOL * w.abs()
+        tol_1 = base + DIST_GRAD_ONE_ATOL * w.abs().max()
+        tol_s = base + DIST_GRAD_ATOL * w.abs().max() + DIST_GRAD_NOISE * err_1.max()
+        for label, err, tol in (("sharded", err_s, tol_s), ("one card", err_1, tol_1)):
+            if (err > tol).any():
+                i = int((err - tol).argmax())
+                bad.append(f"{label} gradient of {key} is {err.flatten()[i].item()} off the "
+                           f"float64 run at entry {i}, tolerance {tol.flatten()[i].item()}")
+        used = max(used, (err_s / tol_s.clamp(min=1e-300)).max().item())
+        res[key] = {"sharded_max_abs_err_f64": err_s.max().item(),
+                    "one_card_max_abs_err_f64": err_1.max().item(),
+                    "sharded_vs_one_card": (g_s - g_1).abs().max().item(),
+                    "max_abs_f64": w.abs().max().item()}
+    res["max_tolerance_used"] = used
+    if bad:
+        print(json.dumps({"failed": what, **res}), file=sys.stderr, flush=True)
+        raise AssertionError(f"{what}: " + "; ".join(bad))
+    return res
+
+
+def dist_plan_kernels(what, src, dst, n, dev, send_widths, rev_width=None, k3=None, seed=0):
+    """Kernels against their plain versions and float64 sums (check) on
+    rank 0's part of the drivers' plan of a graph (``lp`` relabel at
+    seed 0, k = DIST_K), inputs around 1: K1 over the send graph's reverse
+    CSR (the payloads' adjoint) at each of ``send_widths``; K1 over the
+    bipartite graph's reverse CSR (the aggregation's backward) at
+    ``rev_width``; with ``k3`` = (H, D) K3 forward and b2 on the
+    bipartite graph."""
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
+    from dgl_tpu_torch.parallel import halo
+
+    s, d, _ = halo.relabel(src, dst, n, DIST_K, seed)
+    shard = halo.place(halo.shard_fullgraph_boundary(s, d, n, DIST_K)[0], 0, dev)
+    del s, d
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = {"rows": shard.nodes_per_shard, "slots": shard.send.num_edges,
+           "edges": shard.graph.num_edges}
+
+    def fields(errs):
+        return dict(zip(("max_abs_err", "max_abs_err_f64", "max_bound_used"), errs))
+
+    rev = shard.send.reverse
+    for w in send_widths:
+        cot = 1.0 + torch.randn(shard.send.num_edges, w, device=dev, generator=gen)
+        got = csr_spmm(rev.indptr, rev.eid, cot, split=rev.split)
+        res[f"send_adjoint_d{w}"] = fields(check(
+            f"{what} send adjoint D={w}", got, rev.indptr, reference64(rev.indptr, rev.eid, cot),
+            plain=csr_spmm_plain(rev.indptr, rev.eid, cot)))
+    g = shard.graph
+    if rev_width:
+        grev = g.reverse
+        cot = 1.0 + torch.randn(g.num_dst_nodes, rev_width, device=dev, generator=gen)
+        got = csr_spmm(grev.indptr, grev.src, cot, split=grev.split)
+        ref = reference64_sparse(grev.indptr, grev.src, cot, g.num_dst_nodes, mean=False)
+        res[f"bipartite_reverse_d{rev_width}"] = fields(check(
+            f"{what} bipartite reverse D={rev_width}", got, grev.indptr, ref,
+            plain=csr_spmm_plain(grev.indptr, grev.src, cot)))
+        del got, ref, cot
+    if k3:
+        h, dd = k3
+        v, g_out = (1.0 + torch.randn(m, h, dd, device=dev, generator=gen)
+                    for m in (g.num_src_nodes, g.num_dst_nodes))
+        a_s = torch.randn(g.num_src_nodes, h, device=dev, generator=gen)
+        a_d = torch.randn(g.num_dst_nodes, h, device=dev, generator=gen)
+        kw, acc_f, acc_b = dict(negative_slope=0.2), [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+        out, _, inv_s, _, shift = check_k3_fwd(f"{what} bipartite", g, v, a_s, a_d, kw, acc_f)
+        node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
+        check_k3_bwd(f"{what} bipartite", g, g_out, node, a_s, kw, acc_b)
+        res[f"k3_fwd_h{h}_d{dd}"], res[f"k3_b2_h{h}_d{dd}"] = fields(acc_f), fields(acc_b)
+    return res
+
+
+def _spmd_inputs(data, seed, d=16):
+    gen = np.random.default_rng(seed)
+    return {"dataset": "reddit", "x": gen.normal(1.0, 1.0, (data.num_nodes, d)).astype(np.float32),
+            "cot": gen.normal(1.0, 1.0, (data.num_nodes, d)).astype(np.float32)}
+
+
+def dist_spmd(g, ranks, inputs, dev):
+    """reddit's edges split across the ranks: ``sharded_gspmm`` mean,
+    all-reduced, against one card's K1 and float64 sums (``check``); the
+    replicated output and gradient equal on both ranks; K1 forward and
+    backward once each on every rank."""
+    from dgl_tpu_torch.ops import gspmm
+
+    for o in ranks[1:]:
+        if not (np.array_equal(o["out"], ranks[0]["out"])
+                and np.array_equal(o["grad"], ranks[0]["grad"])):
+            raise AssertionError("spmd: the replicated output or gradient differs across ranks")
+    xt = torch.from_numpy(inputs["x"]).to(dev)
+    one = gspmm(g, "copy_u", "mean", x=xt)
+    got = torch.from_numpy(ranks[0]["out"]).to(dev)
+    err, err64, used = check("spmd mean", got, g.indptr, reference64(g.indptr, g.src, xt, mean=True),
+                             plain=one)
+    launches = [int(o["launches"]) for o in ranks]
+    for r, n in enumerate(launches):
+        _expect_launches(f"spmd rank {r}", {"csr_spmm": n}, {"csr_spmm": 2}, 1)
+    return {"launches": launches, "max_abs_err": err, "max_abs_err_f64": err64,
+            "max_bound_used": used, "grad_finite": bool(np.isfinite(ranks[0]["grad"]).all())}
+
+
+def _dp_inputs(data, seed, lr=0.1):
+    import json
+
+    from dgl_tpu_torch.models import GraphSAGE
+
+    model = GraphSAGE(data.features.shape[1], 16, data.num_classes, 2, dropout=0.0,
+                      device="cpu", generator=torch.Generator().manual_seed(seed))
+    inputs = {f"sage.{k}": v.numpy() for k, v in model.state_dict().items()}
+    for r in range(DIST_K):
+        rng = np.random.default_rng(seed + r)
+        inputs[f"seeds_{r}"] = rng.choice(data.num_nodes, DIST_DP_BATCH, replace=False)
+        inputs[f"rng_{r}"] = np.array(json.dumps(rng.bit_generator.state))
+    return {"dataset": "reddit", "fanouts": np.array(DIST_DP_FANOUTS), "b_pad": DIST_DP_BATCH,
+            "k": DIST_K, "lr": lr, **inputs}
+
+
+def dist_dp(ranks, inputs):
+    """Two ranks, each its own ns_sage minibatch on reddit (P1 in index
+    order gathers its features), one SGD step of GraphSAGE (602, 16, 41):
+    the mean loss of the ranks' own losses, the new parameters bitwise
+    equal on both ranks and equal to the weights less lr times the mean of
+    the two single-rank gradients."""
+    lr = float(inputs["lr"])
+    mean_loss = sum(float(o["own_loss"]) for o in ranks) / DIST_K
+    if abs(float(ranks[0]["loss"]) - mean_loss) > 1e-6 * abs(mean_loss):
+        raise AssertionError(f"dp: loss {float(ranks[0]['loss'])} is not the ranks' mean {mean_loss}")
+    err = 0.0
+    for key in (k[len("sage."):] for k in inputs if k.startswith("sage.")):
+        for o in ranks[1:]:
+            if not np.array_equal(o[f"sage.{key}"], ranks[0][f"sage.{key}"]):
+                raise AssertionError(f"dp: rank parameters differ: {key}")
+        want = inputs[f"sage.{key}"] - lr * sum(o[f"grad.{key}"] for o in ranks) / DIST_K
+        err = max(err, float(np.abs(ranks[0][f"sage.{key}"] - want).max()))
+        if not np.allclose(ranks[0][f"sage.{key}"], want, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"dp: {key} is not the step of the mean gradient")
+    return {"loss": float(ranks[0]["loss"]), "own_losses": [float(o["own_loss"]) for o in ranks],
+            "max_abs_err": err}
+
+
+def _grad_inputs(kind, data, seed):
+    """halo_grads' inputs: the driver's model on ``data`` (reddit SAGE or
+    arxiv GAT) at weights from ``seed``."""
+    from dgl_tpu_torch.benchmarks.node_classification import main_gat, main_sage
+    from dgl_tpu_torch.parallel.halo_train import HaloGAT, HaloSAGE
+
+    gen, d_in = torch.Generator().manual_seed(seed), data.features.shape[1]
+    if kind == "sage":
+        cfg = main_sage.DATASET_CFG["reddit"]
+        model = HaloSAGE(d_in, cfg["hidden"], data.num_classes, cfg["layers"], generator=gen,
+                         device="cpu")
+        extra = {"dataset": "reddit"}
+    else:
+        cfg = main_gat.DATASET_CFG["ogbn-arxiv"]
+        model = HaloGAT(d_in, cfg["hidden"], data.num_classes, cfg["heads"], generator=gen,
+                        device="cpu")
+        extra = {"dataset": "ogbn-arxiv", "heads": np.array(cfg["heads"])}
+    return {"kind": kind, "bidirect": cfg["bidirect"], **extra,
+            **{f"p.{k}": v.numpy() for k, v in model.state_dict().items()}}
+
+
+def dist_rank_checks(tmp, reddit, arxiv, seed=0, device="cuda"):
+    """One start of the DIST_K ranks (checks.in_turn) for the ranks' side
+    of five checks: halo_grads of reddit SAGE, the exchange alone on
+    reddit's plan at layer 1's width and the hidden width, spmd_gspmm and
+    dp_step on reddit, halo_grads of arxiv GAT. Returns each check's
+    per-rank results, its inputs and the seconds."""
+    from dgl_tpu_torch.benchmarks.node_classification.main_sage import DATASET_CFG
+    from dgl_tpu_torch.parallel import checks, launch
+
+    hidden = DATASET_CFG["reddit"]["hidden"]
+    inputs = {"sage_grads": _grad_inputs("sage", reddit, seed),
+              "exchange": {"dataset": "reddit", "reps": 5,
+                           "widths": np.array((reddit.features.shape[1], hidden))},
+              "spmd": _spmd_inputs(reddit, seed), "dp": _dp_inputs(reddit, seed),
+              "gat_grads": _grad_inputs("gat", arxiv, seed)}
+    fns = {"sage_grads": "halo_grads", "exchange": "exchange_times", "spmd": "spmd_gspmm",
+           "dp": "dp_step", "gat_grads": "halo_grads"}
+    calls = []
+    for key, a in inputs.items():
+        path = os.path.join(tmp, f"{key}.npz")
+        np.savez(path, **a)
+        calls.append((key, fns[key], path))
+    t0 = time.perf_counter()
+    out = launch.spawn(checks.in_turn, DIST_K, (calls,), backend="gloo", device=device,
+                       timeout=DIST_TIMEOUT)
+    return {key: [o[key] for o in out] for key in inputs}, inputs, time.perf_counter() - t0
+
+
+def dist_checkpoint_check(tmp_dir, dev):
+    """main_sage on reddit on one card: 6 epochs straight against 3, then a
+    resume of 3 from --ckpt-dir (every epoch saved): the losses equal bit
+    for bit (K1 is deterministic)."""
+    from dgl_tpu_torch.benchmarks.node_classification import main_sage
+
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        straight = main_sage.run("reddit", epochs=6, device=dev)["losses"][0]
+        first = main_sage.run("reddit", epochs=3, device=dev, ckpt_dir=tmp_dir,
+                              ckpt_every=1)["losses"][0]
+        resumed = main_sage.run("reddit", epochs=6, device=dev, ckpt_dir=tmp_dir,
+                                ckpt_every=1)["losses"][0]
+    if "resumed from checkpoint at epoch 3" not in log.getvalue():
+        raise AssertionError("checkpoint: the second run did not resume at epoch 3")
+    got = first + resumed
+    if got != straight:
+        raise AssertionError(f"checkpoint: 3 + 3 epochs {got} differ from 6 {straight}")
+    return {"straight": straight, "three_plus_three": got, "bitwise": True}
+
+
+def phase_distributed(device="cuda"):
+    """Sharded SAGE, GAT and RGCN through the drivers' --shard on DIST_K
+    ranks sharing the card, one step's gradients, spmd, dp, the kernels at
+    the plans' shapes and a checkpoint resume (``device`` "cpu": a
+    rehearsal on the plain versions, which launch nothing)."""
+    import tempfile
+
+    from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch.benchmarks.node_classification import main_gat, main_rgcn, main_sage
+    from dgl_tpu_torch.data import load_node_dataset
+    from dgl_tpu_torch.models import GraphSAGE
+
+    print(f"distributed: {DIST_K} ranks share cuda:0 over gloo; their collectives stage through "
+          "host memory, so these times measure no multi-GPU speed", flush=True)
+    t_phase, dev, out = time.perf_counter(), torch.device(device), {}
+    log = io.StringIO()
+
+    # reddit SAGE at full size and width (602 -> 16 -> 41), the driver's run
+    _, ds, epochs = DIST_RUNS["sage"]
+    with contextlib.redirect_stdout(log):
+        res = main_sage.run_sharded(ds, DIST_K, dist_backend="gloo", epochs=epochs, device=device)
+    cfg = main_sage.DATASET_CFG[ds]
+    out["sage"] = _dist_run("sage", res, halo_sage_launches(DIST_SAGE_LAYERS), epochs)
+    g, data = _sage_graph(ds, dev)
+    model = GraphSAGE(data.features.shape[1], cfg["hidden"], data.num_classes, cfg["layers"],
+                      device=dev)
+    model.load_state_dict(_halo_sage_as_graphsage(res["params"][0]))
+    with torch.no_grad():
+        want = model.eval()(g, torch.from_numpy(np.asarray(data.features, np.float32)).to(dev))
+    out["sage"]["forward_max_abs_err"] = _dist_forward_check("sharded sage", res["logits"], want)
+    del g, model, want, res, data
+    torch.cuda.empty_cache()
+
+    # arxiv GAT (bidirected, self-loops, heads 4, 4, 4), the driver's run
+    _, ds, epochs = DIST_RUNS["gat"]
+    with contextlib.redirect_stdout(log):
+        res = main_gat.run_sharded(ds, DIST_K, dist_backend="gloo", epochs=epochs, device=device)
+    heads = main_gat.DATASET_CFG[ds]["heads"]
+    out["gat"] = _dist_run("gat", res, halo_gat_launches(DIST_GAT_LAYERS), epochs)
+    want = _k1_halo("gat", load_node_dataset(ds), res["params"][0], dev, heads)
+    out["gat"]["forward_max_abs_err"] = _dist_forward_check("sharded gat", res["logits"], want)
+    del want, res
+    torch.cuda.empty_cache()
+
+    # proteins RGCN at the driver's defaults (3 layers, hidden 32)
+    _, ds, epochs = DIST_RUNS["rgcn"]
+    with contextlib.redirect_stdout(log):
+        res = main_rgcn.run_sharded(DIST_K, dist_backend="gloo", epochs=epochs, runs=1,
+                                    device=device)
+    data = load_node_dataset(ds)
+    out["rgcn"] = _dist_run("rgcn", res, halo_rgcn_launches(DIST_RGCN_LAYERS,
+                                                             data.edge_feat.shape[1]), epochs)
+    want = _k1_halo("rgcn", data, res["params"][0], dev)
+    out["rgcn"]["forward_max_abs_err"] = _dist_forward_check("sharded rgcn", res["logits"], want)
+    del want, res, data
+    torch.cuda.empty_cache()
+
+    # one start of the ranks for the rank checks, then each held on one card
+    reddit, arxiv = load_node_dataset("reddit"), load_node_dataset("ogbn-arxiv")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, inputs, out["rank_checks_s"] = dist_rank_checks(tmp, reddit, arxiv, device=device)
+    out["sage"]["exchange"] = {key: [float(o[key]) for o in ranks["exchange"]]
+                               for key in ranks["exchange"][0]}
+    params = {k[2:]: v for k, v in inputs["sage_grads"].items() if k.startswith("p.")}
+    g = from_edges(reddit.src, reddit.dst, reddit.num_nodes, device=dev)  # reddit: not bidirected
+    out["sage"]["grads"] = dist_grads("sharded sage", ranks["sage_grads"],
+                                      sage_grads_one_card(g, reddit, params, dev),
+                                      sage_grads_f64(g, reddit, params, dev))
+    out["spmd"] = dist_spmd(g, ranks["spmd"], inputs["spmd"], dev)
+    out["dp"] = dist_dp(ranks["dp"], inputs["dp"])
+    del g
+    torch.cuda.empty_cache()
+    hidden = main_sage.DATASET_CFG["reddit"]["hidden"]
+    out["sage"]["plan_kernels"] = dist_plan_kernels(
+        "reddit plan", np.asarray(reddit.src, np.int64), np.asarray(reddit.dst, np.int64),
+        reddit.num_nodes, dev, send_widths=(hidden,), rev_width=hidden)
+    del reddit
+    torch.cuda.empty_cache()
+    params = {k[2:]: v for k, v in inputs["gat_grads"].items() if k.startswith("p.")}
+    gcfg = main_gat.DATASET_CFG["ogbn-arxiv"]
+    src, dst = _gat_edges(arxiv)
+    out["gat"]["grads"] = dist_grads(
+        "sharded gat", ranks["gat_grads"], gat_grads_one_card(arxiv, params, heads, dev),
+        gat_grads_f64(src, dst, arxiv, params, heads, dev))
+    torch.cuda.empty_cache()
+    widths = sorted({h * (d + 1) for h, d in zip(gcfg["heads"], (gcfg["hidden"],) * (
+        len(gcfg["heads"]) - 1) + (arxiv.num_classes,))})
+    out["gat"]["plan_kernels"] = dist_plan_kernels(
+        "arxiv plan", src, dst, arxiv.num_nodes, dev, send_widths=widths,
+        k3=(gcfg["heads"][0], gcfg["hidden"]))
+    for kind, layers in (("sage", DIST_SAGE_LAYERS), ("gat", DIST_GAT_LAYERS)):
+        per_step = (halo_sage_launches if kind == "sage" else halo_gat_launches)(layers)
+        for r, o in enumerate(ranks[f"{kind}_grads"]):
+            _expect_launches(f"{kind} gradient step rank {r}",
+                             {"send_adjoint": int(o["send_adjoint"])}, per_step, 1)
+        out[kind]["grads"]["send_adjoint"] = [int(o["send_adjoint"]) for o in ranks[f"{kind}_grads"]]
+    del arxiv, src, dst
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out["checkpoint"] = dist_checkpoint_check(tmp, dev)
+    emit("distributed", seconds=time.perf_counter() - t_phase, ranks=DIST_K, backend="gloo",
+         shared_card=True, **out,
+         plan_lines=[ln for ln in log.getvalue().splitlines() if ln.startswith("shard plan:")])
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, r, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -3471,11 +4116,18 @@ def main():
     nlaunch, ns_p1, ns_k3 = phase_ns_main()
     torch.cuda.empty_cache()
     cl_launch, cl_batch, cl_k3 = phase_cluster_main()
+    torch.cuda.empty_cache()
+    dist = phase_distributed()
+    # rank 0's launches in each sharded run (every rank's equal the derivations)
+    dl = {kind: dist[kind]["launches"][0] for kind in ("sage", "gat", "rgcn")}
     rows["row_gather_async"].update(
         **{f"launches_cluster_{k}": v["row_gather_async"] for k, v in cl_launch.items()},
         **{f"{f}_cluster_batch": cl_batch["p1"][f] for f in ("ms", "plain_ms", "library_ms",
                                                               "bound_ms", "max_abs_err", "rows")})
     rows["row_gather_by_source"]["launches_cluster_lp"] = cl_launch["lp"]["row_gather_by_source"]
+    # the exchange's payload gathers on rank 0 over the three sharded runs
+    rows["row_gather_by_source"]["launches_halo_payload"] = sum(
+        v["row_gather_by_source"] for v in dl.values())
     cluster_k3 = {name: {f"{f}_cluster_{shape}": cl_batch[f"k3_{shape}"][name][f]
                          for shape in ("h4_d64", "h1_d47")
                          for f in ("ms", "plain_ms", "bound_ms", "max_abs_err", "max_abs_err_f64",
@@ -3569,6 +4221,15 @@ def main():
                for d in cl_batch["k1"] for side in ("fwd", "bwd")
                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
             "combines_rgcn": rcombines,
+            # the sharded runs on two ranks sharing the card (rank 0; per
+            # step: halo_sage_launches, halo_rgcn_launches), the spmd check
+            # (forward and backward a rank) and the payloads' adjoints over
+            # the send graphs in the three sharded runs, as the exchange
+            # counted them on rank 0 (exchange.send_adjoint_launches)
+            "launches_halo_sage": dl["sage"]["csr_spmm"],
+            "launches_halo_rgcn": dl["rgcn"]["csr_spmm"],
+            "launches_spmd": dist["spmd"]["launches"][0],
+            "launches_send_adjoint": sum(v["send_adjoint"] for v in dl.values()),
             # the GCMC run on ml-100k (22 a training iteration: the 10
             # relations each way and the decoder's 2 adjoints; 10 an
             # evaluation) and K1 at its shapes
@@ -3612,6 +4273,7 @@ def main():
               # the NS runs (ns_gat's evaluations: H = 8, D = 16, then
               # H = 1, D = 41) and the forward at both shapes on reddit as given
               ("gat_attention_fwd", "fwd", {
+                  "launches_halo_gat": dl["gat"]["gat_attention_fwd"],
                   **{f"launches_ns_{k}": v["gat_attention_fwd"] for k, v in nlaunch.items()},
                   # cluster GAT (3 a step and 3 an evaluation), the batch's
                   # shapes, and the whole products graph at H = 4, D = 64
@@ -3623,7 +4285,8 @@ def main():
                   **{f"{f}_{key}": ns_k3[key][f] for key in ("h8", "h1_d41")
                      for f in ("ms", "plain_ms", "bound_ms", "max_abs_err", "max_abs_err_f64",
                                "max_bound_used")}}),
-              ("gat_attention_bwd", "b2", {"gather_floor_ms": floors["k3_b2"]["gather_floor_ms"],
+              ("gat_attention_bwd", "b2", {"launches_halo_gat": dl["gat"]["gat_attention_bwd"],
+                                           "gather_floor_ms": floors["k3_b2"]["gather_floor_ms"],
                                            "t_sweep": gred["gat_attention_bwd"]["t_sweep"],
                                            "launches_cluster_gat":
                                                cl_launch["gat"]["gat_attention_bwd"],

@@ -13,13 +13,19 @@ synchronise; epochs from the fourth on are timed.
 
     python -m dgl_tpu_torch.benchmarks.node_classification.main_gat --dataset reddit
         [--epochs N] [--runs R] [--eval] [--device cuda] [--profile EPOCHS]
+        [--shard K [--dist-backend nccl|gloo]]
 
 Prints the reference's lines (``Training time/epoch``, with ``--eval`` the
 ``Run … | Epoch …`` lines and ``Final Train`` / ``Final Test``).
 ``--profile`` runs that many further epochs under ``torch.profiler`` and
-prints the device time by kernel as one JSON line on stderr. The JAX
-driver's ``--scan-epochs``, ``--shard`` and locality reorder are TPU
-workarounds or later slices and are not ported.
+prints the device time by kernel as one JSON line on stderr.
+
+``--shard k`` trains over k ranks with the boundary-halo exchange, as the
+JAX driver's ``run_sharded`` does (``sharded.py``: bidirect where the table
+says so, self-loops, the ``lp`` relabel, ``parallel/halo_train.py``'s
+HaloGAT through K3, which has no dropout and no bias);
+``--dist-backend`` as in ``main_sage``. The JAX driver's ``--scan-epochs``
+and locality reorder are TPU workarounds and are not ported.
 """
 
 from __future__ import annotations
@@ -40,8 +46,9 @@ from ...graph import from_edges, transforms
 from ...models import GAT
 from ...train.timing import device_profile, synchronize
 from ..common import Logger, masked_accuracy, masked_softmax_ce, print_data_stats
+from . import sharded
 
-__all__ = ["DATASET_CFG", "run", "main"]
+__all__ = ["DATASET_CFG", "run", "run_sharded", "main"]
 
 _TUNED = dict(lr=0.0029739421726400865, wd=2.4222556964495987e-05, dropout=0.18074706609292976)
 
@@ -76,6 +83,19 @@ def _prepare(name: str, cfg: dict, seed: int, dev: torch.device):
     return data, g, x, y, masks, time.perf_counter() - t0
 
 
+def _config(dataset: str, epochs: Optional[int], overrides: dict) -> dict:
+    if dataset not in DATASET_CFG:
+        raise ValueError(f"unknown dataset {dataset!r}; known: {sorted(DATASET_CFG)}")
+    cfg = dict(DATASET_CFG[dataset])
+    unknown = set(overrides) - {"lr", "wd", "hidden", "dropout"}
+    if unknown:
+        raise ValueError(f"unknown overrides {sorted(unknown)}")
+    cfg.update({k: v for k, v in overrides.items() if v is not None})
+    if epochs is not None:
+        cfg["epochs"] = epochs
+    return cfg
+
+
 def run(
     dataset: str = "cora",
     *,
@@ -99,15 +119,7 @@ def run(
     data hold when training starts and ``train_peak_bytes`` the peak from
     there to the end (``None`` on the CPU).
     """
-    if dataset not in DATASET_CFG:
-        raise ValueError(f"unknown dataset {dataset!r}; known: {sorted(DATASET_CFG)}")
-    cfg = dict(DATASET_CFG[dataset])
-    unknown = set(overrides) - {"lr", "wd", "hidden", "dropout"}
-    if unknown:
-        raise ValueError(f"unknown overrides {sorted(unknown)}")
-    cfg.update({k: v for k, v in overrides.items() if v is not None})
-    if epochs is not None:
-        cfg["epochs"] = epochs
+    cfg = _config(dataset, epochs, overrides)
     heads = tuple(cfg["heads"][:num_layers])
     dev = resolve_device(device)
     data, g, x, y, masks, setup_s = _prepare(dataset, cfg, seed, dev)
@@ -176,6 +188,32 @@ def run(
     }
 
 
+def run_sharded(
+    dataset: str = "cora",
+    shard: int = 2,
+    *,
+    dist_backend: Optional[str] = None,
+    epochs: Optional[int] = None,
+    runs: int = 1,
+    eval_acc: bool = False,
+    seed: int = 0,
+    device: str = "cuda",
+    num_layers: int = 3,
+    **overrides,
+) -> dict:
+    """``--shard``: the dataset's GAT over ``shard`` ranks
+    (``sharded.run_sharded``; -1 takes every card)."""
+    cfg = _config(dataset, epochs, overrides)
+    shard, backend = sharded.resolve(shard, dist_backend, device)
+    data = load_node_dataset(dataset, seed=seed)
+    print_data_stats(data)
+    return sharded.run_sharded(
+        "gat", data, k=shard, backend=backend,
+        device=device, epochs=cfg["epochs"], runs=runs, eval_acc=eval_acc, seed=seed,
+        hidden=cfg["hidden"], lr=cfg["lr"], wd=cfg["wd"], heads=cfg["heads"][:num_layers],
+        bidirect=cfg["bidirect"])
+
+
 def main(argv: Optional[list] = None) -> dict:
     parser = argparse.ArgumentParser(description="GAT (dgl_tpu_torch)")
     parser.add_argument("--dataset", type=str, default="cora", choices=sorted(DATASET_CFG))
@@ -192,12 +230,24 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
                         help="profile this many further epochs after the last run (stderr)")
+    parser.add_argument("--shard", type=int, default=0,
+                        help="edge-partitioned training over this many ranks (boundary-halo "
+                             "exchange with the edge softmax across shards); 0 = off, "
+                             "-1 = every card")
+    parser.add_argument("--dist-backend", choices=sharded.BACKENDS, default=None,
+                        help="--shard's backend: nccl (one rank a card; default on cuda) or "
+                             "gloo (default on cpu; ranks sharing a card)")
     args = parser.parse_args(argv)
     print(args)
+    overrides = dict(lr=args.lr, wd=args.weight_decay, hidden=args.num_hidden,
+                     dropout=args.dropout)
+    if args.shard:
+        return run_sharded(args.dataset, args.shard, dist_backend=args.dist_backend,
+                           epochs=args.epochs, runs=args.runs, eval_acc=args.eval, seed=args.seed,
+                           device=args.device, num_layers=args.num_layers, **overrides)
     res = run(args.dataset, epochs=args.epochs, runs=args.runs, eval_acc=args.eval,
               seed=args.seed, device=args.device, num_layers=args.num_layers,
-              profile_epochs=args.profile, lr=args.lr, wd=args.weight_decay,
-              hidden=args.num_hidden, dropout=args.dropout)
+              profile_epochs=args.profile, **overrides)
     if res["profile"] is not None:
         print(f"# profile={json.dumps(res['profile'])}", file=sys.stderr)
     return res

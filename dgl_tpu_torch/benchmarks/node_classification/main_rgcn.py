@@ -13,15 +13,20 @@ epochs from the fourth on are timed.
 
     python -m dgl_tpu_torch.benchmarks.node_classification.main_rgcn
         [--epochs N] [--runs R] [--eval] [--eval_steps K] [--fuse-relations]
-        [--scale S] [--device cuda] [--profile EPOCHS]
+        [--scale S] [--device cuda] [--profile EPOCHS] [--shard K [--dist-backend nccl|gloo]]
 
 Prints the reference's lines (``Training time/epoch``, with ``--eval`` the
 ``Run … | Epoch …`` lines and the logger's statistics); ``--profile`` runs
 that many further epochs under ``torch.profiler`` and prints the device
 time by kernel as one JSON line on stderr.
 
-Not ported: ``--lane-kernel`` (the TPU's lane plans and locality reorder);
-``--shard`` raises ``NotImplementedError`` (slice I).
+``--shard k`` trains over k ranks with the relation-contracted
+boundary-halo exchange, as the JAX driver's ``run_sharded`` does
+(``sharded.py``: the ``lp`` relabel, the edge weights in each shard's
+layout, ``parallel/halo_train.py``'s HaloRGCN through weighted K1, the
+ROC-AUC over every rank's rows); ``--dist-backend`` as in ``main_sage``.
+
+Not ported: ``--lane-kernel`` (the TPU's lane plans and locality reorder).
 """
 
 from __future__ import annotations
@@ -43,8 +48,9 @@ from ...models import RGCN
 from ...ops.rel import RelEdgeWeights
 from ...train.timing import device_profile, synchronize
 from ..common import Logger, masked_bce, mean_multilabel_auc, print_data_stats
+from . import sharded
 
-__all__ = ["make_train_step", "run", "main"]
+__all__ = ["make_train_step", "run", "run_sharded", "main"]
 
 
 def make_train_step(model, opt, g, x, weights: RelEdgeWeights, y, train_mask,
@@ -167,6 +173,32 @@ def run(
     }
 
 
+def run_sharded(
+    shard: int = 2,
+    *,
+    dist_backend: Optional[str] = None,
+    epochs: int = 1000,
+    runs: int = 10,
+    eval_acc: bool = False,
+    eval_steps: int = 5,
+    lr: float = 0.01,
+    num_layers: int = 3,
+    hidden: int = 32,
+    seed: int = 0,
+    device: str = "cuda",
+    scale: float = 1.0,
+) -> dict:
+    """``--shard``: RGCN on ogbn-proteins over ``shard`` ranks
+    (``sharded.run_sharded``; -1 takes every card)."""
+    shard, backend = sharded.resolve(shard, dist_backend, device)
+    data = load_node_dataset("ogbn-proteins", seed=seed, scale=scale)
+    print_data_stats(data)
+    return sharded.run_sharded(
+        "rgcn", data, k=shard, backend=backend,
+        device=device, epochs=epochs, runs=runs, eval_acc=eval_acc, eval_steps=eval_steps,
+        seed=seed, hidden=hidden, lr=lr, layers=num_layers)
+
+
 def main(argv: Optional[list] = None) -> dict:
     parser = argparse.ArgumentParser(description="RGCN ogbn-proteins (dgl_tpu_torch)")
     parser.add_argument("--device", default="cuda")
@@ -188,11 +220,19 @@ def main(argv: Optional[list] = None) -> dict:
                         help="shrink factor for the synthetic data (rehearsals)")
     parser.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
                         help="profile this many further epochs after the last run (stderr)")
-    parser.add_argument("--shard", type=int, default=0, help="not ported: slice I")
+    parser.add_argument("--shard", type=int, default=0,
+                        help="edge-partitioned training over this many ranks (boundary-halo "
+                             "exchange); 0 = off, -1 = every card")
+    parser.add_argument("--dist-backend", choices=sharded.BACKENDS, default=None,
+                        help="--shard's backend: nccl (one rank a card; default on cuda) or "
+                             "gloo (default on cpu; ranks sharing a card)")
     args = parser.parse_args(argv)
-    if args.shard:
-        raise NotImplementedError("--shard is ported in slice I (distribution)")
     print(args)
+    if args.shard:
+        return run_sharded(args.shard, dist_backend=args.dist_backend, epochs=args.epochs,
+                           runs=args.runs, eval_acc=args.eval, eval_steps=args.eval_steps,
+                           lr=args.lr, num_layers=args.num_layers, hidden=args.hidden_feats,
+                           seed=args.seed, device=args.device, scale=args.scale)
     res = run(epochs=args.epochs, runs=args.runs, eval_acc=args.eval, eval_steps=args.eval_steps,
               lr=args.lr, num_layers=args.num_layers, hidden=args.hidden_feats,
               dropout=args.dropout, fuse_relations=args.fuse_relations, seed=args.seed,

@@ -14,6 +14,7 @@ from the fourth on are timed.
     python -m dgl_tpu_torch.benchmarks.node_classification.main_sage --dataset ogbn-products
         [--epochs N] [--runs R] [--eval] [--no-precompute] [--lowering fused|scatter]
         [--aggr mean|sum] [--scale S] [--device cuda] [--profile EPOCHS]
+        [--shard K [--dist-backend nccl|gloo]] [--ckpt-dir DIR [--ckpt-every N]]
 
 Prints the reference's lines (``Training time/epoch``, with ``--eval`` the
 ``Run … | Epoch …`` lines and ``Final Train`` / ``Final Test``);
@@ -21,12 +22,22 @@ Prints the reference's lines (``Training time/epoch``, with ``--eval`` the
 prints the device time by kernel as one JSON line on stderr.
 ``--lowering scatter`` is the PyG twin (``ops/spmm.py``): no K1 runs.
 
+``--shard k`` trains over k ranks with the boundary-halo exchange, as the
+JAX driver's ``run_sharded`` does (``sharded.py``: the ``lp`` relabel, the
+plan and its ``shard plan:`` line, ``parallel/halo_train.py``'s HaloSAGE,
+dropout on every layer's input); ``--dist-backend`` is ``nccl`` (one rank a
+card; the default on ``cuda``) or ``gloo`` (the CPU's default, and ranks
+sharing one card). ``--shard -1`` takes every card.
+
+``--ckpt-dir`` saves the first run's state (model, optimiser, the dropout
+generator, the epoch) every ``--ckpt-every`` epochs and resumes from the
+latest checkpoint there (``train/checkpoint.py``); the resumed epochs give
+the losses of an uninterrupted run, bit for bit.
+
 Not ported: ``--lane-kernel``, ``--lane-force``, ``--scan-epochs``,
 ``--bf16-messages``, ``DGL_TPU_MSG_BUDGET_GB``, the locality reorder and the
 disk caches of the graph and of ``x_agg`` (TPU workarounds: K1 takes the
-whole graph in one launch and never builds an (E, D) message); ``--shard``
-and ``--ckpt-dir`` raise ``NotImplementedError`` (slice I), which adds
-``--ckpt-every`` with checkpointing.
+whole graph in one launch and never builds an (E, D) message).
 """
 
 from __future__ import annotations
@@ -46,10 +57,12 @@ from ...device import DeviceLike, resolve_device
 from ...graph import from_edges, transforms
 from ...models import GraphSAGE
 from ...ops import gspmm
+from ...train.checkpoint import CheckpointManager
 from ...train.timing import device_profile, synchronize
 from ..common import Logger, masked_accuracy, masked_softmax_ce, print_data_stats
+from . import sharded
 
-__all__ = ["DATASET_CFG", "run", "main"]
+__all__ = ["DATASET_CFG", "run", "run_sharded", "main"]
 
 DATASET_CFG = {
     "cora": dict(layers=2, hidden=16, lr=1e-2, wd=5e-4, dropout=0.5, epochs=200, bn=False, bidirect=False),
@@ -58,9 +71,6 @@ DATASET_CFG = {
     "ogbn-arxiv": dict(layers=3, hidden=256, lr=1e-2, wd=0.0, dropout=0.5, epochs=500, bn=True, bidirect=True),
     "ogbn-products": dict(layers=3, hidden=64, lr=1e-2, wd=0.0, dropout=0.5, epochs=300, bn=False, bidirect=True),
 }
-
-_LATER_FLAGS = {"shard": "slice I (distribution)", "ckpt_dir": "slice I (checkpointing)"}
-
 
 def _prepare(name: str, cfg: dict, seed: int, scale: float, dev: torch.device):
     t0 = time.perf_counter()
@@ -83,6 +93,19 @@ def _prepare(name: str, cfg: dict, seed: int, scale: float, dev: torch.device):
     return data, g, x, y, masks, load_s, time.perf_counter() - t0
 
 
+def _config(dataset: str, epochs: Optional[int], overrides: dict) -> dict:
+    if dataset not in DATASET_CFG:
+        raise ValueError(f"unknown dataset {dataset!r}; known: {sorted(DATASET_CFG)}")
+    cfg = dict(DATASET_CFG[dataset])
+    unknown = set(overrides) - {"lr", "wd", "hidden", "layers", "dropout"}
+    if unknown:
+        raise ValueError(f"unknown overrides {sorted(unknown)}")
+    cfg.update({k: v for k, v in overrides.items() if v is not None})
+    if epochs is not None:
+        cfg["epochs"] = epochs
+    return cfg
+
+
 def run(
     dataset: str = "cora",
     *,
@@ -96,10 +119,14 @@ def run(
     aggr: str = "mean",
     scale: float = 1.0,
     profile_epochs: int = 0,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 50,
     **overrides,
 ) -> dict:
     """Train the dataset's GraphSAGE ``runs`` times from fresh weights, each
-    seeded ``seed * 1000 + run``.
+    seeded ``seed * 1000 + run``; with ``ckpt_dir``, the first run resumes
+    from and saves to checkpoints there (see the module docstring), and its
+    ``losses`` start at the epoch it resumed at.
 
     ``overrides`` replace entries of ``DATASET_CFG[dataset]`` (``lr``,
     ``wd``, ``hidden``, ``layers``, ``dropout``). Returns ``{"device",
@@ -115,15 +142,7 @@ def run(
     starts and ``train_peak_bytes`` the peak from there to the end (None on
     the CPU).
     """
-    if dataset not in DATASET_CFG:
-        raise ValueError(f"unknown dataset {dataset!r}; known: {sorted(DATASET_CFG)}")
-    cfg = dict(DATASET_CFG[dataset])
-    unknown = set(overrides) - {"lr", "wd", "hidden", "layers", "dropout"}
-    if unknown:
-        raise ValueError(f"unknown overrides {sorted(unknown)}")
-    cfg.update({k: v for k, v in overrides.items() if v is not None})
-    if epochs is not None:
-        cfg["epochs"] = epochs
+    cfg = _config(dataset, epochs, overrides)
     dev = resolve_device(device)
     data, g, x, y, masks, load_s, setup_s = _prepare(dataset, cfg, seed, scale, dev)
 
@@ -139,6 +158,7 @@ def run(
         setup_bytes = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
 
+    ckpt = None if ckpt_dir is None else CheckpointManager(ckpt_dir, save_interval=ckpt_every)
     logger = Logger(runs)
     dur, losses, profile = [], [], None
     for r in range(runs):
@@ -159,14 +179,28 @@ def run(
             opt.step()
             return loss.detach()
 
+        def ckpt_state(epoch):
+            return {"model": model.state_dict(), "optimizer": opt.state_dict(),
+                    "dropout_rng": drop_gen.get_state(), "epoch": epoch}
+
+        start = 0
+        if ckpt is not None and r == 0:
+            state, start = ckpt.restore_or(ckpt_state(-1))
+            if start:
+                model.load_state_dict(state["model"])
+                opt.load_state_dict(state["optimizer"])
+                drop_gen.set_state(state["dropout_rng"])
+                print(f"resumed from checkpoint at epoch {start}")
         run_losses = []
-        for epoch in range(cfg["epochs"]):
+        for epoch in range(start, cfg["epochs"]):
             t0 = time.perf_counter()
             run_losses.append(step())
             synchronize(dev)
             if epoch >= 3:
                 dur.append(time.perf_counter() - t0)
                 print("Training time/epoch {}".format(np.mean(dur)))
+            if ckpt is not None and r == 0:
+                ckpt.save(epoch, ckpt_state(epoch))
             if eval_acc:
                 model.eval()
                 with torch.no_grad():
@@ -185,6 +219,8 @@ def run(
             profile = device_profile(step, profile_epochs, dev)
     if eval_acc:
         logger.print_statistics()
+    if ckpt is not None:
+        ckpt.close()
     return {
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "synthetic": data.synthetic,
@@ -199,6 +235,33 @@ def run(
         "setup_bytes": setup_bytes,
         "train_peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
     }
+
+
+def run_sharded(
+    dataset: str = "cora",
+    shard: int = 2,
+    *,
+    dist_backend: Optional[str] = None,
+    epochs: Optional[int] = None,
+    runs: int = 1,
+    eval_acc: bool = False,
+    seed: int = 0,
+    device: str = "cuda",
+    aggr: str = "mean",
+    scale: float = 1.0,
+    **overrides,
+) -> dict:
+    """``--shard``: the dataset's GraphSAGE over ``shard`` ranks
+    (``sharded.run_sharded``; -1 takes every card)."""
+    cfg = _config(dataset, epochs, overrides)
+    shard, backend = sharded.resolve(shard, dist_backend, device)
+    data = load_node_dataset(dataset, seed=seed, scale=scale)
+    print_data_stats(data)
+    return sharded.run_sharded(
+        "sage", data, k=shard, backend=backend,
+        device=device, epochs=cfg["epochs"], runs=runs, eval_acc=eval_acc, seed=seed,
+        hidden=cfg["hidden"], lr=cfg["lr"], wd=cfg["wd"], layers=cfg["layers"],
+        dropout=cfg["dropout"], aggr=aggr, bidirect=cfg["bidirect"])
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -224,18 +287,28 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
                         help="profile this many further epochs after the last run (stderr)")
-    parser.add_argument("--shard", type=int, default=0, help="not ported: slice I")
-    parser.add_argument("--ckpt-dir", type=str, default=None, help="not ported: slice I")
+    parser.add_argument("--shard", type=int, default=0,
+                        help="edge-partitioned training over this many ranks (boundary-halo "
+                             "exchange); 0 = off, -1 = every card")
+    parser.add_argument("--dist-backend", choices=sharded.BACKENDS, default=None,
+                        help="--shard's backend: nccl (one rank a card; default on cuda) or "
+                             "gloo (default on cpu; ranks sharing a card)")
+    parser.add_argument("--ckpt-dir", type=str, default=None,
+                        help="checkpoint and resume the first run in this directory")
+    parser.add_argument("--ckpt-every", type=int, default=50)
     args = parser.parse_args(argv)
-    for flag, slice_ in _LATER_FLAGS.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is ported in {slice_}")
     print(args)
+    overrides = dict(lr=args.lr, wd=args.weight_decay, hidden=args.n_hidden,
+                     layers=args.num_layers, dropout=args.dropout)
+    if args.shard:
+        return run_sharded(args.dataset, args.shard, dist_backend=args.dist_backend,
+                           epochs=args.epochs, runs=args.runs, eval_acc=args.eval, seed=args.seed,
+                           device=args.device, aggr=args.aggr, scale=args.scale, **overrides)
     res = run(args.dataset, epochs=args.epochs, runs=args.runs, eval_acc=args.eval,
               seed=args.seed, device=args.device, precompute=not args.no_precompute,
               lowering=args.lowering, aggr=args.aggr, scale=args.scale,
-              profile_epochs=args.profile, lr=args.lr, wd=args.weight_decay,
-              hidden=args.n_hidden, layers=args.num_layers, dropout=args.dropout)
+              profile_epochs=args.profile, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+              **overrides)
     if res["profile"] is not None:
         print(f"# profile={json.dumps(res['profile'])}", file=sys.stderr)
     return res

@@ -1,5 +1,5 @@
 """Carry GraphSAGE, GAT, GCN, RGCN, link-predictor and GCMC weights from the JAX package's flax
-parameter tree.
+parameter tree, and the halo models' from its ``dgl_tpu.parallel`` pytrees.
 
 The tree is given as nested dicts of numpy arrays (``jax`` is not needed
 to call this). A flax ``Dense`` kernel is ``(in, out)``; a torch ``Linear``
@@ -16,7 +16,9 @@ import torch
 __all__ = ["sage_state_dict_from_flax", "gat_state_dict_from_flax",
            "gcn_graph_state_dict_from_flax", "gcn_mol_state_dict_from_flax",
            "rel_graph_conv_state_dict_from_flax", "rgcn_state_dict_from_flax",
-           "predictor_state_dict_from_flax", "gcmc_state_dict_from_flax"]
+           "predictor_state_dict_from_flax", "gcmc_state_dict_from_flax",
+           "halo_sage_state_dict_from_jax", "halo_gat_state_dict_from_jax",
+           "halo_rgcn_state_dict_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -189,3 +191,30 @@ def gcmc_state_dict_from_flax(params: Mapping, prefix: str = "") -> dict:
         else:
             raise KeyError(f"unexpected GCMC parameter group {name!r}")
     return sd
+
+
+def _halo_layers(params, names) -> dict:
+    """``params[i][name]`` → ``layers.<i>.<name>``, as it is: the halo
+    models keep the JAX pytree's names and (in, out) layouts."""
+    sd = {}
+    for i, layer in enumerate(params):
+        if set(layer) != set(names):
+            raise KeyError(f"halo layer {i} holds {sorted(layer)}, expected {sorted(names)}")
+        sd.update({f"layers.{i}.{name}": _t(layer[name]) for name in names})
+    return sd
+
+
+def halo_sage_state_dict_from_jax(params) -> dict:
+    """A ``state_dict`` for ``parallel.HaloSAGE`` from
+    ``dgl_tpu.parallel.halo_sage_init``'s list of layers."""
+    return _halo_layers(params, ("w_self", "w_neigh", "bias"))
+
+
+def halo_gat_state_dict_from_jax(params) -> dict:
+    """A ``state_dict`` for ``parallel.HaloGAT`` from ``halo_gat_init``'s."""
+    return _halo_layers(params, ("w", "attn_l", "attn_r"))
+
+
+def halo_rgcn_state_dict_from_jax(params) -> dict:
+    """A ``state_dict`` for ``parallel.HaloRGCN`` from ``halo_rgcn_init``'s."""
+    return _halo_layers(params, ("w_rel", "w_skip", "bias"))

@@ -101,3 +101,46 @@ def test_kernel_calls_per_step_are_the_derived_ones(tiny, monkeypatch, dataset):
                 "gat_attention_fwd": 3 * steps, "gat_attention_bwd": 3 * steps}
     assert calls == want, (calls, rescues)
     assert res["profile"]["epochs"] == 2
+
+
+def test_shard_flag_trains_over_two_gloo_ranks(tmp_path, monkeypatch, capfd):
+    """--shard 2 on ogbn-arxiv (bidirected, self-loops, heads 4, 4, 4): the
+    plan line and the reference's lines (rank 0 prints), a finite loss, the
+    same parameters on both ranks, and the trained logits equal to HaloGAT
+    on one shard of the same graph (K3 over all of it)."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch.graph import transforms
+    from dgl_tpu_torch.parallel import halo
+    from dgl_tpu_torch.parallel.halo_train import HaloGAT
+
+    monkeypatch.setenv("DGL_TPU_DATA_DIR", str(tmp_path))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # each rank's torch threads
+    # the ranks read what the driver's process loads and writes for them
+    monkeypatch.setattr(main_gat, "load_node_dataset",
+                        lambda name, seed=0: load_node_dataset(name, seed=seed, scale=0.002))
+    res = main_gat.main(["--dataset", "ogbn-arxiv", "--device", "cpu", "--epochs", "5",
+                         "--runs", "1", "--eval", "--shard", "2", "--dist-backend", "gloo"])
+    out = capfd.readouterr().out
+    for line in ("shard plan: k=2 nodes/shard=", "Training time/epoch",
+                 "Run 00 | Epoch 00004 | Loss", "  Final Train:", "   Final Test:"):
+        assert line in out, line
+    (losses,) = res["losses"]
+    assert len(losses) == 5 and all(math.isfinite(v) for v in losses)
+    for key, v in res["params"][0].items():
+        np.testing.assert_array_equal(res["params"][1][key], v, err_msg=key)
+    data = load_node_dataset("ogbn-arxiv", scale=0.002)
+    n, cfg = data.num_nodes, main_gat.DATASET_CFG["ogbn-arxiv"]
+    src, dst = transforms.to_bidirected(torch.from_numpy(np.asarray(data.src)),
+                                        torch.from_numpy(np.asarray(data.dst)), n)
+    src, dst = transforms.add_self_loops(src, dst, n)
+    plan, n_pad = halo.shard_fullgraph_boundary(src.numpy(), dst.numpy(), n, 1)
+    model = HaloGAT(data.features.shape[1], cfg["hidden"], data.num_classes, cfg["heads"],
+                    device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in res["params"][0].items()})
+    x = torch.zeros(n_pad, data.features.shape[1])
+    x[:n] = torch.from_numpy(np.asarray(data.features))
+    with torch.no_grad():
+        want = model(halo.place(plan, 0, "cpu"), x)[:n].numpy()
+    np.testing.assert_allclose(res["logits"], want, rtol=1e-4, atol=1e-5)

@@ -9,7 +9,7 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dgl_tpu", "tools"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dgl_tpu", "tools"}
 
 
 def _port_files():
@@ -127,3 +127,16 @@ def test_scan_covers_the_cluster_slice():
         src = f.read()
     for fn in ("node_subgraph", "partition_lp", "partition_multilevel", "build_csr"):
         assert f" {fn}(" in src, fn
+
+
+def test_scan_covers_the_distribution_slice():
+    """The walk reaches every module of ``parallel`` (the halo exchange,
+    the edge-sharded SpMM, data parallelism, start-up and the launcher),
+    the checkpoint manager and the drivers' sharded path."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("__init__", "comm", "multihost", "launch", "spmd", "halo", "halo_train", "dp",
+                 "checks"):
+        assert f"dgl_tpu_torch/parallel/{name}.py" in scanned, name
+    for rel in ("dgl_tpu_torch/train/checkpoint.py",
+                "dgl_tpu_torch/benchmarks/node_classification/sharded.py"):
+        assert rel in scanned, rel

@@ -1,19 +1,24 @@
 """The port's RGCN driver on ogbn-proteins, rehearsed on the CPU at a tiny
 --scale: it prints the reference's lines, the loss is finite and falls, the
 K1 calls a step makes are the ones chip_smoke.py derives from the code
-(rgcn_k1_launches), in both forms, and the left-out flags raise."""
+(rgcn_k1_launches), in both forms, and the left-out flags raise; --shard 2
+on two gloo ranks."""
 
 import math
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import dgl_tpu_torch.ops.rel as rel_mod
 from dgl_tpu_torch.benchmarks.node_classification import main_rgcn
+from dgl_tpu_torch.data import load_node_dataset
 from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
 from dgl_tpu_torch.models import RGCN
+from dgl_tpu_torch.parallel import halo
+from dgl_tpu_torch.parallel.halo_train import HaloRGCN
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -87,7 +92,38 @@ def test_k1_calls_per_step_are_the_derived_ones(cache, monkeypatch, fuse):
 
 
 def test_left_out_flags_raise(cache):
-    with pytest.raises(NotImplementedError, match="slice I"):
-        main_rgcn.main(["--device", "cpu", "--shard", "4"])
     with pytest.raises(SystemExit):
         main_rgcn.main(["--device", "cpu", "--lane-kernel"])
+
+
+def test_shard_flag_trains_over_two_gloo_ranks(cache, capfd, monkeypatch):
+    """--shard 2: the plan line, the reference's lines with the ROC-AUC over
+    both ranks' rows (rank 0 prints), a finite loss that falls, the same
+    parameters on both ranks, and the trained logits equal to HaloRGCN on
+    one shard of the same graph."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # each rank's torch threads
+    res = main_rgcn.main(["--device", "cpu", "--scale", str(SCALE), "--epochs", "10",
+                          "--runs", "1", "--eval", "--eval_steps", "5", "--shard", "2",
+                          "--dist-backend", "gloo"])
+    out = capfd.readouterr().out
+    for line in ("shard plan: k=2 nodes/shard=", "Training time/epoch", "Run 00 | Epoch 00004",
+                 "Run 00 | Epoch 00009", "  Final Train:", "   Final Test:"):
+        assert line in out, line
+    assert out.count("Training time/epoch") == 7
+    (losses,) = res["losses"]
+    assert len(losses) == 10 and all(math.isfinite(v) for v in losses)
+    assert losses[-1] < losses[0]
+    for key, v in res["params"][0].items():
+        np.testing.assert_array_equal(res["params"][1][key], v, err_msg=key)
+    data = load_node_dataset("ogbn-proteins", scale=SCALE)
+    n, n_rel = data.num_nodes, data.edge_feat.shape[1]
+    plan, n_pad, leids, heids = halo.shard_fullgraph_boundary(data.src, data.dst, n, 1,
+                                                             return_eids=True)
+    shard = halo.place(plan, 0, "cpu")
+    w_loc, w_hal = halo.plan_layout_edata_boundary(plan, leids, heids, data.edge_feat)
+    model = HaloRGCN(1, 32, data.labels.shape[1], n_rel, 3, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in res["params"][0].items()})
+    model.eval()
+    with torch.no_grad():
+        want = model(shard, torch.ones(n_pad, 1), shard.edge_weights(w_loc[0], w_hal[0]))
+    np.testing.assert_allclose(res["logits"], want[:n].numpy(), rtol=1e-4, atol=1e-5)

@@ -3,7 +3,8 @@ cora, ogbn-arxiv (BN, bidirected) and ogbn-products (bidirected), hoisted,
 unhoisted and under the scatter lowering. It prints the reference's lines,
 the loss is finite, the modes agree on the first step, and the K1 calls a
 step makes are the ones chip_smoke.py derives from the code. Also the
-3-layer BN GraphSAGE of arxiv's layout against the JAX model."""
+3-layer BN GraphSAGE of arxiv's layout against the JAX model; --shard 2 on
+two gloo ranks; and --ckpt-dir's resume."""
 
 import math
 import os
@@ -26,6 +27,8 @@ from dgl_tpu_torch.convert import sage_state_dict_from_flax
 from dgl_tpu_torch.data import NODE_DATASET_STATS
 from dgl_tpu_torch.graph import transforms
 from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+from dgl_tpu_torch.parallel import halo
+from dgl_tpu_torch.parallel.halo_train import HaloSAGE
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -115,12 +118,69 @@ def test_unknown_dataset_and_left_out_flags_raise(cache):
         main_sage.run("citeseer", device="cpu")
     with pytest.raises(ValueError, match="unknown overrides"):
         main_sage.run("cora", device="cpu", heads=4)
-    for flags, exc in ((["--shard", "4"], NotImplementedError),
-                       (["--ckpt-dir", "/nonexistent"], NotImplementedError),
-                       (["--lane-kernel"], SystemExit), (["--bf16-messages"], SystemExit),
-                       (["--scan-epochs", "5"], SystemExit)):
-        with pytest.raises(exc):
+    for flags in (["--lane-kernel"], ["--bf16-messages"], ["--scan-epochs", "5"]):
+        with pytest.raises(SystemExit):
             main_sage.main(["--device", "cpu", *flags])
+
+
+def test_shard_flag_trains_over_two_gloo_ranks(cache, capfd, monkeypatch):
+    """--shard 2 on bidirected ogbn-products: the JAX driver's plan line and
+    the reference's lines (rank 0 prints), a finite loss, the same
+    parameters on both ranks, and the trained logits (rows un-permuted to
+    the input order) equal to HaloSAGE on one shard of the same graph."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # each rank's torch threads
+    res = main_sage.main(["--dataset", "ogbn-products", "--device", "cpu", "--scale",
+                          str(SCALE), "--epochs", "5", "--runs", "1", "--eval", "--shard", "2",
+                          "--dist-backend", "gloo"])
+    out = capfd.readouterr().out
+    for line in ("shard plan: k=2 nodes/shard=", "Training time/epoch",
+                 "Run 00 | Epoch 00004 | Loss", "  Final Train:", "   Final Test:"):
+        assert line in out, line
+    assert out.count("Training time/epoch") == 2  # rank 0 alone prints
+    (losses,) = res["losses"]
+    assert len(losses) == 5 and all(math.isfinite(v) for v in losses)
+    assert res["k"] == 2 and res["backend"] == "gloo" and res["rows_per_pair"] >= 1
+    for key, v in res["params"][0].items():
+        np.testing.assert_array_equal(res["params"][1][key], v, err_msg=key)
+    data = dgl_tpu_torch.data.load_node_dataset("ogbn-products", scale=SCALE)
+    n = data.num_nodes
+    src, dst = transforms.to_bidirected(torch.from_numpy(np.asarray(data.src)),
+                                        torch.from_numpy(np.asarray(data.dst)), n)
+    assert res["num_edges"] == len(src)
+    plan, n_pad = halo.shard_fullgraph_boundary(src.numpy(), dst.numpy(), n, 1)
+    cfg = main_sage.DATASET_CFG["ogbn-products"]
+    model = HaloSAGE(data.features.shape[1], cfg["hidden"], data.num_classes, cfg["layers"],
+                     device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in res["params"][0].items()})
+    model.eval()
+    x = torch.zeros(n_pad, data.features.shape[1])
+    x[:n] = torch.from_numpy(np.asarray(data.features))
+    with torch.no_grad():
+        want = model(halo.place(plan, 0, "cpu"), x)[:n].numpy()
+    np.testing.assert_allclose(res["logits"], want, rtol=1e-4, atol=1e-5)
+
+
+def test_dist_backend_nccl_with_more_ranks_than_cards_raises(cache):
+    with pytest.raises(ValueError, match="one rank on each card"):
+        main_sage.main(["--dataset", "cora", "--device", "cuda", "--shard", "64",
+                        "--dist-backend", "nccl"])
+
+
+def test_ckpt_dir_resumes_to_the_uninterrupted_losses(cache, tmp_path, capsys):
+    """6 epochs straight against 3 epochs, then a resume of 3 from the
+    checkpoint of epoch 2 (model, Adam, the dropout generator): the resumed
+    epochs' losses equal the straight run's bit for bit."""
+    flags = ["--dataset", "cora", "--device", "cpu", "--scale", "0.05", "--runs", "1"]
+    straight = main_sage.main([*flags, "--epochs", "6"])
+    ckpt = str(tmp_path / "ckpt")
+    first = main_sage.main([*flags, "--epochs", "3", "--ckpt-dir", ckpt, "--ckpt-every", "1"])
+    assert sorted(os.listdir(ckpt)) == ["0", "1", "2"]
+    capsys.readouterr()
+    resumed = main_sage.main([*flags, "--epochs", "6", "--ckpt-dir", ckpt, "--ckpt-every", "1"])
+    assert "resumed from checkpoint at epoch 3" in capsys.readouterr().out
+    assert first["losses"][0] == straight["losses"][0][:3]
+    assert resumed["losses"][0] == straight["losses"][0][3:]
+    assert sorted(os.listdir(ckpt)) == ["3", "4", "5"]  # the last 3 are kept
 
 
 def _np_tree(tree):
