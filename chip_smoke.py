@@ -115,8 +115,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      reverse CSR, held to float64 sums and timed beside torch.sparse.mm and
      its bound; load_s, setup_s, precompute_s, memory and each CSR's split;
   11. gc_main: main_gcn at full width on ENZYMES (600 graphs, 5 epochs),
-     ogbg-molhiv (41,127 graphs fused, the scatter lowering's run cut to
-     10,000; 3 epochs) and ogbg-ppa
+     ogbg-molhiv (both lowerings' runs cut to 10,000 of its 41,127 graphs;
+     3 epochs) and ogbg-ppa
      (cut to 2,000 graphs, 3 epochs), batch 64, every counter set to 0
      before a run and read after it: K1's, K2's and P1-in-source-order
      launches per step as derived from the code (gc_per_step), no combine; losses finite and
@@ -236,7 +236,19 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      their plain versions and float64 sums (check). Checkpoint: main_sage
      on reddit, 6 epochs against 3 plus a resume of 3 from --ckpt-dir, the
      losses equal bit for bit;
-  18. kernels: one line listing every ported kernel with its numbers, K1's,
+  18. suite: the suite harness (python -m
+     dgl_tpu_torch.benchmarks.generate_result) on the card, its output in a
+     temporary directory, each row a driver in its own process: the smoke
+     rows SUITE_SMOKE (a row of every driver, GAT fused and in the edge
+     form, GCN fused and scatter), those of SUITE_PROFILED with the
+     drivers' --profile, and reddit_sage at its full arguments (the main
+     path at full width, unhoisted). Every row's status ok, its epoch time
+     finite and positive (SUITE_UNTIMED: a smoke row of warm-up epochs
+     only has none), its final test score where its driver prints one
+     (SUITE_NO_FINAL_TEST: the lines the harness does not parse), its ratio
+     to the V100 baseline where the suite has one; each profiled row's
+     device profile names the kernels its path must launch;
+  19. kernels: one line listing every ported kernel with its numbers, K1's,
      K2's and K3's with T, long rows, chunks and combine launches, K3's at
      arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
      K1's at the SAGE widths and K1's and K2's launches on the new paths,
@@ -263,6 +275,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1582,7 +1595,7 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
     }
 
 
-def gat_edge_per_step(layers=3):
+def gat_edge_per_step(layers=3, lowering="fused"):
     """Launches of one training step of GAT's edge form (pubmed), from the
     code (nn/conv.py:GATConv._edge, ops/gather.py, ops/softmax.py,
     ops/spmm.py, ops/segment.py), per layer:
@@ -1594,11 +1607,15 @@ def gat_edge_per_step(layers=3):
       K2 forward: edge_softmax's seg_sum_dst and gspmm(copy_e, sum) (2);
       K2 backward: the adjoints of spread_dst and gather_dst(a_dst) (2);
       K1 backward: gather_src_rows' adjoint over the reverse CSR (1).
+    Under lowering="scatter" gspmm(copy_e, sum) is index_add_ and its
+    adjoint index_select: one K2 and one P1 a layer fewer.
     Returns (per step, per edge-softmax rescue): a rescue (every term of a
     row underflowed under the loose bound) runs the exact form's forward as
     well, one seg_sum_dst and two P1 gathers more; its backward replaces
     the loose form's."""
     per_layer = {"csr_spmm": 1, "seg_sum": 4, "row_gather_by_source": 6}
+    if lowering == "scatter":
+        per_layer = {"csr_spmm": 1, "seg_sum": 3, "row_gather_by_source": 5}
     return ({k: n * layers for k, n in per_layer.items()},
             {"csr_spmm": 0, "seg_sum": 1, "row_gather_by_source": 2})
 
@@ -2014,8 +2031,8 @@ def phase_sage_main():
 
 GC_RUNS = {  # key: (dataset, lowering, num_graphs, epochs)
     "enzymes": ("ENZYMES", "fused", None, 5),
-    "molhiv": ("ogbg-molhiv", "fused", None, 3),
-    "molhiv_scatter": ("ogbg-molhiv", "scatter", 10000, 3),  # cut to 10,000 graphs (time)
+    "molhiv": ("ogbg-molhiv", "fused", 10000, 3),  # cut to 10,000 graphs (time)
+    "molhiv_scatter": ("ogbg-molhiv", "scatter", 10000, 3),
     "ppa": ("ogbg-ppa", "fused", 2000, 3),
 }
 GC_PROFILE_STEPS = 64  # molhiv's profiled window: its idle share, not a whole epoch's trace
@@ -2145,8 +2162,8 @@ def gc_step_no_host_sync():
 
 
 def phase_gc_main():
-    """main_gcn on ENZYMES (600 graphs), molhiv (41,127 graphs, fused and
-    scatter) and ppa (cut to 2,000 graphs), batch 64, every counter set to 0
+    """main_gcn on ENZYMES (600 graphs), molhiv (cut to 10,000 graphs, fused
+    and scatter) and ppa (cut to 2,000 graphs), batch 64, every counter set to 0
     before a run and read after it: K1, K2 and P1-in-source-order launches
     gc_per_step per step, no combine (no batch holds a row over T: _gc_long_rows); losses
     finite and falling. molhiv fused also profiles GC_PROFILE_STEPS further
@@ -2942,7 +2959,7 @@ def phase_ns_main():
         want_lines += ["Eval Acc", "Test Acc:"] if r["eval_epochs"] else []
         want_lines += ["Avg epoch time:"] if r["avg_epoch_s"] is not None else []
         missing = [ln for ln in want_lines if ln not in out]
-        if missing:
+        if missing and device == "cuda":
             raise AssertionError(f"{key}: {driver} printed no {missing} line")
         r["log_tail"] = out.splitlines()[-6:]
         res[key] = r
@@ -3391,7 +3408,7 @@ def phase_cluster_main():
                                            if key == "lp" else ["Run 00 | Epoch 00000 | Loss"])
         lines += ["Final Train", "Final Test", "partition[metis]"]
         missing = [ln for ln in lines if ln not in out]
-        if missing:
+        if missing and device == "cuda":
             raise AssertionError(f"{key}: {driver} printed no {missing} line")
         r["log_tail"] = out.splitlines()[-8:]
         losses = r["losses"][0] if key != "lp" else r["losses"]
@@ -4079,6 +4096,126 @@ def phase_distributed(device="cuda"):
     return out
 
 
+# -- the suite harness on the card ------------------------------------------
+
+# the smoke rows in groups that run side by side, each group's rows one
+# process at a time (~20 s a process on the card's host); no two groups
+# generate the same synthetic dataset (its cache file is written in place)
+SUITE_GROUPS = (("reddit_sage", "reddit_gat", "ns_sage_reddit", "ns_gat_reddit"),
+                ("pubmed_gat", "molhiv_gcn", "molhiv_gcn_scatter"),
+                ("proteins_rgcn", "gcmc_ml100k", "cluster_sage_products", "cluster_lp_arxiv"))
+SUITE_SMOKE = sum(SUITE_GROUPS, ())
+SUITE_PROFILED = {  # row: the kernels its profile must name (reddit_gat fused: K3)
+    "reddit_sage": ("csr_spmm_kernel",),
+    "reddit_gat": ("gat_fwd_kernel", "gat_b2_kernel"),
+    "pubmed_gat": ("seg_sum_kernel", "row_gather_by_source_kernel"),
+    "ns_sage_reddit": ("row_gather_async_kernel",),
+}
+SUITE_PROFILE = 3  # --profile: epochs, or steps of the sampling drivers
+SUITE_FULL = ("reddit_sage",)  # a fourth group, beside the smoke groups
+SUITE_TIMEOUT_S = 300  # a row's limit
+# rows whose drivers print no line the harness reads a test score from (the
+# NS drivers' "Test Acc:"), as in the JAX harness
+SUITE_NO_FINAL_TEST = ("ns_sage_reddit", "ns_gat_reddit")
+# smoke rows whose epochs are all warm-up: cluster LP's 3 (the JAX smoke
+# row's --n-epochs 3; the driver times from the fourth), so no epoch time
+SUITE_UNTIMED = ("cluster_lp_arxiv",)
+
+
+def _suite_run(generate_result, out, suite, names, device, profile=0):
+    rows = generate_result.main(["--suite", suite, "--only", ",".join(names), "--out", out,
+                                 "--retries", "0", "--timeout", str(SUITE_TIMEOUT_S),
+                                 "--device", device, "--profile", str(profile)])
+    for r in rows:
+        if r["status"] != "ok":
+            raise AssertionError(f"suite {suite} row {r['workload']}: {r['status']}\n"
+                                 f"{r.get('stderr_tail')}")
+    if not os.path.exists(os.path.join(out, "results.json")):
+        raise AssertionError(f"suite {suite}: no results.json")
+    return rows
+
+
+def check_suite_row(row, baselines, untimed=()):
+    """One row of the harness: ok, an epoch time finite and positive (none
+    for a row of ``untimed``), a test score where its driver prints one, the
+    V100 ratio where there is a baseline."""
+    name, t = row["workload"], row.get("time_per_epoch")
+    if name in untimed:
+        if t is not None:
+            raise AssertionError(f"suite row {name}: timed {t} in its warm-up epochs")
+    elif not (t is not None and math.isfinite(t) and t > 0):
+        raise AssertionError(f"suite row {name}: time_per_epoch {t}")
+    if name not in SUITE_NO_FINAL_TEST and row.get("final_test") is None:
+        raise AssertionError(f"suite row {name}: no final test score")
+    if (name in baselines) != (row.get("vs_dgl_v100") is not None):
+        raise AssertionError(f"suite row {name}: vs_dgl_v100 {row.get('vs_dgl_v100')}")
+
+
+def _suite_group(generate_result, out, names, device):
+    """A smoke group: its SUITE_PROFILED rows with --profile, then the rest."""
+    profiled = [w for w in names if w in SUITE_PROFILED]
+    rest = [w for w in names if w not in SUITE_PROFILED]
+    rows = []
+    if profiled:
+        rows += _suite_run(generate_result, out + "_profiled", "smoke", profiled, device,
+                           SUITE_PROFILE)
+    if rest:
+        rows += _suite_run(generate_result, out, "smoke", rest, device)
+    return rows
+
+
+def phase_suite(device="cuda"):
+    """SUITE_GROUPS through the harness side by side (SUITE_PROFILED with
+    the drivers' --profile), SUITE_FULL at the full arguments beside them;
+    every row held by check_suite_row, the profiled rows' kernels named
+    (``device`` "cpu": a rehearsal, whose profiles name no kernel)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dgl_tpu_torch.benchmarks import generate_result
+
+    if device == "cuda":
+        torch.cuda.empty_cache()  # this process keeps its memory while the rows run
+    t_phase = time.perf_counter()
+    log = io.StringIO()  # the harness's lines; a failed row raises with its stderr
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(log), \
+            ThreadPoolExecutor(len(SUITE_GROUPS) + 1) as pool:
+        groups = [pool.submit(_suite_group, generate_result, os.path.join(tmp, f"group{i}"),
+                              names, device) for i, names in enumerate(SUITE_GROUPS)]
+        full = pool.submit(_suite_run, generate_result, os.path.join(tmp, "full"), "full",
+                           SUITE_FULL, device)
+        rows = [r for g in groups for r in g.result()]
+        full = full.result()
+    if sorted(r["workload"] for r in rows) != sorted(SUITE_SMOKE):
+        raise AssertionError(f"suite rows {[r['workload'] for r in rows]}")
+    for r in rows:
+        check_suite_row(r, generate_result.BASELINE_EPOCH_S, SUITE_UNTIMED)
+    for r in full:
+        check_suite_row(r, generate_result.BASELINE_EPOCH_S)
+    named = {}
+    for r in rows:
+        if r["workload"] not in SUITE_PROFILED:
+            continue
+        names = [k["name"] for k in (r.get("profile") or {}).get("kernels", [])]
+        missing = [k for k in SUITE_PROFILED[r["workload"]] if not any(k in n for n in names)]
+        if missing and device == "cuda":
+            raise AssertionError(f"suite row {r['workload']}: its profile names no {missing}: "
+                                 f"{names}")
+        named[r["workload"]] = {k: sorted({re.search(rf"{k}(<[^>]*>)?", n).group(0)
+                                          for n in names if k in n})
+                                for k in SUITE_PROFILED[r["workload"]]}
+    keep = ("status", "time_per_epoch", "vs_dgl_v100", "final_train", "final_test",
+            "samples_per_s", "wall_s")
+    emit("suite", seconds=time.perf_counter() - t_phase,
+         smoke={r["workload"]: {k: r.get(k) for k in keep} for r in rows},
+         full={r["workload"]: {k: r.get(k) for k in keep + ("note",)} for r in full},
+         profiled_kernels=named,
+         profiles={r["workload"]: {k: r["profile"][k] for k in r["profile"]
+                                   if k.startswith(("wall_ms", "device_busy", "device_idle"))}
+                   for r in rows if r.get("profile")})
+    return rows, full
+
+
 def _kernel_entry(name, source, replaces, launches, r, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -4118,6 +4255,7 @@ def main():
     cl_launch, cl_batch, cl_k3 = phase_cluster_main()
     torch.cuda.empty_cache()
     dist = phase_distributed()
+    phase_suite()
     # rank 0's launches in each sharded run (every rank's equal the derivations)
     dl = {kind: dist[kind]["launches"][0] for kind in ("sage", "gat", "rgcn")}
     rows["row_gather_async"].update(

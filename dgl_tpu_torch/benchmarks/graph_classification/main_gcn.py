@@ -44,7 +44,7 @@ from ...sampling import GraphBatchLoader
 from ...train.timing import device_profile
 from ..common import Logger, roc_auc, softmax_ce_int
 
-__all__ = ["DATASETS", "make_train_step", "run", "main"]
+__all__ = ["DATASETS", "make_train_step", "run", "parser", "main"]
 
 DATASETS = ("ENZYMES", "ogbg-molhiv", "ogbg-ppa")
 
@@ -220,7 +220,7 @@ def run(
     }
 
 
-def main(argv: Optional[list] = None) -> dict:
+def parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Graph classification GCN (dgl_tpu_torch)")
     parser.add_argument("--dataset", type=str, default="ENZYMES", choices=list(DATASETS))
     parser.add_argument("--log_steps", type=int, default=1)
@@ -242,7 +242,11 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--profile", type=int, default=0, metavar="STEPS",
                         help="profile this many further train steps after the last run (stderr)")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv: Optional[list] = None) -> dict:
+    args = parser().parse_args(argv)
     print(args)
     res = run(args.dataset, batch_size=args.batch_size, epochs=args.epochs, runs=args.runs,
               eval_acc=args.eval, lowering=args.lowering, num_graphs=args.num_graphs,

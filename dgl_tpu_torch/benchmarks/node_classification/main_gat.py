@@ -7,13 +7,17 @@ dropout 0.6, 200 epochs; reddit heads (1, 1, 1), hidden 16, tuned
 lr/wd/dropout, 500 epochs; arxiv heads (4, 4, 4), bidirected. Every graph
 gets self-loops. reddit and arxiv run GATConv's fused form (K3), as the
 suite's rows run ``--lane-kernel``; cora and pubmed run the edge form (K2).
+``--lowering scatter`` runs the edge form on every dataset with its weighted
+sums as ``index_add_`` (the PyG twin, as the JAX driver's flag sets
+``DGL_TPU_LOWERING=scatter``); ``--scale`` shrinks the synthetic data, as in
+the JAX driver.
 The loss is masked cross-entropy, the optimiser Adam with coupled L2
 (``torch.optim.Adam(weight_decay=wd)``). Every epoch ends in a device
 synchronise; epochs from the fourth on are timed.
 
     python -m dgl_tpu_torch.benchmarks.node_classification.main_gat --dataset reddit
-        [--epochs N] [--runs R] [--eval] [--device cuda] [--profile EPOCHS]
-        [--shard K [--dist-backend nccl|gloo]]
+        [--epochs N] [--runs R] [--eval] [--lowering fused|scatter] [--scale S]
+        [--device cuda] [--profile EPOCHS] [--shard K [--dist-backend nccl|gloo]]
 
 Prints the reference's lines (``Training time/epoch``, with ``--eval`` the
 ``Run … | Epoch …`` lines and ``Final Train`` / ``Final Test``).
@@ -48,7 +52,7 @@ from ...train.timing import device_profile, synchronize
 from ..common import Logger, masked_accuracy, masked_softmax_ce, print_data_stats
 from . import sharded
 
-__all__ = ["DATASET_CFG", "run", "run_sharded", "main"]
+__all__ = ["DATASET_CFG", "run", "run_sharded", "parser", "main"]
 
 _TUNED = dict(lr=0.0029739421726400865, wd=2.4222556964495987e-05, dropout=0.18074706609292976)
 
@@ -63,8 +67,8 @@ DATASET_CFG = {
 }
 
 
-def _prepare(name: str, cfg: dict, seed: int, dev: torch.device):
-    data = load_node_dataset(name, seed=seed)
+def _prepare(name: str, cfg: dict, seed: int, scale: float, dev: torch.device):
+    data = load_node_dataset(name, seed=seed, scale=scale)
     print_data_stats(data)
     t0 = time.perf_counter()
     n = data.num_nodes
@@ -106,23 +110,29 @@ def run(
     device: DeviceLike = None,
     num_layers: int = 3,
     profile_epochs: int = 0,
+    lowering: str = "fused",
+    scale: float = 1.0,
     **overrides,
 ) -> dict:
     """Train the dataset's GAT ``runs`` times from fresh weights.
 
-    ``overrides`` replace entries of ``DATASET_CFG[dataset]`` (``lr``,
-    ``wd``, ``hidden``, ``dropout``). Returns ``{"device", "synthetic",
-    "setup_s", "fused", "num_edges", "epoch_s", "epochs_s", "losses",
-    "profile", "setup_bytes", "train_peak_bytes"}``: ``losses`` holds each
+    ``lowering="scatter"`` takes GATConv's edge form with ``index_add_``
+    sums on every dataset; ``fused`` the dataset's form. ``scale`` shrinks
+    the synthetic data. ``overrides`` replace entries of
+    ``DATASET_CFG[dataset]`` (``lr``, ``wd``, ``hidden``, ``dropout``).
+    Returns ``{"device", "synthetic", "setup_s", "fused", "num_edges",
+    "epoch_s", "epochs_s", "losses", "profile", "setup_bytes",
+    "train_peak_bytes"}``: ``losses`` holds each
     run's per-epoch losses, ``epoch_s`` the mean of the timed epochs over all
     runs; on a card, ``setup_bytes`` is the device memory the graph and the
     data hold when training starts and ``train_peak_bytes`` the peak from
     there to the end (``None`` on the CPU).
     """
     cfg = _config(dataset, epochs, overrides)
+    fused = cfg["fused"] and lowering == "fused"
     heads = tuple(cfg["heads"][:num_layers])
     dev = resolve_device(device)
-    data, g, x, y, masks, setup_s = _prepare(dataset, cfg, seed, dev)
+    data, g, x, y, masks, setup_s = _prepare(dataset, cfg, seed, scale, dev)
     setup_bytes = None
     if dev.type == "cuda":  # the training's own peak, without the graph build's
         setup_bytes = torch.cuda.memory_allocated(dev)
@@ -133,7 +143,7 @@ def run(
     for r in range(runs):
         model = GAT(
             x.shape[1], cfg["hidden"], data.num_classes, heads,
-            feat_drop=cfg["dropout"], attn_drop=cfg["dropout"], fused=cfg["fused"],
+            feat_drop=cfg["dropout"], attn_drop=cfg["dropout"], fused=fused, lowering=lowering,
             device=dev, generator=torch.Generator().manual_seed(seed * 1000 + r),
         )
         opt = torch.optim.Adam(model.parameters(), lr=cfg["lr"], weight_decay=cfg["wd"])
@@ -177,7 +187,7 @@ def run(
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "synthetic": data.synthetic,
         "setup_s": setup_s,
-        "fused": cfg["fused"],
+        "fused": fused,
         "num_edges": g.num_edges,
         "epoch_s": float(np.mean(dur)) if dur else None,
         "epochs_s": dur,
@@ -199,13 +209,14 @@ def run_sharded(
     seed: int = 0,
     device: str = "cuda",
     num_layers: int = 3,
+    scale: float = 1.0,
     **overrides,
 ) -> dict:
     """``--shard``: the dataset's GAT over ``shard`` ranks
     (``sharded.run_sharded``; -1 takes every card)."""
     cfg = _config(dataset, epochs, overrides)
     shard, backend = sharded.resolve(shard, dist_backend, device)
-    data = load_node_dataset(dataset, seed=seed)
+    data = load_node_dataset(dataset, seed=seed, scale=scale)
     print_data_stats(data)
     return sharded.run_sharded(
         "gat", data, k=shard, backend=backend,
@@ -214,7 +225,7 @@ def run_sharded(
         bidirect=cfg["bidirect"])
 
 
-def main(argv: Optional[list] = None) -> dict:
+def parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="GAT (dgl_tpu_torch)")
     parser.add_argument("--dataset", type=str, default="cora", choices=sorted(DATASET_CFG))
     parser.add_argument("--num-layers", type=int, default=3)
@@ -227,6 +238,11 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("--eval", action="store_true",
                         help="If not set, we will only do the training part.")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--lowering", choices=("fused", "scatter"), default="fused",
+                        help="fused: each dataset's GATConv form (K3 or the edge form); "
+                             "scatter: the edge form with index_add_ sums (PyG twin)")
+    parser.add_argument("--scale", type=float, default=1.0,
+                        help="shrink factor for synthetic fallback data (smoke tests)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
                         help="profile this many further epochs after the last run (stderr)")
@@ -237,17 +253,25 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("--dist-backend", choices=sharded.BACKENDS, default=None,
                         help="--shard's backend: nccl (one rank a card; default on cuda) or "
                              "gloo (default on cpu; ranks sharing a card)")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv: Optional[list] = None) -> dict:
+    args = parser().parse_args(argv)
     print(args)
     overrides = dict(lr=args.lr, wd=args.weight_decay, hidden=args.num_hidden,
                      dropout=args.dropout)
     if args.shard:
+        if args.lowering != "fused":
+            raise ValueError("--shard runs HaloGAT through K3; --lowering scatter is one card's")
         return run_sharded(args.dataset, args.shard, dist_backend=args.dist_backend,
                            epochs=args.epochs, runs=args.runs, eval_acc=args.eval, seed=args.seed,
-                           device=args.device, num_layers=args.num_layers, **overrides)
+                           device=args.device, num_layers=args.num_layers, scale=args.scale,
+                           **overrides)
     res = run(args.dataset, epochs=args.epochs, runs=args.runs, eval_acc=args.eval,
               seed=args.seed, device=args.device, num_layers=args.num_layers,
-              profile_epochs=args.profile, **overrides)
+              profile_epochs=args.profile, lowering=args.lowering, scale=args.scale,
+              **overrides)
     if res["profile"] is not None:
         print(f"# profile={json.dumps(res['profile'])}", file=sys.stderr)
     return res

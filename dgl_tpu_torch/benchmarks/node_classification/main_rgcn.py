@@ -50,7 +50,7 @@ from ...train.timing import device_profile, synchronize
 from ..common import Logger, masked_bce, mean_multilabel_auc, print_data_stats
 from . import sharded
 
-__all__ = ["make_train_step", "run", "run_sharded", "main"]
+__all__ = ["make_train_step", "run", "run_sharded", "parser", "main"]
 
 
 def make_train_step(model, opt, g, x, weights: RelEdgeWeights, y, train_mask,
@@ -199,7 +199,7 @@ def run_sharded(
         seed=seed, hidden=hidden, lr=lr, layers=num_layers)
 
 
-def main(argv: Optional[list] = None) -> dict:
+def parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="RGCN ogbn-proteins (dgl_tpu_torch)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--log_steps", type=int, default=1)
@@ -226,7 +226,11 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("--dist-backend", choices=sharded.BACKENDS, default=None,
                         help="--shard's backend: nccl (one rank a card; default on cuda) or "
                              "gloo (default on cpu; ranks sharing a card)")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv: Optional[list] = None) -> dict:
+    args = parser().parse_args(argv)
     print(args)
     if args.shard:
         return run_sharded(args.shard, dist_backend=args.dist_backend, epochs=args.epochs,

@@ -62,7 +62,7 @@ from ...train.timing import device_profile, synchronize
 from ..common import Logger, masked_accuracy, masked_softmax_ce, print_data_stats
 from . import sharded
 
-__all__ = ["DATASET_CFG", "run", "run_sharded", "main"]
+__all__ = ["DATASET_CFG", "run", "run_sharded", "parser", "main"]
 
 DATASET_CFG = {
     "cora": dict(layers=2, hidden=16, lr=1e-2, wd=5e-4, dropout=0.5, epochs=200, bn=False, bidirect=False),
@@ -264,7 +264,7 @@ def run_sharded(
         dropout=cfg["dropout"], aggr=aggr, bidirect=cfg["bidirect"])
 
 
-def main(argv: Optional[list] = None) -> dict:
+def parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="GraphSAGE (dgl_tpu_torch)")
     parser.add_argument("--dataset", type=str, default="cora", choices=sorted(DATASET_CFG))
     parser.add_argument("--dropout", type=float, default=None)
@@ -296,7 +296,11 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("--ckpt-dir", type=str, default=None,
                         help="checkpoint and resume the first run in this directory")
     parser.add_argument("--ckpt-every", type=int, default=50)
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv: Optional[list] = None) -> dict:
+    args = parser().parse_args(argv)
     print(args)
     overrides = dict(lr=args.lr, wd=args.weight_decay, hidden=args.n_hidden,
                      layers=args.num_layers, dropout=args.dropout)

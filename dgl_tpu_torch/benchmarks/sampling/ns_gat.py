@@ -17,14 +17,15 @@ message there.
 
 from __future__ import annotations
 
+import argparse
 from typing import Optional
 
 import torch
 
 from ...models import GAT
-from .pipeline import parser, run
+from . import pipeline
 
-__all__ = ["main"]
+__all__ = ["parser", "main"]
 
 
 def _model(args, in_feats: int, classes: int, dev: torch.device) -> GAT:
@@ -34,11 +35,15 @@ def _model(args, in_feats: int, classes: int, dev: torch.device) -> GAT:
                generator=torch.Generator().manual_seed(args.seed))
 
 
-def main(argv: Optional[list] = None) -> dict:
-    p = parser("Neighbour-sampling GAT (dgl_tpu_torch)")
+def parser() -> argparse.ArgumentParser:
+    p = pipeline.parser("Neighbour-sampling GAT (dgl_tpu_torch)")
     p.add_argument("--num-heads", type=int, default=8)
-    args = p.parse_args(argv)
-    return run(args, lambda in_feats, classes, dev: _model(args, in_feats, classes, dev))
+    return p
+
+
+def main(argv: Optional[list] = None) -> dict:
+    args = parser().parse_args(argv)
+    return pipeline.run(args, lambda in_feats, classes, dev: _model(args, in_feats, classes, dev))
 
 
 if __name__ == "__main__":

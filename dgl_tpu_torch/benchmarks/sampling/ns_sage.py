@@ -16,14 +16,15 @@ projects 602 → 16 first, layer 2 aggregates its 16-wide input).
 
 from __future__ import annotations
 
+import argparse
 from typing import Optional
 
 import torch
 
 from ...models import GraphSAGE
-from .pipeline import parser, run
+from . import pipeline
 
-__all__ = ["main"]
+__all__ = ["parser", "main"]
 
 
 def _model(args, in_feats: int, classes: int, dev: torch.device) -> GraphSAGE:
@@ -32,12 +33,16 @@ def _model(args, in_feats: int, classes: int, dev: torch.device) -> GraphSAGE:
                      generator=torch.Generator().manual_seed(args.seed))
 
 
-def main(argv: Optional[list] = None) -> dict:
-    p = parser("Neighbour-sampling SAGE (dgl_tpu_torch)")
+def parser() -> argparse.ArgumentParser:
+    p = pipeline.parser("Neighbour-sampling SAGE (dgl_tpu_torch)")
     p.add_argument("--inductive", action="store_true",
                    help="inductive split: sample and train only on the train-node subgraph")
-    args = p.parse_args(argv)
-    return run(args, lambda in_feats, classes, dev: _model(args, in_feats, classes, dev))
+    return p
+
+
+def main(argv: Optional[list] = None) -> dict:
+    args = parser().parse_args(argv)
+    return pipeline.run(args, lambda in_feats, classes, dev: _model(args, in_feats, classes, dev))
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 Counterpart of ``dgl_tpu/models/gat.py:GAT`` (the reference's
 ``main_dgl_citation_gat.py`` net): layer 0 without feature or attention
 dropout, hidden layers with elu and their heads concatenated, the output
-layer averaging its heads. ``fused`` picks GATConv's form for every layer.
+layer averaging its heads. ``fused`` picks GATConv's form for every layer,
+``lowering="scatter"`` its PyG twin (the edge form with ``index_add_`` sums).
 Dropout masks and attention-dropout seeds come from the ``generator``
 passed to ``forward``; the initial weights from the CPU ``generator``
 passed to the constructor. Over blocks (``ns-gat-dgl.py:22-60``) layer
@@ -40,6 +41,7 @@ class GAT(nn.Module):
         residual: bool = False,
         *,
         fused: bool = False,
+        lowering: str = "fused",
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -58,6 +60,7 @@ class GAT(nn.Module):
                 residual=residual,
                 activation=None if last else F.elu,
                 fused=fused,
+                lowering=lowering,
                 device="cpu",
                 generator=generator,
             ))

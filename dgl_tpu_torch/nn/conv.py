@@ -153,6 +153,14 @@ class GATConv(nn.Module):
       gradient wrt ``alpha`` from per-edge dots, an (E, D) buffer a head);
       no (E, H, D) tensor.
 
+    ``lowering="scatter"`` (the PyG twin) takes the edge form and runs its
+    weighted sum as ``gspmm(..., lowering="scatter")``: ``index_add_`` over
+    the messages, where the memory-safe form's sum becomes ``gspmm(mul,
+    sum)`` over the materialised messages, as the JAX layer's does under
+    ``DGL_TPU_LOWERING=scatter``. That variable changes ``gspmm`` alone
+    (``dgl_tpu/ops/spmm.py:605``), so the gathers and the edge softmax (its
+    K2 sums) stay. It never takes K3; ``fused=True`` with it raises.
+
     On a positional sampled block (``g.block_fanout``, ``x`` the pair
     ``(x_src, x_dst)``) both forms give way to the block's own: destination
     ``i``'s ``f`` sources are slots ``nd + i·f ...`` of ``W x_src``, so the
@@ -178,15 +186,20 @@ class GATConv(nn.Module):
         activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
         *,
         fused: bool = False,
+        lowering: str = "fused",
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        if lowering not in ("fused", "scatter"):
+            raise ValueError(f"unknown GATConv lowering: {lowering!r}")
+        if fused and lowering == "scatter":
+            raise ValueError("the scatter lowering takes the edge form: pass fused=False")
         dev = resolve_device(device)
         h, d = num_heads, out_feats
         self.in_feats, self.out_feats, self.num_heads = in_feats, out_feats, num_heads
         self.feat_drop, self.attn_drop, self.negative_slope = feat_drop, attn_drop, negative_slope
-        self.activation, self.fused = activation, fused
+        self.activation, self.fused, self.lowering = activation, fused, lowering
         self.fc = nn.utils.skip_init(nn.Linear, in_feats, h * d, bias=False)
         xavier_uniform_(self.fc.weight, 1.0, generator)
         bound = math.sqrt(6.0 / (h + d))
@@ -253,7 +266,7 @@ class GATConv(nn.Module):
         logits = F.leaky_relu((z_e * self.attn_r).sum(-1) + gather_dst(g, a_dst), self.negative_slope)
         alpha = edge_softmax(g, logits, dst_bound=bound)
         alpha = dropout(alpha, self.attn_drop, self.training, generator)
-        return gspmm(g, "copy_e", "sum", e=z_e * alpha.unsqueeze(-1))
+        return gspmm(g, "copy_e", "sum", e=z_e * alpha.unsqueeze(-1), lowering=self.lowering)
 
     def _memory_safe(self, g, z, a_src, a_dst, bound, generator):
         """(E, H) logits, softmax and dropout; the heads' weighted sums as
@@ -262,6 +275,8 @@ class GATConv(nn.Module):
                               self.negative_slope)
         alpha = dropout(edge_softmax(g, logits, dst_bound=bound), self.attn_drop, self.training,
                         generator)
+        if self.lowering == "scatter":
+            return gspmm(g, "mul", "sum", x=z, e=alpha.unsqueeze(-1), lowering="scatter")
         out = gspmm_rel("sum", g, z.permute(1, 0, 2), alpha, per_relation=True)
         return out.permute(1, 0, 2)
 

@@ -30,7 +30,8 @@ def tiny(tmp_path, monkeypatch):
     the synthetic cache in their own directory."""
     monkeypatch.setenv("DGL_TPU_DATA_DIR", str(tmp_path))
     monkeypatch.setattr(main_gat, "load_node_dataset",
-                        lambda name, seed=0: load_node_dataset(name, seed=seed, scale=0.002))
+                        lambda name, seed=0, scale=1.0: load_node_dataset(name, seed=seed,
+                                                                          scale=0.002))
 
 
 def _launches():
@@ -119,7 +120,8 @@ def test_shard_flag_trains_over_two_gloo_ranks(tmp_path, monkeypatch, capfd):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")  # each rank's torch threads
     # the ranks read what the driver's process loads and writes for them
     monkeypatch.setattr(main_gat, "load_node_dataset",
-                        lambda name, seed=0: load_node_dataset(name, seed=seed, scale=0.002))
+                        lambda name, seed=0, scale=1.0: load_node_dataset(name, seed=seed,
+                                                                          scale=0.002))
     res = main_gat.main(["--dataset", "ogbn-arxiv", "--device", "cpu", "--epochs", "5",
                          "--runs", "1", "--eval", "--shard", "2", "--dist-backend", "gloo"])
     out = capfd.readouterr().out
