@@ -146,7 +146,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      version, small integers bit for bit, timed beside torch.sparse.mm and
      the bound; P1 in source order on the decoder's two gathers bit for bit
      against x[idx]; K2 at W = 75 on the decoder's dst CSR (check_k2); one
-     iteration under set_sync_debug_mode("error"); the driver (up to 2,000
+     iteration under set_sync_debug_mode("error"); the driver (GCMC_ITERS
      iterations, an RMSE evaluation every 5, then GCMC_PROFILE profiled
      iterations) with every counter set to 0 before it and read after it:
      K1's, K2's and P1-in-source-order launches and combines as
@@ -199,7 +199,11 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      forward on the whole products graph at H = 4, D = 64, rows held to
      float64 sums on their sub-CSR; one forward of GATConv's memory-safe
      form on the whole products graph, its peak under
-     memsafe_memory_bound, its output against the fused form's;
+     memsafe_memory_bound, its output against the fused form's; the GAT
+     run's trained model on the whole graph and inside one epoch of its own
+     batches (cluster_gat_whole_vs_batch: train accuracy on the same nodes,
+     the share of in-edges from the destination's own label and each
+     layer's attention mass on them), recorded, nothing asserted on it;
   17. distributed: DIST_K = 2 ranks sharing cuda:0 over gloo, started by
      dgl_tpu_torch/parallel/launch.py after the kernels are built (their
      collectives stage through host memory: no time here is a multi-GPU
@@ -2035,7 +2039,9 @@ GC_RUNS = {  # key: (dataset, lowering, num_graphs, epochs)
     "molhiv_scatter": ("ogbg-molhiv", "scatter", 10000, 3),
     "ppa": ("ogbg-ppa", "fused", 2000, 3),
 }
-GC_PROFILE_STEPS = 64  # molhiv's profiled window: its idle share, not a whole epoch's trace
+# molhiv's profiled window: its idle share, not a whole epoch's trace (cut from
+# 64 for time: the trace of a ~700-launch step costs ~0.7 s a step to read)
+GC_PROFILE_STEPS = 16
 
 
 def gc_per_step(dataset, lowering):
@@ -2525,6 +2531,7 @@ GCMC_BASES = 2  # the driver's --gen_r_num_basis_func
 GCMC_REL_D = 100  # a relation's width: --gcn_agg_units 500 stacked over the 5 ratings
 GCMC_OUT_D = 75  # --gcn_out_units: the decoder's width
 GCMC_PROFILE = 20  # further iterations under torch.profiler after the run
+GCMC_ITERS = 500  # the suite's gcmc_ml100k row (the driver's default 2,000, cut for time)
 
 
 def gcmc_per_iter(enc, dec, train=True, num_basis=GCMC_BASES):
@@ -2668,7 +2675,7 @@ def phase_gcmc_main():
     shapes (943 users, 1682 movies, 85,000 training ratings, 10 relations),
     each relation CSR's longest row and long rows; gcmc_kernel_checks; one
     iteration under the sync check; then the driver (gcmc.run at its
-    defaults, up to 2,000 iterations, an RMSE evaluation every 5, and
+    defaults but GCMC_ITERS iterations, an RMSE evaluation every 5, and
     GCMC_PROFILE profiled iterations) with every counter set to 0 before it
     and read after it: K1's, K2's and P1-in-source-order launches and K1's
     and K2's combines equal gcmc_per_iter's for its iterations and its
@@ -2718,6 +2725,7 @@ def phase_gcmc_main():
     with tempfile.TemporaryDirectory() as save_dir, contextlib.redirect_stdout(log):
         t0 = time.perf_counter()
         r = gcmc.run(gcmc.parser().parse_args(["--device", "cuda", "--save_dir", save_dir,
+                                               "--train_max_iter", str(GCMC_ITERS),
                                                "--profile", str(GCMC_PROFILE)]))
         run_s = time.perf_counter() - t0
         csv_rows = {}
@@ -3361,6 +3369,79 @@ def cluster_host_split(it, kind, steps=35, warmup=5):
             "wall_ms_per_step": 1e3 * (time.perf_counter() - t0) / steps}
 
 
+def _gat_label_attention(model, g, x, y):
+    """cluster_sage's GAT ``model`` (eval mode) on graph ``g``, layer by
+    layer, reading each layer's attention off its logits with the exact
+    edge softmax: over the destinations with in-edges, the sum of the
+    attention mass on in-neighbours of the destination's own label (the
+    heads' mean) a layer, and the sum of the plain share of such in-edges
+    (the weights of a mean aggregation). Returns (logits, mass sums a
+    layer, destinations with in-edges, plain share sum)."""
+    import torch.nn.functional as F
+
+    from dgl_tpu_torch.ops import edge_softmax
+
+    src, dst = g.src.long(), g.dst.long()
+    same = (y[src] == y[dst]).float()
+    deg = g.in_degrees().float()
+    live = deg > 0
+    plain = torch.zeros(g.num_dst_nodes, device=x.device).index_add_(0, dst, same)
+    h, mass = x, []
+    for i, conv in enumerate(model.convs):
+        z = conv.fc(h).view(-1, conv.num_heads, conv.out_feats)
+        logits = F.leaky_relu((z * conv.attn_r).sum(-1)[src] + (z * conv.attn_l).sum(-1)[dst],
+                              conv.negative_slope)
+        alpha = edge_softmax(g, logits)
+        on_label = torch.zeros(g.num_dst_nodes, conv.num_heads, device=x.device)
+        on_label.index_add_(0, dst, alpha * same.unsqueeze(1))
+        mass.append(float(on_label[live].mean(1).sum()))
+        del z, logits, alpha, on_label
+        h = conv(g, h)
+        h = h.mean(1) if i == len(model.convs) - 1 else h.flatten(1)
+    return h, mass, int(live.sum()), float((plain[live] / deg[live]).sum())
+
+
+def cluster_gat_whole_vs_batch(model, it, g, train_mask):
+    """cluster_sage's trained GAT on the whole products graph ``g`` and
+    inside one epoch of its own batches (``it``, every node in one batch):
+    the train accuracy of the same nodes, the share of the whole graph's
+    train predictions in the three most predicted classes, the mean share
+    of a node's in-edges that come from its own label, and each layer's
+    mean attention mass on those in-edges (_gat_label_attention). It says
+    where the whole-graph score falls away from the batches' and which
+    layer's attention leaves the node's label."""
+    t0 = time.perf_counter()
+    dev = g.src.device
+    y = it.labels
+    train = torch.from_numpy(np.asarray(train_mask)).to(dev)
+    model.eval()
+    with torch.no_grad():
+        logits, mass, rows, plain = _gat_label_attention(model, g, it.features, y)
+        pred = logits.argmax(-1)
+        del logits
+        in_batch = torch.full_like(pred, -1)
+        b_mass, b_rows, b_plain, batches = [0.0] * len(mass), 0, 0.0, 0
+        for b in it:
+            lg, m, r, p = _gat_label_attention(model, b.graph, b.x, b.y)
+            in_batch[torch.from_numpy(b.nodes).to(dev)] = lg.argmax(-1)
+            b_mass = [a + c for a, c in zip(b_mass, m)]
+            b_rows, b_plain, batches = b_rows + r, b_plain + p, batches + 1
+    share = torch.bincount(pred[train], minlength=int(y.max()) + 1).float() / train.sum()
+
+    def acc(p):
+        return float((p[train] == y[train]).float().mean())
+
+    return {"seconds": time.perf_counter() - t0, "batches": batches,
+            "train_nodes": int(train.sum()),
+            "whole": {"train_acc": acc(pred), "top3_pred_share": float(share.topk(3).values.sum()),
+                      "own_label_in_edge_share": plain / rows,
+                      "attention_on_own_label": [m / rows for m in mass]},
+            "batch": {"train_acc": acc(in_batch),
+                      "own_label_in_edge_share": b_plain / b_rows,
+                      "attention_on_own_label": [m / b_rows for m in b_mass]},
+            "agree_train": float((pred[train] == in_batch[train]).float().mean())}
+
+
 def phase_cluster_main():
     """Slice F on the card. The products partition (cached for the drivers)
     made and checked by partition_checks; cluster_sage with SAGE and
@@ -3392,6 +3473,9 @@ def phase_cluster_main():
                 "csr_spmm": csr_spmm, "seg_sum": seg_sum, "gat_attention_fwd": gat_attention_fwd,
                 "gat_attention_bwd": gat_attention_bwd}
     res, launches, want = {}, {}, {}
+    # the models the drivers build, kept for cluster_gat_whole_vs_batch
+    models, make_model = [], cluster_sage.make_model
+    cluster_sage.make_model = lambda *a, **kw: models.append(make_model(*a, **kw)) or models[-1]
     for key, (driver, argv) in CLUSTER_RUNS.items():
         torch.cuda.synchronize()
         for fn in counters.values():
@@ -3421,7 +3505,11 @@ def phase_cluster_main():
         steps = r["steps"] + (r["profile"]["steps"] if r["profile"] else 0)
         want[key] = cluster_launches(key, steps, r["batches"], evals, feat, classes)
         res[key] = r
+        if key == "gat":
+            gat_model = models[-1]
         torch.cuda.empty_cache()
+    cluster_sage.make_model = make_model
+    del models
     if launches != want:
         raise AssertionError(f"cluster launches {launches}; want {want}")
     gat = res["gat"]
@@ -3454,7 +3542,9 @@ def phase_cluster_main():
     k3_full = k3_fwd_full(g, CLUSTER_HEADS, CLUSTER_HIDDEN // CLUSTER_HEADS, gen)
     torch.cuda.empty_cache()
     memsafe = memsafe_forward(g, sage_iter.features)
-    del g, sage_iter
+    torch.cuda.empty_cache()
+    whole_vs_batch = cluster_gat_whole_vs_batch(gat_model, sage_iter, g, data.train_mask)
+    del g, sage_iter, gat_model
     torch.cuda.empty_cache()
 
     def profile_fields(p):
@@ -3488,7 +3578,7 @@ def phase_cluster_main():
          partition=part, **runs, gat_train_extra_bytes=gat_extra, gat_memory_bound_bytes=gat_bound,
          no_host_sync=sync_losses, host_split=host_split, batch=batch_checks,
          k3_fwd_products=k3_full,
-         memory_safe=memsafe)
+         memory_safe=memsafe, gat_whole_vs_batch=whole_vs_batch)
     return launches, batch_checks, k3_full
 
 

@@ -6,10 +6,13 @@ points run on ``cuda`` unless the caller passes ``device="cpu"``; on CPU
 tensors each kernel wrapper computes its plain PyTorch version instead.
 """
 
-from .graph import Graph, from_edges
+from . import graph, ops
+from .graph import (Graph, GraphBatch, HeteroGraph, batch_graphs, from_edges, from_scipy_coo,
+                    readout)
 from .models import GAT, GraphSAGE
 from .nn import GATConv, SAGEConv
 from .ops import edge_softmax, gspmm
 
-__all__ = ["Graph", "from_edges", "gspmm", "edge_softmax", "SAGEConv", "GATConv", "GraphSAGE",
+__all__ = ["Graph", "GraphBatch", "HeteroGraph", "batch_graphs", "from_edges", "from_scipy_coo",
+           "readout", "ops", "graph", "gspmm", "edge_softmax", "SAGEConv", "GATConv", "GraphSAGE",
            "GAT"]

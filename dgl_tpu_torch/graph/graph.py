@@ -33,7 +33,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .split import RowSplit, row_split
 
-__all__ = ["Graph", "from_edges", "per_layer"]
+__all__ = ["Graph", "from_edges", "from_scipy_coo", "per_layer"]
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -164,3 +164,12 @@ def from_edges(
     rs, rd, rindptr, reid = _build_sorted(d.long(), s.long(), num_src_nodes)
     rev = Graph(rs, rd, rindptr, reid, num_dst_nodes, num_src_nodes, row_split(rindptr))
     return Graph(s, d, indptr, eid, num_src_nodes, num_dst_nodes, row_split(indptr), rev)
+
+
+def from_scipy_coo(mat, *, device: DeviceLike = None) -> Graph:
+    """Build from a ``scipy.sparse`` matrix in the (dst, src) = (row, col)
+    sense, so that ``copy_u``'s sum is ``mat @ x`` (``tocoo()`` is all it
+    calls)."""
+    coo = mat.tocoo()
+    return from_edges(np.asarray(coo.col), np.asarray(coo.row), int(coo.shape[1]),
+                      int(coo.shape[0]), device=device)

@@ -36,7 +36,7 @@ from ..graph.graph import Graph
 from ..kernels.csr_spmm import csr_spmm
 from .segment import _gather_rows, _seg_sum_rows, segment_sum
 
-__all__ = ["gather_dst", "gather_src_rows", "spread_dst", "seg_sum_dst"]
+__all__ = ["gather_dst", "gather_src", "gather_src_rows", "spread_dst", "seg_sum_dst"]
 
 
 class _GatherSrcRows(torch.autograd.Function):
@@ -82,6 +82,7 @@ def spread_dst(g: Graph, v: torch.Tensor) -> torch.Tensor:
 
 
 gather_dst = spread_dst  # the JAX package's name for the same gather
+gather_src = gather_src_rows  # the JAX package's plain ``x[src]``: the same values
 
 
 def seg_sum_dst(g: Graph, msg: torch.Tensor) -> torch.Tensor:

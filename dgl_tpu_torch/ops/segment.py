@@ -14,6 +14,9 @@ not ported):
 * ``segment_max`` / ``segment_min``: plain PyTorch ``scatter_reduce`` (an
   XLA op in the JAX package, not a kernel); the exact shift of
   ``edge_softmax``, the max readout and ``gspmm``'s max/min use them.
+* ``segment_count`` / ``segment_softmax_denom``: the JAX package's
+  unsorted helpers over any ids, plain ``scatter_add_`` / ``index_add_``
+  (XLA scatters there); ids outside ``[0, num_segments)`` are dropped.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from ..graph.split import RowSplit
 from ..kernels.row_gather import row_gather_by_source
 from ..kernels.seg_sum import seg_sum
 
-__all__ = ["segment_sum", "segment_mean", "segment_max", "segment_min"]
+__all__ = ["segment_sum", "segment_mean", "segment_max", "segment_min", "segment_count",
+           "segment_softmax_denom"]
 
 
 def _seg_sum_rows(data: torch.Tensor, indptr: torch.Tensor,
@@ -101,3 +105,27 @@ def segment_max(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) ->
 def segment_min(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """``segment_max``'s counterpart with the minimum."""
     return _segment_extremum(data, seg_ids, num_segments, "amin")
+
+
+def _in_range(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``seg_ids`` with every id outside ``[0, num_segments)`` sent to the
+    spare row ``num_segments``, which the callers drop (no host sync)."""
+    ids = seg_ids.long()
+    return torch.where((ids < 0) | (ids >= num_segments), num_segments, ids)
+
+
+def segment_count(seg_ids: torch.Tensor, num_segments: int,
+                  dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """``out[s] = |{j: seg_ids[j] = s}|``."""
+    ids = _in_range(seg_ids, num_segments)
+    out = torch.zeros(num_segments + 1, dtype=torch.int64, device=ids.device)
+    return out.scatter_add_(0, ids, torch.ones_like(ids))[:num_segments].to(dtype)
+
+
+def segment_softmax_denom(z: torch.Tensor, seg_ids: torch.Tensor,
+                          num_segments: int) -> torch.Tensor:
+    """The sum of ``z`` over each element's segment, gathered back to the
+    elements: (E, ...) → (E, ...)."""
+    denom = z.new_zeros((num_segments + 1,) + tuple(z.shape[1:]))
+    denom = denom.index_add_(0, _in_range(seg_ids, num_segments), z)[:num_segments]
+    return denom[seg_ids.long().clamp(max=num_segments - 1)]

@@ -55,7 +55,7 @@ from ..kernels.csr_spmm import csr_spmm
 from .gather import gather_src_rows, seg_sum_dst
 from .segment import segment_max, segment_min
 
-__all__ = ["gspmm"]
+__all__ = ["gspmm", "copy_u_sum", "copy_u_mean", "u_mul_e_sum"]
 
 _COPY_U = ("copy_u", "copy_lhs")
 _COPY_E = ("copy_e", "copy_rhs")
@@ -163,3 +163,15 @@ def gspmm(
         return _CopyU.apply(x, g, mean)
     out = seg_sum_dst(g, _BINARY[op](gather_src_rows(g, x), e))
     return _scale_mean(g, out) if mean else out
+
+
+def copy_u_sum(g: Graph, x: torch.Tensor) -> torch.Tensor:
+    return gspmm(g, "copy_u", "sum", x=x)
+
+
+def copy_u_mean(g: Graph, x: torch.Tensor) -> torch.Tensor:
+    return gspmm(g, "copy_u", "mean", x=x)
+
+
+def u_mul_e_sum(g: Graph, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    return gspmm(g, "mul", "sum", x=x, e=e)

@@ -1,6 +1,6 @@
 from .checkpoint import CheckpointManager
-from .logger import MetricLogger
-from .timing import EpochTimer, PhaseTimer, event_times_ms, synchronize, time_fn
+from .logger import Logger, MetricLogger
+from .timing import EpochTimer, PhaseTimer, event_times_ms, op_time, synchronize, time_fn
 
-__all__ = ["CheckpointManager", "MetricLogger", "EpochTimer", "PhaseTimer", "event_times_ms",
-           "synchronize", "time_fn"]
+__all__ = ["CheckpointManager", "Logger", "MetricLogger", "EpochTimer", "PhaseTimer", "op_time",
+           "event_times_ms", "synchronize", "time_fn"]

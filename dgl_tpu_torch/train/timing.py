@@ -21,7 +21,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 
-__all__ = ["EpochTimer", "PhaseTimer", "time_fn", "event_times_ms", "synchronize",
+__all__ = ["EpochTimer", "PhaseTimer", "op_time", "time_fn", "event_times_ms", "synchronize",
            "device_profile"]
 
 
@@ -74,6 +74,19 @@ class PhaseTimer:
 
     def summary(self) -> str:
         return ", ".join(f"{k}: {v:.4f}s" for k, v in self.totals.items())
+
+
+@contextlib.contextmanager
+def op_time(out: List[float]):
+    """Append the seconds the block takes to ``out``. A block that puts its
+    result in the yielded dict's ``"result"`` is timed until the card has
+    finished it."""
+    t0 = time.perf_counter()
+    holder: Dict[str, object] = {}
+    yield holder
+    if "result" in holder and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    out.append(time.perf_counter() - t0)
 
 
 def time_fn(fn: Callable, *args, reps: int = 10, warmup: int = 2, device: DeviceLike = None) -> float:
