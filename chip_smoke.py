@@ -19,13 +19,22 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      CSRs around the row split T (graph/split.py): rows of T - 1, T, T + 1,
      2T and 2T + 1 edges, every row long, no row long, E = 0, int32 and
      int64 indptr; and a plan that does not match indptr refused before any
-     launch;
+     launch. bf16 messages (check_bf16_k1_k2): K1 and K2 on bfloat16 rows,
+     D in {1, 8, 16, 47, 64, 100} (2-, 4-, 8- and 16-byte loads), over the
+     random graph's two CSRs and the CSRs around the split, int32 and int64
+     indptr, K1 sum, mean and weighted: float32 sums held to float64 sums of
+     the same bfloat16 values within the same bound, to the plain version,
+     small integers bit for bit, two runs bitwise equal;
   4. reddit: the same checks on the full reddit graph at D = 16, forward
      and reverse CSR (one combine launch for the reverse CSR's long rows),
      with CUDA-event times of the kernel at T = 256, 512 and 1024, the plain
      version and torch.sparse.mm, and the bytes bound; T and each CSR's long
      rows and chunks; gspmm's forward and backward under
-     torch.cuda.set_sync_debug_mode("error"), which a host sync fails;
+     torch.cuda.set_sync_debug_mode("error"), which a host sync fails; K1's
+     bfloat16 instantiation on each CSR (k1_bf16_times: the checks, then
+     timed in turns with float32 on the same values, beside the plain
+     version, torch.sparse.mm on the bfloat16 CSR where torch takes it, and
+     the bound at 2 bytes a feature);
   5. main: dgl_tpu_torch.bench.run("reddit") at full size, once unhoisted
      and once hoisted, K1's launch and combine counters set to 0 before each
      run and read after it; the loss must be finite and fall, K1 must launch
@@ -48,7 +57,11 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      in {1, 16, 41, 64, 602}; both K3 passes on graphs whose two CSRs both
      have the rows around the split (H in {1, 4}, D in {16, 40, 41}, keep in
      {1, 0.82}, int32 and int64 indptr, the same checks) and a mismatched
-     plan refused by each before any launch;
+     plan refused by each before any launch; both K3 passes with bfloat16 v
+     (H in {1, 4}, D in {16, 40, 41}, keep in {1, 0.82}): the forward held
+     to float64 and the plain version as above, b2's bfloat16 grad_v equal
+     bit for bit to its float32 grad_v rounded once (w2 and w3 equal), within
+     one bfloat16 ulp of the plain version, and the integer cases exact;
   7. gat_reddit: K3 forward and b2 on reddit with self-loops (H = 1,
      D = 16, reddit's attention dropout) and K2 at (E, 16) over the dst and
      the reverse CSR: the same checks, CUDA-event medians of the kernel, the
@@ -67,7 +80,13 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      gather_src_rows' adjoint timed as
      one K1 launch and as index_select + K2 (reddit at W = 16, pubmed at
      W = 64); a fused GATConv's forward and backward allocate no more on
-     reddit than on its self-loops alone;
+     reddit than on its self-loops alone; bf16: both K3 passes and K2 (dst
+     CSR, W = 16) in bfloat16 at the same shapes (k3_bf16_times,
+     k2_bf16_times), each timed in turns with float32; and a
+     GATConv(edge_dtype=bfloat16) step on pubmed in both forms beside the
+     float32 layer (gatconv_bf16_step: the bfloat16 launches of each form
+     counted, the output within 1e-2 and the input gradient within 5e-2 of
+     the float32 one's largest entry);
   8. row_gather: P1 in index order (row_gather_async), P1 in source order
      (row_gather_by_source, through gather_plan) and P2 (row_gather_smem)
      held bit for bit to x[idx] in float32 and bfloat16, int32 and int64
@@ -113,7 +132,12 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      Then K1 at every width those runs give it (arxiv D = 40, 128, 256;
      products D = 47, 64, 100), forward on the dst CSR and backward on the
      reverse CSR, held to float64 sums and timed beside torch.sparse.mm and
-     its bound; load_s, setup_s, precompute_s, memory and each CSR's split;
+     its bound; load_s, setup_s, precompute_s, memory and each CSR's split.
+     The bf16 path: products unhoisted with bf16 messages (main_sage
+     --bf16-messages), 5 epochs: K1's launches and combines equal the
+     float32 run's, the forward's on bfloat16 rows, the first step's loss
+     within 1e-2 of the float32 run's, its epoch time beside; K1's bfloat16
+     instantiation at products' widths each way, timed in turns with float32;
   11. gc_main: main_gcn at full width on ENZYMES (600 graphs, 5 epochs),
      ogbg-molhiv (both lowerings' runs cut to 10,000 of its 41,127 graphs;
      3 epochs) and ogbg-ppa
@@ -269,7 +293,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      (ms_edge_head_key_*, ms_edge_key_*); the distributed phase's
      launches on rank 0 (launches_halo_sage, launches_halo_rgcn,
      launches_spmd, launches_send_adjoint; launches_halo_gat;
-     launches_halo_payload).
+     launches_halo_payload); the bfloat16 instantiations (csr_spmm_bf16,
+     launched by products SAGE with bf16 messages; seg_sum_bf16 and both K3
+     passes' *_bf16, by the bf16 GATConv step), each with its float32
+     instantiation's time in the same turns (ms_f32_in_turns).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -368,10 +395,34 @@ def median_ms(fn, reps, warmup):
     return statistics.median(event_times_ms(fn, reps=reps, warmup=warmup))
 
 
-def spmm_bound(n_rows, n_src, nnz, d, indptr_bytes):
+def in_turns(fa, fb, reps=20, warmup=3):
+    """CUDA-event medians of ``fa`` and ``fb`` in turns (a, b, b, a): each
+    the mean of its two medians, so a drift of the card's clock within the
+    call falls on both."""
+    a1 = median_ms(fa, reps, warmup)
+    b1 = median_ms(fb, reps, warmup)
+    b2 = median_ms(fb, reps, warmup)
+    a2 = median_ms(fa, reps, warmup)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def bf16_library_ms(make, reps=20, warmup=3):
+    """The time of the PyTorch call ``make()`` returns on bfloat16 inputs,
+    and a note: None and the error where this build of torch refuses
+    bfloat16 there (its result is bfloat16 where the kernel's is float32)."""
+    try:
+        call = make()
+        call()
+    except (RuntimeError, NotImplementedError, TypeError) as err:
+        return None, f"refused: {type(err).__name__}: {str(err).splitlines()[0][:160]}"
+    return median_ms(call, reps, warmup), "returns bfloat16; the kernel returns float32 sums"
+
+
+def spmm_bound(n_rows, n_src, nnz, d, indptr_bytes, x_bytes=4):
     """Least time (ms) of one CSR SpMM and what sets it: each input read
-    once and the output written once, or nnz·d FMAs at the float32 peak."""
-    moved = nnz * 4 + (n_rows + 1) * indptr_bytes + n_src * d * 4 + n_rows * d * 4
+    once (x at ``x_bytes`` a value: 2 for bfloat16 rows) and the float32
+    output written once, or nnz·d FMAs at the float32 peak."""
+    moved = nnz * 4 + (n_rows + 1) * indptr_bytes + n_src * d * x_bytes + n_rows * d * 4
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, 2 * nnz * d / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -545,6 +596,66 @@ def check_split_k1(rng, dev):
     return cases, acc
 
 
+# -- bfloat16 rows: K1's and K2's bfloat16 instantiations --------------------
+
+BF16 = torch.bfloat16
+BF16_D = (1, 8, 16, 47, 64, 100)  # every load width: 2, 4, 8 and 16 bytes a lane
+
+
+def _bf16_rows(rng, kind, n, d, dev):
+    """(n, d) bfloat16 rows around 1 ("normal") or small integers, which
+    bfloat16 holds exactly and whose float32 sums are exact in any order."""
+    a = rng.normal(1.0, 1.0, (n, d)) if kind == "normal" else rng.integers(-4, 5, (n, d))
+    return torch.from_numpy(a.astype(np.float32)).to(dev).to(BF16)
+
+
+def check_bf16_k1_k2(rng, dev, g):
+    """K1 and K2 on bfloat16 rows, D in BF16_D, over the random graph's dst
+    and reverse CSRs (hub rows of 10^5 edges) and the CSRs around the split,
+    int32 and int64 indptr, K1 sum and mean, with and without edge weights:
+    against float64 sums of the same bfloat16 values within check's float32
+    bound (the values convert exactly; the sums are float32), against the
+    plain version, small integers bit for bit, two runs bitwise equal, and
+    the bfloat16 launches counted. Returns (cases, K1 errors, K2 errors)."""
+    from dgl_tpu_torch.graph.split import SPLIT_T, row_split
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
+    from dgl_tpu_torch.kernels.seg_sum import seg_sum
+
+    csrs = {"dst": (g.indptr, g.src, g.num_src_nodes, g.split),
+            "reverse": (g.reverse.indptr, g.reverse.src, g.num_dst_nodes, g.reverse.split)}
+    for name, degrees in _split_degrees(rng, SPLIT_T).items():
+        ip, idx = _csr_of(degrees, 3000, rng, dev)
+        csrs[f"split {name}"] = (ip, idx, 3000, row_split(ip))
+    cases, k1, k2 = 0, [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+    k1_before, k2_before = csr_spmm.launches_bf16, seg_sum.launches_bf16
+    for name, (ip, idx, n_src, plan) in csrs.items():
+        e = idx.numel()
+        w = torch.from_numpy(rng.uniform(0.5, 1.5, e).astype(np.float32)).to(dev)
+        wi = torch.from_numpy(rng.integers(1, 4, e).astype(np.float32)).to(dev)
+        for d in BF16_D:
+            x, xi = (_bf16_rows(rng, k, n_src, d, dev) for k in ("normal", "integer"))
+            msg, mi = (_bf16_rows(rng, k, e, d, dev) for k in ("normal", "integer"))
+            for indptr in (ip.int(), ip.long()):
+                for mean, ww, wwi in ((False, None, None), (True, None, None), (False, w, wi)):
+                    what = (f"bf16 {name} D={d} {indptr.dtype} mean={mean} "
+                            f"weighted={ww is not None}")
+                    got = csr_spmm(indptr, idx, x, ww, mean=mean, split=plan)
+                    if got.dtype != torch.float32 or not torch.equal(
+                            got, csr_spmm(indptr, idx, x, ww, mean=mean, split=plan)):
+                        raise AssertionError(f"{what}: not float32, or two kernel runs differ")
+                    _merge(k1, [check(what, got, ip, reference64(ip, idx, x, ww, mean=mean),
+                                      csr_spmm_plain(ip, idx, x, ww, mean=mean))])
+                    if not mean:
+                        check(f"{what} integer", csr_spmm(indptr, idx, xi, wwi, split=plan), ip,
+                              reference64(ip, idx, xi, wwi), exact=True)
+                    cases += 1
+                check_k2(f"bf16 {name} W={d} {indptr.dtype}", indptr, msg, mi, k2, plan)
+                cases += 1
+    if csr_spmm.launches_bf16 == k1_before or seg_sum.launches_bf16 == k2_before:
+        raise AssertionError("bfloat16 rows launched no bfloat16 kernel")
+    return cases, k1, k2
+
+
 def no_host_sync(run, control):
     """``run()`` under ``torch.cuda.set_sync_debug_mode("error")``, where a
     host sync raises; then ``control()``, which syncs and so must raise
@@ -633,13 +744,20 @@ def phase_random():
                 used = max([used] + [e[2] for e in errs])
                 cases += len(errs)
     split_cases, acc = check_split_k1(rng, dev)
+    t_bf16 = time.perf_counter()
+    bf16_cases, bf16_k1, bf16_k2 = check_bf16_k1_k2(np.random.default_rng(15), dev, g)
     torch.cuda.synchronize()
+    bf16_s = time.perf_counter() - t_bf16
     emit("random", cases=cases, nodes=n, edges=g.num_edges,
          max_in_degree=int(g.in_degrees().max()), max_out_degree=int(g.out_degrees().max()),
          zero_in_degree_rows=int((g.in_degrees() == 0).sum()), max_abs_err=max(worst, acc[0]),
          max_abs_err_f64=max(worst64, acc[1]), max_bound_used=max(used, acc[2]), rtol=RTOL,
          atol=ATOL, hub_deg=HUB_DEG, deterministic=True, split_cases=split_cases,
-         split_max_abs_err=acc[0], split_max_bound_used=acc[2], **_split_fields(g))
+         split_max_abs_err=acc[0], split_max_bound_used=acc[2], **_split_fields(g),
+         bf16_cases=bf16_cases, bf16_seconds=bf16_s, bf16_d=BF16_D,
+         bf16_k1_max_abs_err=bf16_k1[0], bf16_k1_max_abs_err_f64=bf16_k1[1],
+         bf16_k1_max_bound_used=bf16_k1[2], bf16_k2_max_abs_err=bf16_k2[0],
+         bf16_k2_max_abs_err_f64=bf16_k2[1], bf16_k2_max_bound_used=bf16_k2[2])
 
 
 def phase_reddit():
@@ -701,6 +819,8 @@ def phase_reddit():
                                gg.indptr),
         }
         res[side]["at_or_below_library"] = res[side]["kernel_ms"] <= res[side]["library_ms"]
+        res[side]["bf16"] = k1_bf16_times(f"reddit {side}", gg.indptr, gg.src, xx, x_int, mean,
+                                          gg.split, n, reps=30, plain=True)
     # gspmm's forward and backward on the card read nothing back: no host sync
     xk = x.clone().requires_grad_()
     no_host_sync(lambda: gspmm(g, "copy_u", "mean", x=xk).backward(g_out),
@@ -711,8 +831,53 @@ def phase_reddit():
          kernel_ms_fwd=res["fwd"]["kernel_ms"], kernel_ms_bwd=res["bwd"]["kernel_ms"],
          plain_ms_fwd=res["fwd"]["plain_ms"], plain_ms_bwd=res["bwd"]["plain_ms"],
          library_ms_fwd=res["fwd"]["library_ms"], library_ms_bwd=res["bwd"]["library_ms"],
-         bound_ms_fwd=res["fwd"]["bound_ms"], bound_ms_bwd=res["bwd"]["bound_ms"], detail=res)
+         bound_ms_fwd=res["fwd"]["bound_ms"], bound_ms_bwd=res["bwd"]["bound_ms"],
+         **{f"bf16_{k}_{side}": res[side]["bf16"][k] for side in ("fwd", "bwd")
+            for k in ("ms", "ms_f32_in_turns", "plain_ms", "library_ms", "bound_ms")},
+         detail=res)
     return res, g
+
+
+def k1_bf16_times(what, indptr, idx, x, x_int, mean, split, n_src, reps=20, plain=False):
+    """K1's bfloat16 instantiation on ``x`` rounded to bfloat16 (x_int, small
+    integers, bit for bit): held to float64 sums of the same values and,
+    where ``plain``, to the plain version; timed in turns with the float32
+    instantiation on the same values widened to float32; the plain version,
+    torch.sparse.mm on the bfloat16 CSR (where this torch takes it) and the
+    bound at 2 bytes a feature (the output stays float32)."""
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
+
+    xb = x.to(BF16)
+    x32 = xb.float()
+    kern = lambda: csr_spmm(indptr, idx, xb, mean=mean, split=split)  # noqa: E731
+    kern32 = lambda: csr_spmm(indptr, idx, x32, mean=mean, split=split)  # noqa: E731
+    got = kern()
+    if got.dtype != torch.float32 or not torch.equal(got, kern()):
+        raise AssertionError(f"{what} bf16: not float32, or two kernel runs differ")
+    p = csr_spmm_plain(indptr, idx, xb, mean=mean) if plain else None
+    ref = (reference64(indptr, idx, xb, mean=mean) if plain
+           else reference64_sparse(indptr, idx, xb, n_src, mean))
+    err, err64, used = check(f"{what} bf16", got, indptr, ref, p)
+    del got, p, ref
+    if x_int is not None:
+        check(f"{what} bf16 integer", csr_spmm(indptr, idx, x_int.to(BF16), split=split), indptr,
+              reference64_sparse(indptr, idx, x_int, n_src, False), exact=True)
+    ms32, ms = in_turns(kern32, kern, reps=reps, warmup=3)
+    e, n_rows, d = idx.numel(), indptr.numel() - 1, x.shape[1]
+
+    def library():
+        a = torch.sparse_csr_tensor(indptr.long(), idx.long(),
+                                    torch.ones(e, dtype=BF16, device=x.device),
+                                    size=(n_rows, n_src), check_invariants=False)
+        return lambda: torch.sparse.mm(a, xb)
+
+    lib_ms, lib_note = bf16_library_ms(library, reps=reps)
+    bound, by = spmm_bound(n_rows, n_src, e, d, indptr.element_size(), x_bytes=2)
+    return {"d": d, "mean": mean, "ms": ms, "ms_f32_in_turns": ms32,
+            "plain_ms": (median_ms(lambda: csr_spmm_plain(indptr, idx, xb, mean=mean), reps=5,
+                                   warmup=1) if plain else None),
+            "library_ms": lib_ms, "library_note": lib_note, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": err, "max_abs_err_f64": err64, "max_bound_used": used}
 
 
 def phase_main():
@@ -770,27 +935,30 @@ def _bound_ms(moved_bytes, flops):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k3_fwd_bound(n_dst, n_src, e, h, d):
-    """Read indptr, src, v, a_src and a_dst once; write out and w1 (N, H, D)
-    and inv_s, w1s, shift (N, H). About 4·D + 12 operations per edge and
-    head (two FMAs per feature, the logit, exp and scalar sums)."""
-    moved = 4 * ((n_dst + 1) + e + n_src * h * d + n_src * h + n_dst * h
-                 + 2 * n_dst * h * d + 3 * n_dst * h)
+def k3_fwd_bound(n_dst, n_src, e, h, d, v_bytes=4):
+    """Read indptr, src, v (``v_bytes`` a value: 2 in bfloat16), a_src and
+    a_dst once; write out and w1 (N, H, D) and inv_s, w1s, shift (N, H),
+    float32. About 4·D + 12 operations per edge and head (two FMAs per
+    feature, the logit, exp and scalar sums)."""
+    moved = (4 * ((n_dst + 1) + e + n_src * h + n_dst * h + 2 * n_dst * h * d + 3 * n_dst * h)
+             + v_bytes * n_src * h * d)
     return _bound_ms(moved, e * h * (4 * d + 12))
 
 
-def k3_bwd_bound(n_src, n_dst, e, h, d, dropout):
+def k3_bwd_bound(n_src, n_dst, e, h, d, dropout, v_bytes=4):
     """Read the reverse indptr and dst (and eid with dropout), g (N, H, D),
-    the packed node float4s and a_src once; write grad_v, w2 (N, H, D) and
-    w3 (N, H)."""
-    moved = 4 * ((n_src + 1) + e * (2 if dropout else 1) + n_dst * h * d + 4 * n_dst * h
-                 + n_src * h + 2 * n_src * h * d + n_src * h)
+    the packed node float4s and a_src once; write grad_v (``v_bytes`` a
+    value: v's type), w2 (N, H, D) and w3 (N, H)."""
+    moved = (4 * ((n_src + 1) + e * (2 if dropout else 1) + n_dst * h * d + 4 * n_dst * h
+                  + n_src * h + n_src * h * d + n_src * h)
+             + v_bytes * n_src * h * d)
     return _bound_ms(moved, e * h * (4 * d + 14))
 
 
-def k2_bound(n_rows, e, w):
-    """Read msg and indptr once, write out once; one add per element."""
-    return _bound_ms(4 * (e * w + n_rows + 1 + n_rows * w), e * w)
+def k2_bound(n_rows, e, w, msg_bytes=4):
+    """Read msg (``msg_bytes`` a value) and indptr once, write the float32
+    out once; one add per element."""
+    return _bound_ms(msg_bytes * e * w + 4 * (n_rows + 1 + n_rows * w), e * w)
 
 
 def _merge(acc, errs):
@@ -842,7 +1010,7 @@ def check_k3_bwd(what, g, g_out, node, a_s, kw, acc):
     return got
 
 
-def check_k3_exact(what, g, h, d, gen):
+def check_k3_exact(what, g, h, d, gen, dtype=torch.float32):
     """Both K3 passes on inputs whose every term float32 holds exactly, so a
     dropped, repeated or misrouted edge shows however long its row, unlike
     the float64 bound, which on a hub row is wide.
@@ -854,14 +1022,17 @@ def check_k3_exact(what, g, h, d, gen):
     2·24 + 2 bits: rounding a quotient twice is innocuous). b2: node =
     (a_dst 0, shift 1, inv_s 1, C integer) and a_src = 1 make α = 1 and the
     slope 1, so grad_v, w2 and w3 are integer sums. keep = 0.5 scales the
-    kept terms by exactly 2, so the dropout hash is held exactly too."""
+    kept terms by exactly 2, so the dropout hash is held exactly too.
+    ``dtype`` bfloat16: v in bfloat16 (exact for these integers) and b2's
+    grad_v rounded once to bfloat16, which must equal the exact sum rounded
+    so."""
     from dgl_tpu_torch.kernels.gat_attention import (
         gat_attention_bwd, gat_attention_bwd_plain, gat_attention_fwd, gat_attention_fwd_plain)
 
     dev = g.indptr.device
     n_src, n_dst, rev = g.num_src_nodes, g.num_dst_nodes, g.reverse
     ints = lambda *shape: torch.randint(-4, 5, shape, device=dev, generator=gen).float()  # noqa: E731
-    v, g_out, c = ints(n_src, h, d), ints(n_dst, h, d), ints(n_dst, h)
+    v, g_out, c = ints(n_src, h, d).to(dtype), ints(n_dst, h, d), ints(n_dst, h)
     a_s = torch.ones(n_src, h, device=dev)
     a_d = torch.zeros(n_dst, h, device=dev)
     node = torch.stack([a_d, torch.ones_like(a_d), torch.ones_like(a_d), c], -1)
@@ -871,15 +1042,56 @@ def check_k3_exact(what, g, h, d, gen):
         got = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
         want = gat_attention_fwd_plain(g.indptr, g.src, v.double(), a_s.double(), a_d.double(), **kw)
         got += gat_attention_bwd(rev.indptr, rev.src, rev.eid, g_out, node, a_s, split=rev.split,
-                                 **kw)
+                                 v_dtype=dtype, **kw)
         want += gat_attention_bwd_plain(rev.indptr, rev.src, rev.eid, g_out.double(), node.double(),
                                         a_s.double(), **kw)
         names = ("out", "w1", "inv_s", "w1s", "shift", "grad_v", "w2", "w3")
         for nm, x, w in zip(names, got, want):
-            if not torch.equal(x, w.float()):
-                bad = int((x != w.float()).flatten(1).any(1).nonzero()[0])
+            w = w.float().to(x.dtype)  # exact in float32: one rounding to bfloat16 at most
+            if not torch.equal(x, w):
+                bad = int((x != w).flatten(1).any(1).nonzero()[0])
                 raise AssertionError(f"{what} keep={keep} exact {nm}: row {bad} differs from the "
                                      "exact sums")
+
+
+def check_k3_b2_bf16(what, g, g_out, node, a_s, kw, acc):
+    """b2's bfloat16 instantiation (grad_v in bfloat16): its grad_v must be
+    the float32 instantiation's rounded once to bfloat16, bit for bit (the
+    same float32 sums in the same order), its w2 and w3 the float32 ones;
+    the float32 pass is held to float64 and its plain version by
+    check_k3_bwd; grad_v within one bfloat16 ulp of the plain version's
+    (float32 sums in another order, then rounded) on rows of at most HUB_DEG
+    terms. Returns the largest difference from the plain version."""
+    from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_bwd_plain
+
+    rev = g.reverse
+    args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
+    got = gat_attention_bwd(*args, split=rev.split, v_dtype=BF16, **kw)
+    if not torch.equal(got[0], gat_attention_bwd(*args, split=rev.split, v_dtype=BF16, **kw)[0]):
+        raise AssertionError(f"{what}: two K3 b2 bf16 runs differ")
+    ref = check_k3_bwd(what, g, g_out, node, a_s, kw, acc)
+    if got[0].dtype != BF16 or not torch.equal(got[0], ref[0].to(BF16)):
+        raise AssertionError(f"{what}: b2's bf16 grad_v is not its float32 grad_v rounded once")
+    if not all(torch.equal(x, y) for x, y in zip(got[1:], ref[1:])):
+        raise AssertionError(f"{what}: b2's bf16 w2 / w3 differ from the float32 pass's")
+    plain = gat_attention_bwd_plain(*args, v_dtype=BF16, **kw)[0].float()
+    short = (rev.indptr[1:] - rev.indptr[:-1]) <= HUB_DEG
+    if not torch.allclose(got[0][short].float(), plain[short], rtol=2.0 ** -7, atol=ATOL):
+        raise AssertionError(f"{what}: b2's bf16 grad_v is over one bfloat16 ulp off the plain "
+                             "version")
+    return (got[0].float() - plain).abs().max().item()
+
+
+def check_k3_bf16(what, g, v, g_out, a_s, a_d, kw, acc):
+    """Both K3 passes with bfloat16 v: the forward (float32 out) against
+    float64 runs of the same bfloat16 values within check's bound and the
+    plain version (check_k3_fwd), b2 by check_k3_b2_bf16. Returns the
+    forward's outputs and b2's largest difference from its plain version."""
+    out, w1, inv_s, w1s, shift = check_k3_fwd(f"{what} bf16", g, v.to(BF16), a_s, a_d, kw,
+                                              acc["fwd"])
+    node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
+    b2_err = check_k3_b2_bf16(f"{what} bf16", g, g_out, node, a_s, kw, acc["bwd"])
+    return (out, w1, inv_s, w1s, shift), b2_err
 
 
 def check_k2(what, indptr, msg, ints, acc, split):
@@ -1006,7 +1218,25 @@ def phase_gat_random():
                 check_k2(f"{what} {side}", gg.indptr, msg, ints, k2, gg.split)
     split_cases = check_split_k2(np.random.default_rng(4), dev, k2)
     k3_split_cases = check_split_k3(np.random.default_rng(6), dev, k3)
+    # bfloat16 v: both K3 passes' bfloat16 instantiations
+    t_bf16 = time.perf_counter()
+    k3_bf16 = {"fwd": [0.0, 0.0, 0.0], "bwd": [0.0, 0.0, 0.0]}
+    bf16_cases, b2_bf16_err = 0, 0.0
+    for h in (1, 4):
+        for d in (16, 40, 41):
+            v, g_out = (1.0 + torch.randn(n, h, d, device=dev, generator=gen) for _ in range(2))
+            a_s, a_d = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
+            check_k3_exact(f"bf16 H={h} D={d}", g, h, d, gen, dtype=BF16)
+            for keep in (1.0, 0.82):
+                seed = torch.randint(-(2**31), 2**31 - 1, (1,), dtype=torch.int32, device=dev,
+                                     generator=gen)
+                kw = dict(negative_slope=0.2, keep=keep, seed=seed)
+                _, err = check_k3_bf16(f"H={h} D={d} keep={keep}", g, v, g_out, a_s, a_d, kw,
+                                       k3_bf16)
+                b2_bf16_err = max(b2_bf16_err, err)
+                bf16_cases += 1
     torch.cuda.synchronize()
+    bf16_s = time.perf_counter() - t_bf16
     emit("gat_random", cases=cases, nodes=n, edges=g.num_edges,
          max_in_degree=int(g.in_degrees().max()), max_out_degree=int(g.out_degrees().max()),
          zero_in_degree_rows=int((g.in_degrees() == 0).sum()),
@@ -1015,7 +1245,11 @@ def phase_gat_random():
          k3_bwd_max_abs_err_f64=k3["bwd"][1], k3_bwd_max_bound_used=k3["bwd"][2],
          k2_max_abs_err=k2[0], k2_max_abs_err_f64=k2[1], k2_max_bound_used=k2[2],
          k2_split_cases=split_cases, k3_split_cases=k3_split_cases, rtol=RTOL, atol=ATOL,
-         hub_deg=HUB_DEG, deterministic=True, **_split_fields(g))
+         hub_deg=HUB_DEG, deterministic=True, **_split_fields(g),
+         bf16_cases=bf16_cases, bf16_seconds=bf16_s,
+         k3_fwd_bf16_max_abs_err=k3_bf16["fwd"][0], k3_fwd_bf16_max_abs_err_f64=k3_bf16["fwd"][1],
+         k3_fwd_bf16_max_bound_used=k3_bf16["fwd"][2], k3_bwd_bf16_grad_v_max_abs_err=b2_bf16_err,
+         k3_bwd_bf16_f32_pass_max_bound_used=k3_bf16["bwd"][2])
 
 
 def _gat_graph(name, dev):
@@ -1099,6 +1333,50 @@ def k3_shape(name, g, h, d, gen, keep):
         "split_T": rev.split.t, "long_rows": rev.split.num_long, "chunks": rev.split.num_chunks,
         "t_sweep": t_sweep(lambda p: gat_attention_bwd(*bwd_args, split=p, **kw), rev.indptr),
     }
+    del node, bwd_args
+    res.update(k3_bf16_times(name, g, v, g_out, a_s, a_d, kw, keep))
+    return res
+
+
+def k3_bf16_times(name, g, v, g_out, a_s, a_d, kw, keep):
+    """Both K3 passes' bfloat16 instantiations on ``g`` (check_k3_bf16),
+    each timed in turns with its float32 instantiation on the same values
+    (v rounded to bfloat16, then widened), the plain versions and the bytes
+    bounds at 2 bytes a value of v (forward) and of grad_v (b2)."""
+    from dgl_tpu_torch.kernels.gat_attention import (
+        gat_attention_bwd, gat_attention_bwd_plain, gat_attention_fwd, gat_attention_fwd_plain)
+
+    rev = g.reverse
+    n, e, (h, d) = g.num_dst_nodes, g.num_edges, v.shape[1:]
+    acc = {"fwd": [0.0, 0.0, 0.0], "bwd": [0.0, 0.0, 0.0]}
+    (out, _, inv_s, _, shift), b2_err = check_k3_bf16(name, g, v, g_out, a_s, a_d, kw, acc)
+    vb = v.to(BF16)
+    v32 = vb.float()
+    fwd = lambda vv: lambda: gat_attention_fwd(g.indptr, g.src, vv, a_s, a_d,  # noqa: E731
+                                               split=g.split, **kw)
+    ms32, ms = in_turns(fwd(v32), fwd(vb), reps=20, warmup=2)
+    bound, by = k3_fwd_bound(n, n, e, h, d, v_bytes=2)
+    res = {"gat_attention_fwd_bf16": {
+        "ms": ms, "ms_f32_in_turns": ms32,
+        "plain_ms": median_ms(lambda: gat_attention_fwd_plain(g.indptr, g.src, vb, a_s, a_d, **kw),
+                              reps=5, warmup=1),
+        "library_ms": None, "bound_ms": bound, "bound_by": by,
+        "max_abs_err": acc["fwd"][0], "max_abs_err_f64": acc["fwd"][1],
+        "max_bound_used": acc["fwd"][2]}}
+    node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
+    del out, inv_s, shift
+    args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
+    b2 = lambda vd: lambda: gat_attention_bwd(*args, split=rev.split,  # noqa: E731
+                                              v_dtype=vd, **kw)
+    ms32, ms = in_turns(b2(torch.float32), b2(BF16), reps=20, warmup=2)
+    bound, by = k3_bwd_bound(n, n, e, h, d, dropout=keep < 1.0, v_bytes=2)
+    res["gat_attention_bwd_bf16"] = {
+        "ms": ms, "ms_f32_in_turns": ms32,
+        "plain_ms": median_ms(lambda: gat_attention_bwd_plain(*args, v_dtype=BF16, **kw), reps=5,
+                              warmup=1),
+        "library_ms": None, "bound_ms": bound, "bound_by": by, "max_abs_err": b2_err,
+        "max_abs_err_f64": None, "max_bound_used": acc["bwd"][2],
+        "f32_pass_max_abs_err_f64": acc["bwd"][1]}
     return res
 
 
@@ -1227,6 +1505,94 @@ def fused_conv_no_host_sync(g, gen):
                              "sync check")
 
 
+# bf16 layer against the float32 one, of the largest entry: the output, and
+# the input gradient, whose sums of bfloat16-rounded products cancel more
+# (the JAX package's own bf16 attention test allows 0.05 against float32,
+# tests/test_attention_kernel.py:test_lane_gat_bf16_close)
+GATCONV_BF16_ATOL = 1e-2
+GATCONV_BF16_GRAD_ATOL = 5e-2
+
+
+def gatconv_bf16_step(g, gen, in_feats=500, heads=8, d=8):
+    """The bf16 GAT layer on ``g`` (pubmed with self-loops; its first GAT
+    layer's shape): GATConv(edge_dtype=bfloat16) forward and backward in the
+    fused form (K3's two bfloat16 passes, one launch each) and the edge form
+    (the copy_e sum one bfloat16 K2 launch, gather_src_rows' adjoint one
+    bfloat16 K1 launch), each beside the float32 layer with the same
+    weights, every kernel's launches and bfloat16 launches counted around
+    each: the float32 layer launches no bfloat16 kernel. Output and input
+    gradient within GATCONV_BF16_ATOL and GATCONV_BF16_GRAD_ATOL of the
+    float32 layer's largest entry.
+    Returns each form's launches and errors."""
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
+    from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
+    from dgl_tpu_torch.kernels.seg_sum import seg_sum
+    from dgl_tpu_torch.nn import GATConv
+
+    dev = g.indptr.device
+    n = g.num_dst_nodes
+    counters = {"csr_spmm": csr_spmm, "seg_sum": seg_sum, "gat_attention_fwd": gat_attention_fwd,
+                "gat_attention_bwd": gat_attention_bwd}
+    x = 1.0 + torch.randn(n, in_feats, device=dev, generator=gen)
+    cot = torch.randn(n, heads, d, device=dev, generator=gen)
+    want = {"fused": {"gat_attention_fwd": 1, "gat_attention_bwd": 1},
+            "edge": {"seg_sum": 1, "csr_spmm": 1}}
+    res = {}
+    for form in ("fused", "edge"):
+        runs = {}
+        for dtype in (torch.float32, BF16):
+            conv = GATConv(in_feats, d, heads, edge_dtype=None if dtype == torch.float32 else dtype,
+                           fused=form == "fused", device=dev,
+                           generator=torch.Generator().manual_seed(9))
+            xk = x.clone().requires_grad_()
+            torch.cuda.synchronize()
+            before = {k: (c.launches, c.launches_bf16) for k, c in counters.items()}
+            out = conv(g, xk)
+            out.backward(cot)
+            torch.cuda.synchronize()
+            bf16 = {k: c.launches_bf16 - before[k][1] for k, c in counters.items()}
+            runs[dtype] = (out.detach(), xk.grad, bf16,
+                           {k: c.launches - before[k][0] for k, c in counters.items()})
+        (o32, g32, bf32, _), (o16, g16, bf16, l16) = runs[torch.float32], runs[BF16]
+        if any(bf32.values()):
+            raise AssertionError(f"the float32 {form} GATConv launched bfloat16 kernels: {bf32}")
+        if {k: v for k, v in bf16.items() if v} != want[form]:
+            raise AssertionError(f"the bf16 {form} GATConv's bfloat16 launches {bf16}; "
+                                 f"want {want[form]}")
+        err = (o16 - o32).abs().max().item() / o32.abs().max().item()
+        gerr = (g16 - g32).abs().max().item() / g32.abs().max().item()
+        if not (err <= GATCONV_BF16_ATOL and gerr <= GATCONV_BF16_GRAD_ATOL):
+            raise AssertionError(f"the bf16 {form} GATConv is {err} (output) / {gerr} (gradient) "
+                                 "off the float32 layer, relative to the largest entry")
+        res[form] = {"launches_bf16": bf16, "launches": l16, "out_rel_err": err,
+                     "grad_rel_err": gerr}
+    return res
+
+
+def k2_bf16_times(indptr, msg, ints, split):
+    """K2's bfloat16 instantiation on ``msg`` rounded to bfloat16 (check_k2:
+    float64 sums of the same values within the float32 bound, the plain
+    version, integers bit for bit), timed in turns with the float32 one on
+    the same values widened, beside the plain version, segment_reduce on the
+    bfloat16 messages and the bound at 2 bytes a value."""
+    from dgl_tpu_torch.kernels.seg_sum import seg_sum, seg_sum_plain
+
+    mb, acc = msg.to(BF16), [0.0, 0.0, 0.0]
+    check_k2("reddit fwd bf16", indptr, mb, ints.to(BF16), acc, split)
+    m32 = mb.float()
+    ms32, ms = in_turns(lambda: seg_sum(indptr, m32, split=split),
+                        lambda: seg_sum(indptr, mb, split=split), reps=20, warmup=2)
+    offsets = indptr.long()
+    lib, note = bf16_library_ms(
+        lambda: lambda: torch.segment_reduce(mb, "sum", offsets=offsets), reps=20, warmup=2)
+    n, (e, w) = indptr.numel() - 1, msg.shape
+    bound, by = k2_bound(n, e, w, msg_bytes=2)
+    return {"ms": ms, "ms_f32_in_turns": ms32,
+            "plain_ms": median_ms(lambda: seg_sum_plain(indptr, mb), reps=5, warmup=1),
+            "library_ms": lib, "library_note": note, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2]}
+
+
 def phase_gat_reddit():
     from dgl_tpu_torch.kernels.seg_sum import csr_rows, seg_sum, seg_sum_plain
     from dgl_tpu_torch.ops import seg_sum_dst
@@ -1280,6 +1646,8 @@ def phase_gat_reddit():
         r["at_or_below_segment_reduce"] = r["ms"] <= r["library_ms"]
         r["at_or_below_index_add"] = r["ms"] <= r["index_add_ms"]
         del rows
+        if side == "fwd":  # the edge form's bf16 copy_e sum runs over the dst CSR
+            res["seg_sum_bf16"] = k2_bf16_times(indptr, msg, ints, gg.split)
     # seg_sum_dst's forward and backward on the card read nothing back: no host sync
     mk = msg.clone().requires_grad_()
     cot = torch.randn(n, d, device=dev, generator=gen)
@@ -1288,8 +1656,10 @@ def phase_gat_reddit():
     if mk.grad is None:
         raise AssertionError("seg_sum_dst's backward gave no gradient under the sync check")
     del msg, ints, mk
-    adjoint = {"reddit": adjoint_times(g, d, gen),
-               "pubmed": adjoint_times(_gat_graph("pubmed", dev), 64, gen)}
+    pubmed = _gat_graph("pubmed", dev)
+    adjoint = {"reddit": adjoint_times(g, d, gen), "pubmed": adjoint_times(pubmed, 64, gen)}
+    gatconv_bf16 = gatconv_bf16_step(pubmed, gen)
+    del pubmed
     memory = fused_memory(g, gen)
     emit("gat_reddit", nodes=n, edges=e, heads=h, d=d, keep=REDDIT_KEEP, load_s=load_s,
          gather_adjoint=adjoint, fused_memory=memory, no_host_sync=True,
@@ -1305,8 +1675,8 @@ def phase_gat_reddit():
          k3_b2_t_sweep=res["gat_attention_bwd"]["t_sweep"],
          k3_fwd_t_sweep_arxiv=res_arxiv["gat_attention_fwd"]["t_sweep"],
          arxiv=arxiv_fields, detail=res, detail_arxiv=res_arxiv, detail_arxiv_d40=res_arxiv40,
-         k3_key_times=key_times)
-    return res, res_arxiv, res_arxiv40, key_times, g
+         k3_key_times=key_times, gatconv_bf16_pubmed=gatconv_bf16)
+    return res, res_arxiv, res_arxiv40, key_times, g, gatconv_bf16
 
 
 # -- P1 and P2: the row gather ----------------------------------------------
@@ -1852,6 +2222,7 @@ _GAT_KEYS = {"reddit": "reddit", "ogbn-arxiv": "arxiv", "pubmed": "pubmed"}
 
 SAGE_EPOCHS = {"ogbn-arxiv": 10, "ogbn-products": 5}
 SAGE_LOSS_ATOL = 1e-4  # first-step loss: hoisted vs unhoisted, scatter vs fused
+SAGE_BF16_LOSS_RTOL = 1e-2  # first-step loss: --bf16-messages against float32
 
 
 def sage_k1_launches(in_feats, hidden, classes, layers, hoisted):
@@ -1954,7 +2325,16 @@ def phase_sage_main():
     step's loss. Then K1 at each width the runs launched it, forward (mean,
     dst CSR) and backward (sum, reverse CSR), against float64 sums,
     torch.sparse.mm and its bound (the plain version on arxiv only: on
-    products its (E, D) buffer is 32–50 GB)."""
+    products its (E, D) buffer is 32–50 GB).
+
+    bf16 messages (the slice's main path): products unhoisted with
+    ``bf16_messages`` (``main_sage --bf16-messages``), as many epochs as the
+    float32 run: K1's launches and combines per step equal the float32
+    run's, the forward's three on bfloat16 rows (``csr_spmm.launches_bf16``),
+    the first step's loss within SAGE_BF16_LOSS_RTOL of the float32 run's,
+    losses falling; its epoch time beside the float32 run's. Then K1's
+    bfloat16 instantiation at products' widths each way, timed in turns
+    with the float32 one (k1_bf16_times)."""
     from dgl_tpu_torch.benchmarks.node_classification import main_sage
     from dgl_tpu_torch.data import NODE_DATASET_STATS
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
@@ -1963,22 +2343,26 @@ def phase_sage_main():
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(7)
     res, launches, combines, want_l, want_c, plans, widths = {}, {}, {}, {}, {}, {}, {}
+    launches_bf16, want_bf16 = {}, {}
     for ds, epochs in SAGE_EPOCHS.items():
         cfg = main_sage.DATASET_CFG[ds]
         _, _, feat, classes = NODE_DATASET_STATS[ds]
-        modes = {"hoisted": (True, "fused"), "unhoisted": (False, "fused")}
+        modes = {"hoisted": (True, "fused", False), "unhoisted": (False, "fused", False)}
         if ds == "ogbn-arxiv":
-            modes["scatter"] = (False, "scatter")
-        for mode, (hoist, lowering) in modes.items():
+            modes["scatter"] = (False, "scatter", False)
+        else:
+            modes["bf16"] = (False, "fused", True)
+        for mode, (hoist, lowering, bf16) in modes.items():
             torch.cuda.synchronize()
-            csr_spmm.launches = csr_spmm.combines = 0
+            csr_spmm.launches = csr_spmm.combines = csr_spmm.launches_bf16 = 0
             log = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(log):
                 r = main_sage.run(ds, epochs=epochs, runs=1, device="cuda", precompute=hoist,
-                                  lowering=lowering)
+                                  lowering=lowering, bf16_messages=bf16)
             r["run_s"] = time.perf_counter() - t0
             launches[(ds, mode)], combines[(ds, mode)] = csr_spmm.launches, csr_spmm.combines
+            launches_bf16[(ds, mode)] = csr_spmm.launches_bf16
             if "Training time/epoch" not in log.getvalue():
                 raise AssertionError(f"{ds} {mode}: no 'Training time/epoch' line")
             res[(ds, mode)] = r
@@ -1986,7 +2370,7 @@ def phase_sage_main():
         g, _ = _sage_graph(ds, dev)
         plans[ds] = _split_fields(g)
         fwd_long, rev_long = int(g.split.num_long > 0), int(g.reverse.split.num_long > 0)
-        for mode, (hoist, lowering) in modes.items():
+        for mode, (hoist, lowering, bf16) in modes.items():
             steps = len(res[(ds, mode)]["losses"][0])
             per_step = sage_k1_launches(feat, cfg["hidden"], classes, cfg["layers"], hoist)
             n_fwd = sum(side == "fwd" for _, side, _ in per_step) * steps + int(hoist)
@@ -1995,6 +2379,9 @@ def phase_sage_main():
                 n_fwd = n_bwd = 0
             want_l[(ds, mode)] = n_fwd + n_bwd
             want_c[(ds, mode)] = n_fwd * fwd_long + n_bwd * rev_long
+            # bf16 messages: the forward reads bfloat16 rows, the backward's
+            # cotangent is float32
+            want_bf16[(ds, mode)] = n_fwd if bf16 else 0
         ds_widths = sorted({d for _, _, d in sage_k1_launches(feat, cfg["hidden"], classes,
                                                                cfg["layers"], False)}
                            | {feat})
@@ -2004,18 +2391,35 @@ def phase_sage_main():
                 "fwd": k1_width(f"{ds} fwd", g, d, True, gen, plain=ds == "ogbn-arxiv"),
                 "bwd": k1_width(f"{ds} bwd", g.reverse, d, False, gen, plain=ds == "ogbn-arxiv"),
             }
+            if ds == "ogbn-products":  # the bf16 path's widths, each way
+                for side, gg, mean in (("fwd", g, True), ("bwd", g.reverse, False)):
+                    n_src = gg.num_src_nodes
+                    x = 1.0 + torch.randn(n_src, d, device=dev, generator=gen)
+                    x_int = torch.randint(-4, 5, (n_src, d), device=dev, generator=gen).float()
+                    widths[ds][d][f"{side}_bf16"] = k1_bf16_times(
+                        f"{ds} {side} D={d}", gg.indptr, gg.src, x, x_int, mean, gg.split, n_src)
+                    del x, x_int
         del g
         torch.cuda.empty_cache()
     if launches != want_l:
         raise AssertionError(f"K1 launches {launches}; want {want_l}")
     if combines != want_c:
         raise AssertionError(f"K1 combines {combines}; want {want_c}")
+    if launches_bf16 != want_bf16:
+        raise AssertionError(f"K1 bfloat16 launches {launches_bf16}; want {want_bf16}")
+    p32, p16 = res[("ogbn-products", "unhoisted")], res[("ogbn-products", "bf16")]
+    if len(p16["losses"][0]) != len(p32["losses"][0]):
+        raise AssertionError("the bf16 run took another number of steps than the float32 run")
+    l32, l16 = p32["losses"][0][0], p16["losses"][0][0]
+    if abs(l16 - l32) > SAGE_BF16_LOSS_RTOL * abs(l32):
+        raise AssertionError(f"products first-step loss: bf16 messages {l16} vs float32 {l32}")
     for key, r in res.items():
         losses = r["losses"][0]
         if not statistics.mean(losses[-3:]) < losses[0]:
             raise AssertionError(f"{key} loss did not fall: {losses}")
     for ds in SAGE_EPOCHS:
-        first = {mode: r["losses"][0][0] for (d, mode), r in res.items() if d == ds}
+        first = {mode: r["losses"][0][0] for (d, mode), r in res.items()
+                 if d == ds and mode != "bf16"}
         if max(abs(v - first["unhoisted"]) for v in first.values()) > SAGE_LOSS_ATOL:
             raise AssertionError(f"{ds}: first-step losses differ: {first}")
     key = lambda ds, mode: f"{ds.removeprefix('ogbn-')}_{mode}"  # noqa: E731
@@ -2024,11 +2428,14 @@ def phase_sage_main():
     emit("sage_main", seconds=time.perf_counter() - t_phase, device=res[("ogbn-arxiv", "hoisted")]["device"],
          synthetic=res[("ogbn-arxiv", "hoisted")]["synthetic"], epochs=SAGE_EPOCHS,
          **{key(*k): {f: r[f] for f in fields} | {"losses": r["losses"][0],
-                                                  "launches": launches[k], "combines": combines[k]}
+                                                  "launches": launches[k], "combines": combines[k],
+                                                  "launches_bf16": launches_bf16[k]}
             for k, r in res.items()},
-         splits=plans, first_step_atol=SAGE_LOSS_ATOL,
+         splits=plans, first_step_atol=SAGE_LOSS_ATOL, first_step_bf16_rtol=SAGE_BF16_LOSS_RTOL,
+         products_epoch_s_bf16=p16["epoch_s"], products_epoch_s_f32=p32["epoch_s"],
+         products_first_loss_bf16=l16, products_first_loss_f32=l32,
          k1_widths={ds: {str(d): w for d, w in v.items()} for ds, v in widths.items()})
-    return launches, combines, widths
+    return launches, combines, widths, launches_bf16
 
 
 # -- graph classification: GCN on ENZYMES, molhiv and ppa ------------------
@@ -4327,11 +4734,11 @@ def main():
     red, red_graph = phase_reddit()
     launches, combines = phase_main()
     phase_gat_random()
-    gred, gred_arxiv, gred_arxiv40, key_times, gat_graph = phase_gat_reddit()
+    gred, gred_arxiv, gred_arxiv40, key_times, gat_graph, gatconv_bf16 = phase_gat_reddit()
     floors, rows = phase_row_gather(red, red_graph, gred, gat_graph)
     del gat_graph
     glaunch, gcombines = phase_gat_main()
-    slaunch, scombines, widths = phase_sage_main()
+    slaunch, scombines, widths, slaunch_bf16 = phase_sage_main()
     claunch, ccombines, readout, gc_k1 = phase_gc_main()
     rk1, rlaunch, rcombines, prot_graph = phase_rgcn_main()
     torch.cuda.empty_cache()
@@ -4576,6 +4983,46 @@ def main():
           for name, replaces in (("row_gather_async", "tools/exp_dma_gather.py:34"),
                                  ("row_gather_by_source", "tools/exp_dma_gather.py:34"),
                                  ("row_gather_smem", "tools/exp_dma_gather.py:72"))),
+        # bf16 messages: K1's bfloat16 instantiation, launched by products
+        # SAGE with --bf16-messages (its forward's three a step); times at
+        # reddit's D = 16 forward (mean, dst CSR), the reverse CSR and
+        # products' widths beside them, each with the float32 one's time in
+        # the same turns
+        _kernel_entry(
+            "csr_spmm_bf16", "dgl_tpu_torch/kernels/csrc/csr_spmm.cu",
+            "dgl_tpu/kernels/lane_spmm.py:418", slaunch_bf16[("ogbn-products", "bf16")],
+            red["fwd"]["bf16"], library_note=red["fwd"]["bf16"]["library_note"],
+            ms_f32_in_turns=red["fwd"]["bf16"]["ms_f32_in_turns"],
+            launches_all_products_bf16=slaunch[("ogbn-products", "bf16")],
+            combines_products_bf16=scombines[("ogbn-products", "bf16")],
+            **{f"{k}_rev": red["bwd"]["bf16"][k] for k in ("ms", "ms_f32_in_turns", "plain_ms",
+                                                          "library_ms", "bound_ms",
+                                                          "max_abs_err")},
+            **{f"{k}_products_d{d}_{side}": widths["ogbn-products"][d][f"{side}_bf16"][k]
+               for d in widths["ogbn-products"] for side in ("fwd", "bwd")
+               for k in ("ms", "ms_f32_in_turns", "library_ms", "bound_ms", "max_abs_err")}),
+        # K2's bfloat16 instantiation: the copy_e sum of GATConv's edge form
+        # under edge_dtype (launches: the bf16 GATConv step on pubmed), timed
+        # at (E, 16) on reddit with self-loops over the dst CSR
+        _kernel_entry(
+            "seg_sum_bf16", "dgl_tpu_torch/kernels/csrc/seg_sum.cu",
+            "dgl_tpu/kernels/piece_reduce.py:54", gatconv_bf16["edge"]["launches_bf16"]["seg_sum"],
+            gred["seg_sum_bf16"], library_note=gred["seg_sum_bf16"]["library_note"],
+            ms_f32_in_turns=gred["seg_sum_bf16"]["ms_f32_in_turns"],
+            gatconv_edge_out_rel_err=gatconv_bf16["edge"]["out_rel_err"]),
+        # K3's bfloat16 passes (v in bfloat16; b2's grad_v in bfloat16):
+        # launches from the bf16 fused GATConv step on pubmed; times on
+        # reddit with self-loops (H = 1, D = 16) and at arxiv's shapes
+        *(_kernel_entry(
+            f"{name}_bf16", "dgl_tpu_torch/kernels/csrc/gat_attention.cu",
+            "dgl_tpu/kernels/lane_attention.py:234",
+            gatconv_bf16["fused"]["launches_bf16"][name], gred[f"{name}_bf16"], **{"pass": p},
+            ms_f32_in_turns=gred[f"{name}_bf16"]["ms_f32_in_turns"],
+            gatconv_fused_out_rel_err=gatconv_bf16["fused"]["out_rel_err"],
+            **{f"{k}_{key}": r[f"{name}_bf16"][k] for key, r in (("arxiv", gred_arxiv),
+                                                                 ("arxiv_d40", gred_arxiv40))
+               for k in ("ms", "ms_f32_in_turns", "plain_ms", "bound_ms", "max_abs_err")})
+          for name, p in (("gat_attention_fwd", "fwd"), ("gat_attention_bwd", "b2"))),
     ]}), flush=True)
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

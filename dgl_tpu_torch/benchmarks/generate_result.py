@@ -21,8 +21,10 @@ prints the markdown at the end.
 configurations. The rows, their smoke arguments, the V100 baselines, the
 regexes and ``parse_output`` are the JAX harness's. The full arguments are
 the JAX rows' without the TPU flags: the lane plans (``--lane-kernel``,
-``--lane-force``), bf16 messages, the multi-epoch and multi-step dispatches
-(``--scan-*``), the fetch interval and the frozen cluster cache. A full row also drops the caps the JAX rows took
+``--lane-force``), the multi-epoch and multi-step dispatches (``--scan-*``),
+the fetch interval and the frozen cluster cache. The JAX products row's
+``--bf16-messages`` is dropped too, though ``main_sage`` takes it: the row
+runs float32, DGL's precision, in which its V100 baseline was measured. A full row also drops the caps the JAX rows took
 for the TPU (``dropped_caps``: it runs its driver's own count) and keeps a
 cap only where its ``note`` gives the card's reason; the JAX run caps stay.
 The JAX harness's second, timing-only pass per row existed for the TPU
@@ -78,7 +80,8 @@ WORKLOADS = [
       "full": ["--dataset", "ogbn-products", "--runs", "1", "--no-precompute"]},
      {"dropped_caps": ["--epochs"],
       "note": "runs capped 10->1 (the JAX row's); the JAX row's --epochs 20 dropped: the "
-              "driver's 300; unhoisted, as the reference"}),
+              "driver's 300; unhoisted, as the reference; float32, the V100 baseline's "
+              "precision (the JAX row's --bf16-messages dropped)"}),
     ("cora_gat", _NC + "main_gat",
      {"smoke": ["--dataset", "cora", "--epochs", "10", "--runs", "2"],
       "full": ["--dataset", "cora"]}, {}),

@@ -13,7 +13,7 @@ from the fourth on are timed.
 
     python -m dgl_tpu_torch.benchmarks.node_classification.main_sage --dataset ogbn-products
         [--epochs N] [--runs R] [--eval] [--no-precompute] [--lowering fused|scatter]
-        [--aggr mean|sum] [--scale S] [--device cuda] [--profile EPOCHS]
+        [--aggr mean|sum] [--bf16-messages] [--scale S] [--device cuda] [--profile EPOCHS]
         [--shard K [--dist-backend nccl|gloo]] [--ckpt-dir DIR [--ckpt-every N]]
 
 Prints the reference's lines (``Training time/epoch``, with ``--eval`` the
@@ -21,6 +21,10 @@ Prints the reference's lines (``Training time/epoch``, with ``--eval`` the
 ``--profile`` runs that many further epochs under ``torch.profiler`` and
 prints the device time by kernel as one JSON line on stderr.
 ``--lowering scatter`` is the PyG twin (``ops/spmm.py``): no K1 runs.
+``--bf16-messages`` gives every layer ``msg_dtype=torch.bfloat16``, the JAX
+driver's flag: each SpMM reads its rows as bfloat16 and sums them in float32
+(K1's bfloat16 instantiation forward; the backward's cotangent stays
+float32); float32 is the default, DGL's precision.
 
 ``--shard k`` trains over k ranks with the boundary-halo exchange, as the
 JAX driver's ``run_sharded`` does (``sharded.py``: the ``lp`` relabel, the
@@ -35,9 +39,9 @@ latest checkpoint there (``train/checkpoint.py``); the resumed epochs give
 the losses of an uninterrupted run, bit for bit.
 
 Not ported: ``--lane-kernel``, ``--lane-force``, ``--scan-epochs``,
-``--bf16-messages``, ``DGL_TPU_MSG_BUDGET_GB``, the locality reorder and the
-disk caches of the graph and of ``x_agg`` (TPU workarounds: K1 takes the
-whole graph in one launch and never builds an (E, D) message).
+``DGL_TPU_MSG_BUDGET_GB``, the locality reorder and the disk caches of the
+graph and of ``x_agg`` (TPU workarounds: K1 takes the whole graph in one
+launch and never builds an (E, D) message).
 """
 
 from __future__ import annotations
@@ -117,6 +121,7 @@ def run(
     precompute: bool = True,
     lowering: str = "fused",
     aggr: str = "mean",
+    bf16_messages: bool = False,
     scale: float = 1.0,
     profile_epochs: int = 0,
     ckpt_dir: Optional[str] = None,
@@ -126,7 +131,8 @@ def run(
     """Train the dataset's GraphSAGE ``runs`` times from fresh weights, each
     seeded ``seed * 1000 + run``; with ``ckpt_dir``, the first run resumes
     from and saves to checkpoints there (see the module docstring), and its
-    ``losses`` start at the epoch it resumed at.
+    ``losses`` start at the epoch it resumed at. ``bf16_messages``: the
+    layers' ``msg_dtype`` is bfloat16 (``x_agg`` stays float32).
 
     ``overrides`` replace entries of ``DATASET_CFG[dataset]`` (``lr``,
     ``wd``, ``hidden``, ``layers``, ``dropout``). Returns ``{"device",
@@ -164,7 +170,8 @@ def run(
     for r in range(runs):
         model = GraphSAGE(
             x.shape[1], cfg["hidden"], data.num_classes, num_layers=cfg["layers"], aggr=aggr,
-            dropout=cfg["dropout"], batch_norm=cfg["bn"], lowering=lowering, device=dev,
+            dropout=cfg["dropout"], batch_norm=cfg["bn"],
+            msg_dtype=torch.bfloat16 if bf16_messages else None, lowering=lowering, device=dev,
             generator=torch.Generator().manual_seed(seed * 1000 + r),
         )
         opt = torch.optim.Adam(model.parameters(), lr=cfg["lr"], weight_decay=cfg["wd"])
@@ -274,6 +281,8 @@ def parser() -> argparse.ArgumentParser:
     parser.add_argument("--num-layers", type=int, default=None)
     parser.add_argument("--aggr", type=str, choices=["sum", "mean"], default="mean")
     parser.add_argument("--weight-decay", type=float, default=None)
+    parser.add_argument("--bf16-messages", action="store_true",
+                        help="bf16 neighbour messages (the SpMM reads bf16 rows; f32 sums)")
     parser.add_argument("--eval", action="store_true",
                         help="If not set, we will only do the training part.")
     parser.add_argument("--runs", type=int, default=10)
@@ -305,12 +314,16 @@ def main(argv: Optional[list] = None) -> dict:
     overrides = dict(lr=args.lr, wd=args.weight_decay, hidden=args.n_hidden,
                      layers=args.num_layers, dropout=args.dropout)
     if args.shard:
+        if args.bf16_messages:
+            raise ValueError("--bf16-messages applies to one card's run: the sharded "
+                             "models take no msg_dtype, as the JAX package's do not")
         return run_sharded(args.dataset, args.shard, dist_backend=args.dist_backend,
                            epochs=args.epochs, runs=args.runs, eval_acc=args.eval, seed=args.seed,
                            device=args.device, aggr=args.aggr, scale=args.scale, **overrides)
     res = run(args.dataset, epochs=args.epochs, runs=args.runs, eval_acc=args.eval,
               seed=args.seed, device=args.device, precompute=not args.no_precompute,
-              lowering=args.lowering, aggr=args.aggr, scale=args.scale,
+              lowering=args.lowering, aggr=args.aggr, bf16_messages=args.bf16_messages,
+              scale=args.scale,
               profile_epochs=args.profile, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
               **overrides)
     if res["profile"] is not None:

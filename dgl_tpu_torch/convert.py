@@ -49,12 +49,14 @@ def sage_state_dict_from_flax(
 
 
 def _batch_norms(sd: dict, params: Mapping, batch_stats: Optional[Mapping]) -> None:
-    """``bn_<i>``'s scale and bias, and its ``batch_stats`` mean and var."""
+    """``bn_<i>``'s scale and bias (where ``use_scale`` / ``use_bias`` keep
+    them), and its ``batch_stats`` mean and var."""
     for name, sub in params.items():
         if name.startswith("bn_"):
             i = _layer(name)
-            sd[f"bns.{i}.weight"] = _t(sub["scale"])
-            sd[f"bns.{i}.bias"] = _t(sub["bias"])
+            for flax_name, port_name in (("scale", "weight"), ("bias", "bias")):
+                if flax_name in sub:
+                    sd[f"bns.{i}.{port_name}"] = _t(sub[flax_name])
     for name, sub in (batch_stats or {}).items():
         i = _layer(name)
         sd[f"bns.{i}.running_mean"] = _t(sub["mean"])

@@ -14,6 +14,14 @@ the row once. No atomics decide the order, so two runs are bitwise equal.
 ``T`` bounds the longest walk any warp makes: one warp per row walked the
 reverse reddit CSR's 212,102-edge row alone.
 
+``x`` is float32 or bfloat16. A bfloat16 ``x`` launches the kernel's
+bfloat16 instantiation (``csr_spmm.launches_bf16`` counts those launches
+among ``launches``): its rows are read as bfloat16 and converted exactly to
+float32, the weight stays float32, and the sums and the output are float32,
+as ``lane_spmm(..., compute_dtype=jnp.bfloat16)`` keeps them
+(``lane_spmm.py:425-451``); the lane kernel rounds ``w·x`` to bfloat16 before
+its sum (``:390``), this kernel keeps the product in float32.
+
 Counterpart of ``dgl_tpu/kernels/lane_spmm.py:lane_spmm``.
 """
 
@@ -26,10 +34,9 @@ import torch
 
 from ..graph.split import RowSplit, row_split
 from .build import load
-from .seg_sum import csr_rows
+from .seg_sum import ROW_DTYPES, csr_rows, sum_dtype
 
 __all__ = ["csr_spmm", "csr_spmm_plain"]
-
 
 def csr_spmm_plain(
     indptr: torch.Tensor,
@@ -41,23 +48,26 @@ def csr_spmm_plain(
 ) -> torch.Tensor:
     """The same function in plain PyTorch: gather the rows of ``x``, weight
     them and ``index_add_`` them into their CSR rows. Materialises an
-    (E, D) message buffer."""
+    (E, D) message buffer. bfloat16 rows are converted to float32 first,
+    so the sums are float32 as the kernel's (a bfloat16 ``index_add_``
+    would round every partial sum)."""
     n_rows = indptr.numel() - 1
+    dtype = sum_dtype(x.dtype)
     deg = (indptr[1:] - indptr[:-1]).long()
     rows = csr_rows(indptr, indices.numel())
-    msg = x.index_select(0, indices.long())
+    msg = x.to(dtype).index_select(0, indices.long())
     if w is not None:
         msg = msg * w.unsqueeze(1)
-    out = torch.zeros((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    out = torch.zeros((n_rows, x.shape[1]), dtype=dtype, device=x.device)
     out.index_add_(0, rows, msg)
     if mean:
-        out = out * (1.0 / deg.clamp(min=1).to(x.dtype)).unsqueeze(1)
+        out = out * (1.0 / deg.clamp(min=1).to(dtype)).unsqueeze(1)
     return out
 
 
 def _check(indptr, indices, x, w) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"csr_spmm takes float32 features, got {x.dtype}")
+    if x.dtype not in ROW_DTYPES:
+        raise TypeError(f"csr_spmm takes float32 or bfloat16 features, got {x.dtype}")
     if x.dim() != 2:
         raise ValueError(f"csr_spmm takes 2-D features, got shape {tuple(x.shape)}")
     if indices.dtype != torch.int32 or indices.dim() != 1:
@@ -77,8 +87,8 @@ def _check(indptr, indices, x, w) -> None:
         raise ValueError("csr_spmm operands must be contiguous")
 
 
-def _kernel_fn():
-    fn = load("csr_spmm").csr_spmm_f32
+def _kernel_fn(dtype: torch.dtype):
+    fn = getattr(load("csr_spmm"), "csr_spmm_bf16" if dtype == torch.bfloat16 else "csr_spmm_f32")
     if fn.argtypes is None:
         p = ctypes.c_void_p
         ll = ctypes.c_longlong
@@ -98,10 +108,11 @@ def csr_spmm(
     split: Optional[RowSplit] = None,
 ) -> torch.Tensor:
     """``out[r] = Σ_{j in row r} w[j] · x[indices[j]]`` (``w`` = 1 when None),
-    divided by ``max(deg_r, 1)`` when ``mean``; float32 in and out.
+    divided by ``max(deg_r, 1)`` when ``mean``; float32 out.
 
-    ``indptr`` (R+1,) int32/int64, ``indices`` (E,) int32, ``x`` (N, D),
-    ``w`` (E,) in CSR order. Returns (R, D).
+    ``indptr`` (R+1,) int32/int64, ``indices`` (E,) int32, ``x`` (N, D)
+    float32 or bfloat16 (summed in float32), ``w`` (E,) float32 in CSR
+    order. Returns (R, D) float32.
 
     ``split``: the CSR's row split (``graph.split`` / ``graph.reverse.split``
     for a graph's CSRs), on the device of ``indptr``. One whose row or edge
@@ -125,7 +136,7 @@ def csr_spmm(
     if split is None:
         split = row_split(indptr)
     partials = torch.empty((split.num_chunks, d), dtype=torch.float32, device=x.device)
-    fn = _kernel_fn()
+    fn = _kernel_fn(x.dtype)
     with torch.cuda.device(x.device):
         err = fn(
             indptr.data_ptr(), int(indptr.dtype == torch.int64), indices.data_ptr(),
@@ -136,9 +147,11 @@ def csr_spmm(
     if err:
         raise RuntimeError(f"csr_spmm kernel launch failed with CUDA error {err}")
     csr_spmm.launches += 1
+    csr_spmm.launches_bf16 += int(x.dtype == torch.bfloat16)
     csr_spmm.combines += int(split.num_long > 0)
     return out
 
 
 csr_spmm.launches = 0
+csr_spmm.launches_bf16 = 0
 csr_spmm.combines = 0

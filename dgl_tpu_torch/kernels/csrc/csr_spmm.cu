@@ -12,6 +12,15 @@
 // directly, so the kernel walks the dst-sorted CSR as it is. The backward of
 // gspmm is the same launch over the reverse CSR.
 //
+// The rows of x are float or bfloat16 (csr_spmm_bf16: the JAX package's
+// bf16 messages, lane_spmm's compute_dtype = bfloat16, lane_spmm.py:425-451).
+// A bfloat16 row is read 16, 8, 4 or 2 bytes a lane (8, 4, 2 or 1 values)
+// and converted exactly to float as it is loaded; the edge weight stays
+// float, w·x is one float FMA into a float sum, and the chunk partials, the
+// combine and the output are float. (The lane kernel rounds w·x to bfloat16
+// before its float sum, lane_spmm.py:390; this kernel keeps the product in
+// float.) Per launch a bfloat16 x moves half the bytes of a float one.
+//
 // What bounds it on this card: bytes. Per launch it must read indices (E·4 B),
 // indptr, x once (N_src·D·4 B) and write out once (N_dst·D·4 B); at the main
 // path's shape (reddit, D = 16) that is about 78 MB, some 23 µs at 3.35 TB/s,
@@ -25,9 +34,10 @@
 //     order, so results are deterministic from run to run;
 //   * the lane layout of lanes.cuh, shared with K2 and K3: the warp is cut
 //     into P = 32 / L lane groups of L lanes; each group takes one edge at
-//     a time and its lanes stride the feature dimension with 16-, 8- or
-//     4-byte loads (V = 4, 2 or 1 floats), so a narrow row (D = 16: L = 4,
-//     P = 8) still keeps all 32 lanes busy on 8 edges;
+//     a time and its lanes stride the feature dimension with 16-, 8-, 4- or
+//     (bfloat16) 2-byte loads (V = 4, 2 or 1 floats, 8, 4, 2 or 1 bfloat16
+//     values), so a narrow row (D = 16: L = 4, P = 8 in float, L = 2,
+//     P = 16 in bfloat16) still keeps all 32 lanes busy;
 //   * each lane group keeps kUnroll edges in flight (all index loads first,
 //     then all row loads), to hide the two dependent L2 latencies;
 //   * wide rows (D = 602 for the hoisted precompute) run as feature tiles of
@@ -51,13 +61,17 @@ namespace {
 
 using namespace warp_csr;
 
-constexpr int kTile = 4;  // vectors per lane per feature tile
-
-// The warp's sum of edges [start, end), times `scale`, written to orow.
+// Vectors per lane per feature tile: 16 float accumulators a lane at V = 4
+// (float's widest load), and as many at bfloat16's V = 8.
 template <int V>
+constexpr int kTile = V == 8 ? 2 : 4;
+
+// The warp's sum of edges [start, end), times `scale`, written to orow; x's
+// rows are XT (float or bfloat16), the sums float.
+template <int V, typename XT>
 __device__ __forceinline__ void spmm_range(const int32_t* __restrict__ indices,
                                            const float* __restrict__ w,
-                                           const float* __restrict__ x, float* __restrict__ orow,
+                                           const XT* __restrict__ x, float* __restrict__ orow,
                                            int64_t start, int64_t end, int d, int lanes,
                                            float scale) {
   const int lane = threadIdx.x % kWarp;
@@ -67,10 +81,10 @@ __device__ __forceinline__ void spmm_range(const int32_t* __restrict__ indices,
   const int nvec = d / V;
   const int64_t stride = static_cast<int64_t>(groups) * kUnroll;
 
-  for (int c0 = 0; c0 < nvec; c0 += lanes * kTile) {
-    float acc[kTile][V];
+  for (int c0 = 0; c0 < nvec; c0 += lanes * kTile<V>) {
+    float acc[kTile<V>][V];
 #pragma unroll
-    for (int t = 0; t < kTile; ++t)
+    for (int t = 0; t < kTile<V>; ++t)
 #pragma unroll
       for (int k = 0; k < V; ++k) acc[t][k] = 0.f;
 
@@ -87,9 +101,9 @@ __device__ __forceinline__ void spmm_range(const int32_t* __restrict__ indices,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (src[u] < 0) continue;
-        const float* xr = x + static_cast<int64_t>(src[u]) * d;
+        const XT* xr = x + static_cast<int64_t>(src[u]) * d;
 #pragma unroll
-        for (int t = 0; t < kTile; ++t) {
+        for (int t = 0; t < kTile<V>; ++t) {
           const int c = c0 + col + t * lanes;
           if (c < nvec) {
             float v[V];
@@ -101,10 +115,10 @@ __device__ __forceinline__ void spmm_range(const int32_t* __restrict__ indices,
       }
     }
 
-    group_sum<kTile, V>(acc, lanes);
+    group_sum<kTile<V>, V>(acc, lanes);
     if (slot == 0) {
 #pragma unroll
-      for (int t = 0; t < kTile; ++t) {
+      for (int t = 0; t < kTile<V>; ++t) {
         const int c = c0 + col + t * lanes;
         if (c < nvec) {
           float v[V];
@@ -119,10 +133,10 @@ __device__ __forceinline__ void spmm_range(const int32_t* __restrict__ indices,
 
 // The first n_chunk_blocks blocks sum the long rows' chunks into `partials`;
 // the others take one row per warp and write the rows of at most long_t edges.
-template <int V, typename IdxT>
+template <int V, typename IdxT, typename XT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 csr_spmm_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ indices,
-                const float* __restrict__ w, const float* __restrict__ x,
+                const float* __restrict__ w, const XT* __restrict__ x,
                 float* __restrict__ out, int64_t n_rows, int d, int lanes, int mean,
                 int64_t long_t, const int64_t* __restrict__ chunks, int64_t n_chunks,
                 int64_t n_chunk_blocks, float* __restrict__ partials) {
@@ -144,48 +158,37 @@ csr_spmm_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ ind
   spmm_range<V>(indices, w, x, out + row * d, start, end, d, lanes, scale);
 }
 
-template <typename IdxT>
-void dispatch(const IdxT* indptr, const int32_t* indices, const float* w, const float* x,
+template <typename IdxT, typename XT>
+void dispatch(const IdxT* indptr, const int32_t* indices, const float* w, const XT* x,
               float* out, int64_t n_rows, int d, int mean, int64_t long_t, const int64_t* rows,
               const int64_t* chunk_ptr, int64_t n_long, const int64_t* chunks, int64_t n_chunks,
               float* partials, cudaStream_t stream) {
-  const int vw = vec_width(d, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
-                                  reinterpret_cast<uintptr_t>(partials));
+  const int vw = vec_width(d, {{x, static_cast<int>(sizeof(XT))}, {out, 4}, {partials, 4}});
   const int lanes = lanes_for(d, vw);
   const int64_t cb = chunk_blocks(n_chunks);
   const dim3 grid(static_cast<unsigned>(cb + grid_for(n_rows).x)), block = block_dim();
-  if (vw == 4) {
-    csr_spmm_kernel<4, IdxT><<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows, d,
-                                                         lanes, mean, long_t, chunks, n_chunks, cb,
-                                                         partials);
+  auto kernel = csr_spmm_kernel<1, IdxT, XT>;
+  if (vw == 8) {
+    if constexpr (sizeof(XT) == 2) kernel = csr_spmm_kernel<8, IdxT, XT>;
+  } else if (vw == 4) {
+    kernel = csr_spmm_kernel<4, IdxT, XT>;
   } else if (vw == 2) {
-    csr_spmm_kernel<2, IdxT><<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows, d,
-                                                         lanes, mean, long_t, chunks, n_chunks, cb,
-                                                         partials);
-  } else {
-    csr_spmm_kernel<1, IdxT><<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows, d,
-                                                         lanes, mean, long_t, chunks, n_chunks, cb,
-                                                         partials);
+    kernel = csr_spmm_kernel<2, IdxT, XT>;
   }
-  combine_chunks(vw, partials, rows, chunk_ptr, chunks, out, n_long, d, mean, stream);
+  kernel<<<grid, block, 0, stream>>>(indptr, indices, w, x, out, n_rows, d, lanes, mean, long_t,
+                                     chunks, n_chunks, cb, partials);
+  combine_chunks(partials, rows, chunk_ptr, chunks, out, n_long, d, mean, stream);
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes. Pointers are device pointers;
-// `w` may be null. The row split (graph/split.py): rows of more than long_t
-// edges are the n_long `rows`, whose chunks [chunks[2k], chunks[2k+1]) are
-// chunk_ptr[i]..chunk_ptr[i+1]; `partials` holds n_chunks × d floats. Launches
-// the kernel, then the combine when n_long > 0; returns cudaGetLastError().
-extern "C" int csr_spmm_f32(const void* indptr, int indptr_is_int64, const void* indices,
-                            const void* w, const void* x, void* out, long long n_rows, int d,
-                            int mean, long long long_t, const void* rows, const void* chunk_ptr,
-                            long long n_long, const void* chunks, long long n_chunks,
-                            void* partials, void* stream) {
+template <typename XT>
+int run(const void* indptr, int indptr_is_int64, const void* indices, const void* w,
+        const void* x, void* out, long long n_rows, int d, int mean, long long long_t,
+        const void* rows, const void* chunk_ptr, long long n_long, const void* chunks,
+        long long n_chunks, void* partials, void* stream) {
   if (n_rows <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   const auto* idx = static_cast<const int32_t*>(indices);
   const auto* wp = static_cast<const float*>(w);
-  const auto* xp = static_cast<const float*>(x);
+  const auto* xp = static_cast<const XT*>(x);
   auto* op = static_cast<float*>(out);
   const auto* rp = static_cast<const int64_t*>(rows);
   const auto* cp = static_cast<const int64_t*>(chunk_ptr);
@@ -201,3 +204,25 @@ extern "C" int csr_spmm_f32(const void* indptr, int indptr_is_int64, const void*
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes: x float (csr_spmm_f32) or
+// bfloat16 (csr_spmm_bf16); everything else the same. Pointers are device
+// pointers; `w` may be null. The row split (graph/split.py): rows of more
+// than long_t edges are the n_long `rows`, whose chunks [chunks[2k],
+// chunks[2k+1]) are chunk_ptr[i]..chunk_ptr[i+1]; `partials` holds n_chunks ×
+// d floats. Launches the kernel, then the combine when n_long > 0; returns
+// cudaGetLastError().
+#define CSR_SPMM_ENTRY(NAME, XT)                                                               \
+  extern "C" int NAME(const void* indptr, int indptr_is_int64, const void* indices,            \
+                      const void* w, const void* x, void* out, long long n_rows, int d,        \
+                      int mean, long long long_t, const void* rows, const void* chunk_ptr,     \
+                      long long n_long, const void* chunks, long long n_chunks,                \
+                      void* partials, void* stream) {                                          \
+    return run<XT>(indptr, indptr_is_int64, indices, w, x, out, n_rows, d, mean, long_t, rows, \
+                   chunk_ptr, n_long, chunks, n_chunks, partials, stream);                     \
+  }
+
+CSR_SPMM_ENTRY(csr_spmm_f32, float)
+CSR_SPMM_ENTRY(csr_spmm_bf16, __nv_bfloat16)

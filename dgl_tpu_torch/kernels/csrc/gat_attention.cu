@@ -35,6 +35,16 @@
 //   The gradients of a_src and a_dst are N-wide closed forms of these sums
 //   (kernels/gat_attention.py), as in _lane_gat_bwd.
 //
+// bfloat16 values (gat_fwd_bf16, gat_b2_bf16: the JAX package's lane_gat_agg
+// with compute_dtype = bfloat16, lane_attention.py:503): the forward reads
+// v's rows as bfloat16, converted exactly to float as they are loaded; the
+// logits, the row shift, the softmax, the dropout and every sum stay float,
+// and the forward writes float. b2 reads the float cotangent g (not rounded
+// to bfloat16, as the lane kernel rounds it) and sums grad_v in float, then
+// rounds each grad_v value once to bfloat16, v's type (lane_attention.py:
+// 477): the rows directly, the long rows in the combine; w2 and w3 stay
+// float, and grad_a_src = Σ_D v·w2 − w3 reads v in the wrapper.
+//
 // Dropout: murmur3 fmix32 of (key ^ seed) as uint32, kept where its low 24
 // bits are below int(keep·2^24), scaled by float32(1/keep): the JAX
 // package's _hash_keep, keyed on key = eid·H + h (mod 2^32), so every
@@ -54,7 +64,8 @@
 //
 // What the design does about it:
 //   * the lane layout of lanes.cuh, as in K1: lane groups of L lanes take
-//     one edge each, 16-, 8- or 4-byte loads along D, one feature tile (two
+//     one edge each, loads of at most 4 values along D (16-, 8- or 4-byte
+//     float loads, 8-, 4- or 2-byte bfloat16 ones), one feature tile (two
 //     for rows of more than 32 vectors), warp-shuffle combine in a fixed
 //     order, no atomics, so two runs are bitwise equal; heads are the grid's
 //     y dimension;
@@ -80,6 +91,8 @@
 //     212,080-edge reverse row alone in b2.
 
 #include <math.h>
+
+#include <algorithm>
 
 #include "lanes.cuh"
 
@@ -159,13 +172,14 @@ __device__ __forceinline__ void scale(float (&a)[TILE][V], float f) {
     for (int k = 0; k < V; ++k) a[t][k] *= f;
 }
 
-// The lane's vectors of head h of row r of an (N, heads, d) array in feature
-// tile c0; zeros past the row's end or for r < 0 (no edge).
-template <int TILE, int V>
-__device__ __forceinline__ void load_row(const float* __restrict__ base, int32_t r, int heads,
+// The lane's vectors of head h of row r of an (N, heads, d) array (T: float
+// or bfloat16) in feature tile c0, as floats; zeros past the row's end or
+// for r < 0 (no edge).
+template <int TILE, int V, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ base, int32_t r, int heads,
                                          int h, int d, int c0, int col, int lanes, int nvec,
                                          float (&x)[TILE][V]) {
-  const float* row = base + (static_cast<int64_t>(r) * heads + h) * d;
+  const T* row = base + (static_cast<int64_t>(r) * heads + h) * d;
 #pragma unroll
   for (int t = 0; t < TILE; ++t) {
     const int c = c0 + col + t * lanes;
@@ -189,10 +203,10 @@ __device__ __forceinline__ void fma_row(float (&acc)[TILE][V], float w, const fl
 // The forward over edges [start, end) of one (row, head), a_dst = ad.
 // `chunk`: writes the unnormalised num, w1u, s, w1su and the chunk's own
 // shift to orow, wrow, s_out, ss_out, sh_out; else the row's out, w1, inv_s,
-// w1s and shift.
-template <int V, int TILE>
+// w1s and shift. v's rows are VT (float or bfloat16).
+template <int V, int TILE, typename VT>
 __device__ __forceinline__ void fwd_range(const int32_t* __restrict__ src,
-                                          const float* __restrict__ v,
+                                          const VT* __restrict__ v,
                                           const float* __restrict__ a_src, int64_t start,
                                           int64_t end, int heads, int h, int d, int lanes,
                                           float ad, float ns, const Drop& drop, int32_t seed,
@@ -290,15 +304,16 @@ __device__ __forceinline__ void fwd_range(const int32_t* __restrict__ src,
 }
 
 // b2 over edges [start, end) of one (src row, head) of the reverse CSR,
-// a_src = as; writes grad_v, w2 and w3 sums to grow, wrow and w3_out.
-template <int V, int TILE>
+// a_src = as; writes grad_v, w2 and w3 sums to grow (GT: float, or grad_v's
+// bfloat16, rounded once), wrow and w3_out.
+template <int V, int TILE, typename GT>
 __device__ __forceinline__ void b2_range(const int32_t* __restrict__ dst,
                                          const int32_t* __restrict__ eid,
                                          const float* __restrict__ g,
                                          const float4* __restrict__ node, int64_t start,
                                          int64_t end, int heads, int h, int d, int lanes,
                                          float as, float ns, const Drop& drop, int32_t seed,
-                                         float* __restrict__ grow, float* __restrict__ wrow,
+                                         GT* __restrict__ grow, float* __restrict__ wrow,
                                          float* __restrict__ w3_out) {
   const int lane = threadIdx.x % kWarp;
   const int groups = kWarp / lanes;
@@ -368,10 +383,10 @@ __device__ __forceinline__ void b2_range(const int32_t* __restrict__ dst,
 // The first n_chunk_blocks blocks take the dst CSR's chunks, into pnum,
 // pw1u (C, H, D) and pscal (3, C, H: sh_k, s_k, w1su_k); the others one row
 // per warp, and write the rows of at most long_t edges.
-template <int V, int TILE, typename IdxT>
+template <int V, int TILE, typename IdxT, typename VT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 gat_fwd_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ src,
-               const float* __restrict__ v, const float* __restrict__ a_src,
+               const VT* __restrict__ v, const float* __restrict__ a_src,
                const float* __restrict__ a_dst, float* __restrict__ out,
                float* __restrict__ w1, float* __restrict__ inv_s, float* __restrict__ w1s,
                float* __restrict__ shift, int64_t n_rows, int heads, int d, int lanes,
@@ -451,12 +466,12 @@ gat_fwd_combine_kernel(const float* __restrict__ pnum, const float* __restrict__
 // The first n_chunk_blocks blocks take the reverse CSR's chunks, into pgv,
 // pw2 (C, H, D) and pw3 (C, H); the others one row per warp, and write the
 // rows of at most long_t edges.
-template <int V, int TILE, typename IdxT>
+template <int V, int TILE, typename IdxT, typename GVT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 gat_b2_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ dst,
               const int32_t* __restrict__ eid, const float* __restrict__ g,
               const float4* __restrict__ node, const float* __restrict__ a_src,
-              float* __restrict__ grad_v, float* __restrict__ w2, float* __restrict__ w3,
+              GVT* __restrict__ grad_v, float* __restrict__ w2, float* __restrict__ w3,
               int64_t n_rows, int heads, int d, int lanes, float ns, Drop drop, Split sp,
               float* __restrict__ pgv, float* __restrict__ pw2, float* __restrict__ pw3) {
   const int h = blockIdx.y;
@@ -484,22 +499,25 @@ gat_b2_kernel(const IdxT* __restrict__ indptr, const int32_t* __restrict__ dst,
 // One feature tile when a row's vectors fit the lane group, else two.
 inline int tile_for(int d, int vw, int lanes) { return d / vw <= lanes ? 1 : 2; }
 
-template <typename IdxT>
-void fwd(const IdxT* indptr, const int32_t* src, const float* v, const float* a_src,
+template <typename IdxT, typename VT>
+void fwd(const IdxT* indptr, const int32_t* src, const VT* v, const float* a_src,
          const float* a_dst, float* out, float* w1, float* inv_s, float* w1s, float* shift,
          int64_t n_rows, int heads, int d, float ns, Drop drop, Split sp, float* pnum,
          float* pw1u, float* pscal, cudaStream_t stream) {
-  const int vw = vec_width(d, reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
-                                  reinterpret_cast<uintptr_t>(w1) |
-                                  reinterpret_cast<uintptr_t>(pnum) |
-                                  reinterpret_cast<uintptr_t>(pw1u));
+  // At most 4 values a lane, for bfloat16 rows too: a round gives each
+  // group min(L, kUnroll) edges, so 16-byte bfloat16 loads (L = 2 at D = 16)
+  // would halve the edges a lane keeps in flight, and that variant took 111
+  // registers; it ran 2.2-2.5x float's time on the card (PERF.md, PR 15). At
+  // V = 4 a bfloat16 row keeps float's lane layout with 8-byte loads.
+  const int vw = std::min(4, vec_width(d, {{v, static_cast<int>(sizeof(VT))}, {out, 4}, {w1, 4},
+                                           {pnum, 4}, {pw1u, 4}}));
   const int lanes = lanes_for(d, vw);
   const int tile = tile_for(d, vw, lanes);
-  auto kernel = tile == 1 ? gat_fwd_kernel<1, 1, IdxT> : gat_fwd_kernel<1, 2, IdxT>;
+  auto kernel = tile == 1 ? gat_fwd_kernel<1, 1, IdxT, VT> : gat_fwd_kernel<1, 2, IdxT, VT>;
   if (vw == 4) {
-    kernel = tile == 1 ? gat_fwd_kernel<4, 1, IdxT> : gat_fwd_kernel<4, 2, IdxT>;
+    kernel = tile == 1 ? gat_fwd_kernel<4, 1, IdxT, VT> : gat_fwd_kernel<4, 2, IdxT, VT>;
   } else if (vw == 2) {
-    kernel = tile == 1 ? gat_fwd_kernel<2, 1, IdxT> : gat_fwd_kernel<2, 2, IdxT>;
+    kernel = tile == 1 ? gat_fwd_kernel<2, 1, IdxT, VT> : gat_fwd_kernel<2, 2, IdxT, VT>;
   }
   const dim3 grid(static_cast<unsigned>(sp.n_chunk_blocks + grid_for(n_rows).x),
                   static_cast<unsigned>(heads));
@@ -513,22 +531,21 @@ void fwd(const IdxT* indptr, const int32_t* src, const float* v, const float* a_
   }
 }
 
-template <typename IdxT>
+template <typename IdxT, typename GVT>
 void b2(const IdxT* indptr, const int32_t* dst, const int32_t* eid, const float* g,
-        const float4* node, const float* a_src, float* grad_v, float* w2, float* w3,
+        const float4* node, const float* a_src, GVT* grad_v, float* w2, float* w3,
         int64_t n_rows, int heads, int d, float ns, Drop drop, Split sp, float* pgv, float* pw2,
         float* pw3, cudaStream_t stream) {
-  const int vw = vec_width(d, reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(grad_v) |
-                                  reinterpret_cast<uintptr_t>(w2) |
-                                  reinterpret_cast<uintptr_t>(pgv) |
-                                  reinterpret_cast<uintptr_t>(pw2));
+  const int vw = vec_width(d, {{g, 4}, {grad_v, static_cast<int>(sizeof(GVT))}, {w2, 4},
+                               {pgv, 4}, {pw2, 4}});
   const int lanes = lanes_for(d, vw);
   const int tile = tile_for(d, vw, lanes);
-  auto kernel = tile == 1 ? gat_b2_kernel<1, 1, IdxT> : gat_b2_kernel<1, 2, IdxT>;
+  // g is float: vw is at most 4
+  auto kernel = tile == 1 ? gat_b2_kernel<1, 1, IdxT, GVT> : gat_b2_kernel<1, 2, IdxT, GVT>;
   if (vw == 4) {
-    kernel = tile == 1 ? gat_b2_kernel<4, 1, IdxT> : gat_b2_kernel<4, 2, IdxT>;
+    kernel = tile == 1 ? gat_b2_kernel<4, 1, IdxT, GVT> : gat_b2_kernel<4, 2, IdxT, GVT>;
   } else if (vw == 2) {
-    kernel = tile == 1 ? gat_b2_kernel<2, 1, IdxT> : gat_b2_kernel<2, 2, IdxT>;
+    kernel = tile == 1 ? gat_b2_kernel<2, 1, IdxT, GVT> : gat_b2_kernel<2, 2, IdxT, GVT>;
   }
   const dim3 grid(static_cast<unsigned>(sp.n_chunk_blocks + grid_for(n_rows).x),
                   static_cast<unsigned>(heads));
@@ -536,14 +553,9 @@ void b2(const IdxT* indptr, const int32_t* dst, const int32_t* eid, const float*
                                            n_rows, heads, d, lanes, ns, drop, sp, pgv, pw2, pw3);
   // grad_v and w2 are (N, H·D) rows and w3 (N, H): one combine launch each
   const int hd = heads * d;
-  const int vw_hd = vec_width(hd, reinterpret_cast<uintptr_t>(pgv) |
-                                      reinterpret_cast<uintptr_t>(pw2) |
-                                      reinterpret_cast<uintptr_t>(grad_v) |
-                                      reinterpret_cast<uintptr_t>(w2));
-  const int vw_h = vec_width(heads, reinterpret_cast<uintptr_t>(pw3) | reinterpret_cast<uintptr_t>(w3));
-  combine_chunks(vw_hd, pgv, sp.rows, sp.chunk_ptr, sp.chunks, grad_v, sp.n_long, hd, 0, stream);
-  combine_chunks(vw_hd, pw2, sp.rows, sp.chunk_ptr, sp.chunks, w2, sp.n_long, hd, 0, stream);
-  combine_chunks(vw_h, pw3, sp.rows, sp.chunk_ptr, sp.chunks, w3, sp.n_long, heads, 0, stream);
+  combine_chunks(pgv, sp.rows, sp.chunk_ptr, sp.chunks, grad_v, sp.n_long, hd, 0, stream);
+  combine_chunks(pw2, sp.rows, sp.chunk_ptr, sp.chunks, w2, sp.n_long, hd, 0, stream);
+  combine_chunks(pw3, sp.rows, sp.chunk_ptr, sp.chunks, w3, sp.n_long, heads, 0, stream);
 }
 
 Split split_of(long long long_t, const void* rows, const void* chunk_ptr, long long n_long,
@@ -552,31 +564,19 @@ Split split_of(long long long_t, const void* rows, const void* chunk_ptr, long l
                n_long, static_cast<const int64_t*>(chunks), n_chunks, chunk_blocks(n_chunks)};
 }
 
-}  // namespace
-
-// Plain C entry points, loaded with ctypes. Pointers are device pointers;
-// `seed` is null when there is no dropout. The row split as for
-// csr_spmm_f32 (long_t, rows, chunk_ptr, n_long, chunks, n_chunks), with the
-// partials of its chunks: the forward's pnum and pw1u (n_chunks, heads, d)
-// and pscal (3, n_chunks, heads); b2's pgv and pw2 (n_chunks, heads, d) and
-// pw3 (n_chunks, heads); all null when n_chunks is 0, as nothing reads
-// them then. Each launches its pass, then its combine launches
-// when n_long > 0 (the forward one, b2 three), and returns
-// cudaGetLastError().
-extern "C" int gat_fwd_f32(const void* indptr, int indptr_is_int64, const void* src,
-                           const void* v, const void* a_src, const void* a_dst, void* out,
-                           void* w1, void* inv_s, void* w1s, void* shift, long long n_rows,
-                           int heads, int d, float ns, const void* seed, unsigned thresh,
-                           float scale, long long long_t, const void* rows,
-                           const void* chunk_ptr, long long n_long, const void* chunks,
-                           long long n_chunks, void* pnum, void* pw1u, void* pscal,
-                           void* stream) {
+template <typename VT>
+int run_fwd(const void* indptr, int indptr_is_int64, const void* src, const void* v,
+            const void* a_src, const void* a_dst, void* out, void* w1, void* inv_s, void* w1s,
+            void* shift, long long n_rows, int heads, int d, float ns, const void* seed,
+            unsigned thresh, float scale, long long long_t, const void* rows,
+            const void* chunk_ptr, long long n_long, const void* chunks, long long n_chunks,
+            void* pnum, void* pw1u, void* pscal, void* stream) {
   if (n_rows <= 0 || heads <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   const Drop drop{static_cast<const int32_t*>(seed), thresh, scale};
   const Split sp = split_of(long_t, rows, chunk_ptr, n_long, chunks, n_chunks);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* srcp = static_cast<const int32_t*>(src);
-  const auto* vp = static_cast<const float*>(v);
+  const auto* vp = static_cast<const VT*>(v);
   const auto* asp = static_cast<const float*>(a_src);
   const auto* adp = static_cast<const float*>(a_dst);
   auto* op = static_cast<float*>(out);
@@ -597,13 +597,13 @@ extern "C" int gat_fwd_f32(const void* indptr, int indptr_is_int64, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gat_b2_f32(const void* indptr, int indptr_is_int64, const void* dst,
-                          const void* eid, const void* g, const void* node, const void* a_src,
-                          void* grad_v, void* w2, void* w3, long long n_rows, int heads, int d,
-                          float ns, const void* seed, unsigned thresh, float scale,
-                          long long long_t, const void* rows, const void* chunk_ptr,
-                          long long n_long, const void* chunks, long long n_chunks, void* pgv,
-                          void* pw2, void* pw3, void* stream) {
+template <typename GVT>
+int run_b2(const void* indptr, int indptr_is_int64, const void* dst, const void* eid,
+           const void* g, const void* node, const void* a_src, void* grad_v, void* w2, void* w3,
+           long long n_rows, int heads, int d, float ns, const void* seed, unsigned thresh,
+           float scale, long long long_t, const void* rows, const void* chunk_ptr,
+           long long n_long, const void* chunks, long long n_chunks, void* pgv, void* pw2,
+           void* pw3, void* stream) {
   if (n_rows <= 0 || heads <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   const Drop drop{static_cast<const int32_t*>(seed), thresh, scale};
   const Split sp = split_of(long_t, rows, chunk_ptr, n_long, chunks, n_chunks);
@@ -613,7 +613,7 @@ extern "C" int gat_b2_f32(const void* indptr, int indptr_is_int64, const void* d
   const auto* gp = static_cast<const float*>(g);
   const auto* np_ = static_cast<const float4*>(node);
   const auto* asp = static_cast<const float*>(a_src);
-  auto* gvp = static_cast<float*>(grad_v);
+  auto* gvp = static_cast<GVT*>(grad_v);
   auto* w2p = static_cast<float*>(w2);
   auto* w3p = static_cast<float*>(w3);
   auto* pg = static_cast<float*>(pgv);
@@ -628,3 +628,46 @@ extern "C" int gat_b2_f32(const void* indptr, int indptr_is_int64, const void* d
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Pointers are device pointers;
+// `seed` is null when there is no dropout. The row split as for
+// csr_spmm_f32 (long_t, rows, chunk_ptr, n_long, chunks, n_chunks), with the
+// partials of its chunks: the forward's pnum and pw1u (n_chunks, heads, d)
+// and pscal (3, n_chunks, heads); b2's pgv and pw2 (n_chunks, heads, d) and
+// pw3 (n_chunks, heads); all null when n_chunks is 0, as nothing reads
+// them then. Each launches its pass, then its combine launches
+// when n_long > 0 (the forward one, b2 three), and returns
+// cudaGetLastError(). gat_fwd_bf16 reads v as bfloat16, gat_b2_bf16 writes
+// grad_v as bfloat16; every other operand is float in all four.
+#define GAT_FWD_ENTRY(NAME, VT)                                                                \
+  extern "C" int NAME(const void* indptr, int indptr_is_int64, const void* src, const void* v, \
+                      const void* a_src, const void* a_dst, void* out, void* w1, void* inv_s,  \
+                      void* w1s, void* shift, long long n_rows, int heads, int d, float ns,    \
+                      const void* seed, unsigned thresh, float scale, long long long_t,        \
+                      const void* rows, const void* chunk_ptr, long long n_long,               \
+                      const void* chunks, long long n_chunks, void* pnum, void* pw1u,          \
+                      void* pscal, void* stream) {                                             \
+    return run_fwd<VT>(indptr, indptr_is_int64, src, v, a_src, a_dst, out, w1, inv_s, w1s,     \
+                       shift, n_rows, heads, d, ns, seed, thresh, scale, long_t, rows,         \
+                       chunk_ptr, n_long, chunks, n_chunks, pnum, pw1u, pscal, stream);        \
+  }
+
+#define GAT_B2_ENTRY(NAME, GVT)                                                                \
+  extern "C" int NAME(const void* indptr, int indptr_is_int64, const void* dst,                \
+                      const void* eid, const void* g, const void* node, const void* a_src,     \
+                      void* grad_v, void* w2, void* w3, long long n_rows, int heads, int d,    \
+                      float ns, const void* seed, unsigned thresh, float scale,                \
+                      long long long_t, const void* rows, const void* chunk_ptr,               \
+                      long long n_long, const void* chunks, long long n_chunks, void* pgv,     \
+                      void* pw2, void* pw3, void* stream) {                                    \
+    return run_b2<GVT>(indptr, indptr_is_int64, dst, eid, g, node, a_src, grad_v, w2, w3,      \
+                       n_rows, heads, d, ns, seed, thresh, scale, long_t, rows, chunk_ptr,     \
+                       n_long, chunks, n_chunks, pgv, pw2, pw3, stream);                       \
+  }
+
+GAT_FWD_ENTRY(gat_fwd_f32, float)
+GAT_FWD_ENTRY(gat_fwd_bf16, __nv_bfloat16)
+GAT_B2_ENTRY(gat_b2_f32, float)
+GAT_B2_ENTRY(gat_b2_bf16, __nv_bfloat16)

@@ -2,21 +2,28 @@
 // gat_attention.cu), which all walk a CSR with one warp per row.
 //
 // The warp is cut into groups = 32 / L lane groups of L lanes. A group takes
-// one edge at a time and its lanes stride that edge's row of D floats with
-// V-float loads (V = 4, 2 or 1: 16-, 8- or 4-byte), so a narrow row still
-// keeps all 32 lanes busy (D = 16: L = 4, 8 edges at once). L is the least
-// power of two that covers the D / V vectors of a row, at most 32; a kernel
-// runs wider rows as feature tiles. The groups' partial sums are combined by
-// a butterfly of warp shuffles over the lane offsets L, 2L, ..., 16, always
-// in the same order, so the kernels need no atomics and two runs are
-// bitwise equal. Each kernel computes its lane's group (slot = lane / L)
-// and column (col = lane % L) itself: taken from a shared struct, they
-// changed K1's generated code and cost it 12% on reddit's reverse hub row.
+// one edge at a time and its lanes stride that edge's row of D values with
+// loads of V values: 16, 8, 4 or 2 bytes a lane (float rows: V = 4, 2 or 1;
+// bfloat16 rows: V = 8, 4, 2 or 1), so a narrow row still keeps all 32
+// lanes busy (float D = 16: L = 4, 8 edges at once; bfloat16 D = 16: L = 2,
+// 16 edges at once). Every value is converted to float as it is loaded
+// (bfloat16 with cuda_bf16.h's __bfloat1622float2 / __bfloat162float, which
+// are exact), and every sum is kept in float. L is the least power of two
+// that covers the D / V vectors of a row, at most 32; a kernel runs wider
+// rows as feature tiles. The groups' partial sums are combined by a
+// butterfly of warp shuffles over the lane offsets L, 2L, ..., 16, always in
+// the same order, so the kernels need no atomics and two runs are bitwise
+// equal. Each kernel computes its lane's group (slot = lane / L) and column
+// (col = lane % L) itself: taken from a shared struct, they changed K1's
+// generated code and cost it 12% on reddit's reverse hub row.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace warp_csr {
 
@@ -30,11 +37,17 @@ __device__ __forceinline__ int64_t warp_row() {
   return static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
 }
 
+// V values of a float row at p, one 16-, 8- or 4-byte load (V = 8: two
+// 16-byte loads).
 template <int V>
 __device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  static_assert(V == 1 || V == 2 || V == 4 || V == 8, "1, 2, 4 or 8 floats");
+  if constexpr (V >= 4) {
+#pragma unroll
+    for (int h = 0; h < V / 4; ++h) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + h);
+      v[4 * h] = t.x; v[4 * h + 1] = t.y; v[4 * h + 2] = t.z; v[4 * h + 3] = t.w;
+    }
   } else if constexpr (V == 2) {
     const float2 t = __ldg(reinterpret_cast<const float2*>(p));
     v[0] = t.x; v[1] = t.y;
@@ -43,14 +56,61 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)
   }
 }
 
+// The raw word of V bfloat16 values (2·V bytes) that one load or store moves.
+template <int V> struct Bf16Word;
+template <> struct Bf16Word<2> { using type = __nv_bfloat162; };
+template <> struct Bf16Word<4> { using type = uint2; };
+template <> struct Bf16Word<8> { using type = uint4; };
+
+// V values of a bfloat16 row at p, as floats: one 16-, 8-, 4- or 2-byte load.
+template <int V>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p, float (&v)[V]) {
+  static_assert(V == 1 || V == 2 || V == 4 || V == 8, "1, 2, 4 or 8 bfloat16 values");
+  if constexpr (V == 1) {
+    v[0] = __bfloat162float(__ldg(p));
+  } else {
+    using W = typename Bf16Word<V>::type;
+    const W raw = __ldg(reinterpret_cast<const W*>(p));
+    const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < V / 2; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+}
+
+// V floats to a float row at p (V = 8: two 16-byte stores).
 template <int V>
 __device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  static_assert(V == 1 || V == 2 || V == 4 || V == 8, "1, 2, 4 or 8 floats");
+  if constexpr (V >= 4) {
+#pragma unroll
+    for (int h = 0; h < V / 4; ++h)
+      reinterpret_cast<float4*>(p)[h] =
+          make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
   } else if constexpr (V == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   } else {
     p[0] = v[0];
+  }
+}
+
+// V floats rounded to bfloat16 (to nearest, ties to even, as torch's
+// .to(torch.bfloat16)) and stored at p, one store of 2·V bytes.
+template <int V>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* __restrict__ p, const float (&v)[V]) {
+  static_assert(V == 1 || V == 2 || V == 4 || V == 8, "1, 2, 4 or 8 bfloat16 values");
+  if constexpr (V == 1) {
+    p[0] = __float2bfloat16_rn(v[0]);
+  } else {
+    using W = typename Bf16Word<V>::type;
+    W raw;
+    auto* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < V / 2; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<W*>(p) = raw;
   }
 }
 
@@ -68,7 +128,7 @@ __device__ __forceinline__ void group_sum(float (&acc)[T][V], int lanes) {
     for (int k = 0; k < V; ++k) acc[t][k] = group_sum(acc[t][k], lanes);
 }
 
-// L for a row of d floats read v at a time.
+// L for a row of d values read v at a time.
 inline int lanes_for(int d, int v) {
   const int nvec = d / v;
   int l = 1;
@@ -76,10 +136,26 @@ inline int lanes_for(int d, int v) {
   return l;
 }
 
-// The widest vector that d and every row pointer (OR-ed into `align`) allow.
-inline int vec_width(int d, uintptr_t align) {
-  if (d % 4 == 0 && align % 16 == 0) return 4;
-  if (d % 2 == 0 && align % 8 == 0) return 2;
+// A row operand of a launch: its base pointer and the bytes of one value.
+struct Rows {
+  const void* p;
+  int bytes;
+};
+
+// The widest vector of V values that d and every operand allow: the first
+// operand, the one a kernel gathers, sets the widest load (16 bytes: V =
+// 16 / its value's bytes), and each operand's pointer must be aligned to its
+// access of V values (V · bytes, at most 16: wider float accesses are split
+// into 16-byte ones). d % V == 0 keeps every row aligned as its base.
+inline int vec_width(int d, std::initializer_list<Rows> rows) {
+  for (int v = 16 / rows.begin()->bytes; v > 1; v >>= 1) {
+    bool ok = d % v == 0;
+    for (const Rows& r : rows) {
+      const int need = v * r.bytes < 16 ? v * r.bytes : 16;
+      ok = ok && reinterpret_cast<uintptr_t>(r.p) % need == 0;
+    }
+    if (ok) return v;
+  }
   return 1;
 }
 
@@ -139,15 +215,16 @@ __device__ __forceinline__ int64_t chunk_owner(const int64_t* __restrict__ chunk
 constexpr int kCombineUnroll = 8;  // chunks in flight per lane group
 
 // One warp per long row: out[rows[i]] = scale · Σ_k partials[k] over the row's
-// chunks k in ascending order, scale = 1 / deg (mean) or 1. The lane groups
+// chunks k in ascending order, scale = 1 / deg (mean) or 1, written as OutT
+// (float, or bfloat16 rounded once from the float sum). The lane groups
 // load kCombineUnroll·groups chunks at once (group g holds chunk kb + u·groups
 // + g); every lane then adds them in ascending k through shuffles, so the
 // order of the additions does not depend on the lane layout.
-template <int V>
+template <int V, typename OutT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 combine_chunks_kernel(const float* __restrict__ partials, const int64_t* __restrict__ rows,
                       const int64_t* __restrict__ chunk_ptr, const int64_t* __restrict__ chunks,
-                      float* __restrict__ out, int64_t n_long, int d, int lanes, int mean) {
+                      OutT* __restrict__ out, int64_t n_long, int d, int lanes, int mean) {
   const int64_t i = warp_row();
   if (i >= n_long) return;  // uniform across the warp
   const int lane = threadIdx.x % kWarp;
@@ -162,7 +239,7 @@ combine_chunks_kernel(const float* __restrict__ partials, const int64_t* __restr
   }
   const int nvec = d / V;
   const int64_t step = static_cast<int64_t>(groups) * kCombineUnroll;
-  float* orow = out + rows[i] * d;
+  OutT* orow = out + rows[i] * d;
   for (int c0 = 0; c0 < nvec; c0 += lanes) {
     const int c = c0 + col;
     float acc[V];
@@ -196,23 +273,24 @@ combine_chunks_kernel(const float* __restrict__ partials, const int64_t* __restr
   }
 }
 
-// The combine launch of a split CSR (nothing to do without long rows).
-inline void combine_chunks(int vw, const float* partials, const int64_t* rows,
-                           const int64_t* chunk_ptr, const int64_t* chunks, float* out,
-                           int64_t n_long, int d, int mean, cudaStream_t stream) {
+// The combine launch of a split CSR (nothing to do without long rows). Its
+// vector width is its own: the order of the additions does not depend on it.
+template <typename OutT>
+void combine_chunks(const float* partials, const int64_t* rows, const int64_t* chunk_ptr,
+                    const int64_t* chunks, OutT* out, int64_t n_long, int d, int mean,
+                    cudaStream_t stream) {
   if (n_long <= 0) return;
+  const int vw = vec_width(d, {{partials, 4}, {out, static_cast<int>(sizeof(OutT))}});
   const int lanes = lanes_for(d, vw);
   const dim3 grid = grid_for(n_long), block = block_dim();
+  auto kernel = combine_chunks_kernel<1, OutT>;
   if (vw == 4) {
-    combine_chunks_kernel<4><<<grid, block, 0, stream>>>(partials, rows, chunk_ptr, chunks, out,
-                                                         n_long, d, lanes, mean);
+    kernel = combine_chunks_kernel<4, OutT>;
   } else if (vw == 2) {
-    combine_chunks_kernel<2><<<grid, block, 0, stream>>>(partials, rows, chunk_ptr, chunks, out,
-                                                         n_long, d, lanes, mean);
-  } else {
-    combine_chunks_kernel<1><<<grid, block, 0, stream>>>(partials, rows, chunk_ptr, chunks, out,
-                                                         n_long, d, lanes, mean);
+    kernel = combine_chunks_kernel<2, OutT>;
   }
+  kernel<<<grid, block, 0, stream>>>(partials, rows, chunk_ptr, chunks, out, n_long, d, lanes,
+                                     mean);
 }
 
 }  // namespace warp_csr

@@ -1,7 +1,12 @@
 // K2 for Hopper (sm_90a): sorted segment sum of edge messages by dst, the
 // copy_e × sum reduction of message passing.
 //
-//   out[r] = Σ_{j ∈ [indptr[r], indptr[r+1])} msg[j]      msg (E, W) float32
+//   out[r] = Σ_{j ∈ [indptr[r], indptr[r+1])} msg[j]      msg (E, W) float32 or bfloat16
+//
+// The sums and the output are float32 whatever msg's type (seg_sum_bf16: the
+// JAX package's _seg_sum_by_dst promotes bf16 messages to an f32 sum,
+// dgl_tpu/ops/spmm.py:121-123); a bfloat16 value is converted exactly to
+// float as it is loaded.
 //
 // Replaces: dgl_tpu/kernels/piece_reduce.py:piece_partials (body _kernel,
 // wrapped by segment_sum_mxu). The TPU kernel multiplies each block of 128
@@ -21,8 +26,9 @@
 //     bitwise equal and small-integer sums are exact;
 //   * the lane layout of lanes.cuh, shared with K1 and K3: the warp is cut
 //     into P = 32 / L lane groups of L lanes; a group takes one edge at a
-//     time and its lanes stride the row of W floats with 16-, 8- or 4-byte
-//     loads, so W = 16 keeps all 32 lanes on 8 edges at once;
+//     time and its lanes stride the row of W values with 16-, 8-, 4- or
+//     (bfloat16) 2-byte loads, so W = 16 keeps all 32 lanes on 8 edges at
+//     once (16 in bfloat16);
 //   * each group keeps kUnroll edges in flight to cover the load latency;
 //   * the feature tile is picked from W at dispatch: one vector per lane
 //     when a row of W floats fits in the L lanes (W = 16, 64), two for wider
@@ -48,10 +54,10 @@ using namespace warp_csr;
 
 constexpr int kRowsPerWarp = 2;  // consecutive short rows per warp, < kWarp
 
-// The warp's sum of msg rows [start, end), written to orow; TILE vectors per
-// lane per feature tile.
-template <int V, int TILE>
-__device__ __forceinline__ void sum_range(const float* __restrict__ msg, float* __restrict__ orow,
+// The warp's sum of msg rows [start, end) (MT: float or bfloat16), in float,
+// written to orow; TILE vectors per lane per feature tile.
+template <int V, int TILE, typename MT>
+__device__ __forceinline__ void sum_range(const MT* __restrict__ msg, float* __restrict__ orow,
                                           int64_t start, int64_t end, int w, int lanes) {
   const int lane = threadIdx.x % kWarp;
   const int groups = kWarp / lanes;  // edges taken at once
@@ -72,7 +78,7 @@ __device__ __forceinline__ void sum_range(const float* __restrict__ msg, float* 
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int64_t j = j0 + static_cast<int64_t>(u) * groups;
-        const float* mr = msg + j * w;
+        const MT* mr = msg + j * w;
 #pragma unroll
         for (int t = 0; t < TILE; ++t) {
           const int c = c0 + col + t * lanes;
@@ -110,9 +116,9 @@ __device__ __forceinline__ void sum_range(const float* __restrict__ msg, float* 
 // bounds leaves ptxas free to give the V = 4, TILE = 1 variant (W = 16, 64)
 // 64 registers rather than 48: fewer warps fit on an SM, but each keeps its
 // loads in flight, and that variant ran faster so on the card.
-template <int V, int TILE, typename IdxT>
+template <int V, int TILE, typename IdxT, typename MT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock, 1)
-seg_sum_kernel(const IdxT* __restrict__ indptr, const float* __restrict__ msg,
+seg_sum_kernel(const IdxT* __restrict__ indptr, const MT* __restrict__ msg,
                float* __restrict__ out, int64_t n_rows, int w, int lanes,
                int64_t long_t, const int64_t* __restrict__ chunks, int64_t n_chunks,
                int64_t n_chunk_blocks, float* __restrict__ partials) {
@@ -136,31 +142,30 @@ seg_sum_kernel(const IdxT* __restrict__ indptr, const float* __restrict__ msg,
   }
 }
 
-template <int V, typename IdxT>
-void launch(int tile, dim3 grid, cudaStream_t stream, const IdxT* indptr, const float* msg,
+template <int V, typename IdxT, typename MT>
+void launch(int tile, dim3 grid, cudaStream_t stream, const IdxT* indptr, const MT* msg,
             float* out, int64_t n_rows, int w, int lanes, int64_t long_t,
             const int64_t* chunks, int64_t n_chunks, int64_t cb, float* partials) {
-  if (tile == 1) {
-    seg_sum_kernel<V, 1, IdxT><<<grid, block_dim(), 0, stream>>>(
-        indptr, msg, out, n_rows, w, lanes, long_t, chunks, n_chunks, cb, partials);
-  } else {
-    seg_sum_kernel<V, 2, IdxT><<<grid, block_dim(), 0, stream>>>(
-        indptr, msg, out, n_rows, w, lanes, long_t, chunks, n_chunks, cb, partials);
-  }
+  auto kernel = tile == 1 ? seg_sum_kernel<V, 1, IdxT, MT> : seg_sum_kernel<V, 2, IdxT, MT>;
+  kernel<<<grid, block_dim(), 0, stream>>>(indptr, msg, out, n_rows, w, lanes, long_t, chunks,
+                                           n_chunks, cb, partials);
 }
 
-template <typename IdxT>
-void dispatch(const IdxT* indptr, const float* msg, float* out, int64_t n_rows, int w,
+template <typename IdxT, typename MT>
+void dispatch(const IdxT* indptr, const MT* msg, float* out, int64_t n_rows, int w,
               int64_t long_t, const int64_t* rows, const int64_t* chunk_ptr, int64_t n_long,
               const int64_t* chunks, int64_t n_chunks, float* partials, cudaStream_t stream) {
-  const int vw = vec_width(w, reinterpret_cast<uintptr_t>(msg) | reinterpret_cast<uintptr_t>(out) |
-                                  reinterpret_cast<uintptr_t>(partials));
+  const int vw = vec_width(w, {{msg, static_cast<int>(sizeof(MT))}, {out, 4}, {partials, 4}});
   const int lanes = lanes_for(w, vw);
   const int tile = w / vw <= lanes ? 1 : 2;
   const int64_t cb = chunk_blocks(n_chunks);
   const int64_t row_items = (n_rows + kRowsPerWarp - 1) / kRowsPerWarp;
   const dim3 grid(static_cast<unsigned>(cb + grid_for(row_items).x));
-  if (vw == 4) {
+  if (vw == 8) {
+    if constexpr (sizeof(MT) == 2)
+      launch<8>(tile, grid, stream, indptr, msg, out, n_rows, w, lanes, long_t, chunks,
+                n_chunks, cb, partials);
+  } else if (vw == 4) {
     launch<4>(tile, grid, stream, indptr, msg, out, n_rows, w, lanes, long_t, chunks,
               n_chunks, cb, partials);
   } else if (vw == 2) {
@@ -170,20 +175,15 @@ void dispatch(const IdxT* indptr, const float* msg, float* out, int64_t n_rows, 
     launch<1>(tile, grid, stream, indptr, msg, out, n_rows, w, lanes, long_t, chunks,
               n_chunks, cb, partials);
   }
-  combine_chunks(vw, partials, rows, chunk_ptr, chunks, out, n_long, w, 0, stream);
+  combine_chunks(partials, rows, chunk_ptr, chunks, out, n_long, w, 0, stream);
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes. Pointers are device pointers. The
-// row split as for csr_spmm_f32. Launches the kernel, then the combine when
-// n_long > 0; returns cudaGetLastError().
-extern "C" int seg_sum_f32(const void* indptr, int indptr_is_int64, const void* msg, void* out,
-                           long long n_rows, int w, long long long_t,
-                           const void* rows, const void* chunk_ptr, long long n_long,
-                           const void* chunks, long long n_chunks, void* partials, void* stream) {
+template <typename MT>
+int run(const void* indptr, int indptr_is_int64, const void* msg, void* out, long long n_rows,
+        int w, long long long_t, const void* rows, const void* chunk_ptr, long long n_long,
+        const void* chunks, long long n_chunks, void* partials, void* stream) {
   if (n_rows <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
-  const auto* mp = static_cast<const float*>(msg);
+  const auto* mp = static_cast<const MT*>(msg);
   auto* op = static_cast<float*>(out);
   const auto* rp = static_cast<const int64_t*>(rows);
   const auto* cp = static_cast<const int64_t*>(chunk_ptr);
@@ -199,3 +199,21 @@ extern "C" int seg_sum_f32(const void* indptr, int indptr_is_int64, const void* 
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes: msg float (seg_sum_f32) or
+// bfloat16 (seg_sum_bf16), out float either way. Pointers are device
+// pointers. The row split as for csr_spmm_f32. Launches the kernel, then the
+// combine when n_long > 0; returns cudaGetLastError().
+#define SEG_SUM_ENTRY(NAME, MT)                                                                \
+  extern "C" int NAME(const void* indptr, int indptr_is_int64, const void* msg, void* out,     \
+                      long long n_rows, int w, long long long_t, const void* rows,             \
+                      const void* chunk_ptr, long long n_long, const void* chunks,             \
+                      long long n_chunks, void* partials, void* stream) {                      \
+    return run<MT>(indptr, indptr_is_int64, msg, out, n_rows, w, long_t, rows, chunk_ptr,      \
+                   n_long, chunks, n_chunks, partials, stream);                                \
+  }
+
+SEG_SUM_ENTRY(seg_sum_f32, float)
+SEG_SUM_ENTRY(seg_sum_bf16, __nv_bfloat16)

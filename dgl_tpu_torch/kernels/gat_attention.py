@@ -39,6 +39,15 @@ At H = 1 the key is ``eid`` and the mask equals the lane kernel's bit for
 bit; the lane kernel keys on ``eid`` alone at every H, one mask an edge for
 all heads. The seed is a (1,) int32 tensor on the operands' device.
 
+``v`` is float32 or bfloat16, as ``lane_gat_agg``'s ``compute_dtype``
+(``lane_attention.py:503``): the forward reads v's rows as bfloat16 and
+keeps the logits, the shift, the softmax, the dropout and every sum in
+float32, and writes float32; b2 reads the float32 cotangent, sums
+``grad_v`` in float32 and rounds it once to v's type (``:477``), which
+``gat_attention_bwd`` takes as ``v_dtype``; ``grad_a_src = Σ_D v·w2 − w3``
+reads v converted to float32. ``.launches_bf16`` counts each pass's
+bfloat16 launches among ``.launches``.
+
 Counterpart of ``dgl_tpu/kernels/lane_attention.py:lane_gat_agg``. The
 softmax shift is the exact row maximum, where the JAX kernel uses the loose
 bound ``leaky_relu(max a_src + a_dst)``; softmax does not change under the
@@ -56,7 +65,7 @@ import torch
 from ..graph.split import RowSplit, row_split
 from ..ops.segment import segment_max
 from .build import load
-from .seg_sum import csr_rows
+from .seg_sum import ROW_DTYPES, csr_rows, sum_dtype
 
 __all__ = [
     "gat_attention",
@@ -127,9 +136,11 @@ def gat_attention_fwd_plain(
     seed: Optional[torch.Tensor] = None,
 ):
     """The forward pass in plain PyTorch; returns (out, w1, inv_s, w1s, shift)
-    like the kernel. Materialises (E, H, D) buffers."""
+    like the kernel. Materialises (E, H, D) buffers. A bfloat16 ``v`` is
+    converted to float32 first, so its sums are float32 as the kernel's."""
     n, e = indptr.numel() - 1, src.numel()
     rows, s = csr_rows(indptr, e), src.long()
+    v = v.to(sum_dtype(v.dtype))
     shift = _row_shift(indptr, rows, s, a_src, a_dst, negative_slope)
     raw = a_src[s] + a_dst[rows]
     slope = torch.where(raw > 0, 1.0, negative_slope)
@@ -152,12 +163,13 @@ def gat_attention_fwd_plain(
 
 def gat_attention_bwd_plain(
     indptr, dst, eid, g, node, a_src, *, negative_slope: float, keep: float = 1.0,
-    seed: Optional[torch.Tensor] = None,
+    seed: Optional[torch.Tensor] = None, v_dtype: Optional[torch.dtype] = None,
 ):
     """The b2 pass in plain PyTorch over the reverse CSR (``dst`` holds the
     original dst of each slot, ``eid`` its forward-canonical id, ``node``
     (N_dst, H, 4) the packed a_dst, shift, inv_s, C); returns
-    (grad_v, w2, w3)."""
+    (grad_v, w2, w3), ``grad_v`` summed in g's type and rounded once to
+    ``v_dtype`` where given."""
     n, e = indptr.numel() - 1, dst.numel()
     rows, d = csr_rows(indptr, e), dst.long()
     q = node[d]
@@ -169,7 +181,7 @@ def gat_attention_bwd_plain(
     grad_v = _zeros_like_rows(n, g).index_add_(0, rows, wv.unsqueeze(-1) * gd)
     w2 = _zeros_like_rows(n, g).index_add_(0, rows, (wv * slope).unsqueeze(-1) * gd)
     w3 = _zeros_like_rows(n, a_src).index_add_(0, rows, alpha * slope * q[..., 3])
-    return grad_v, w2, w3
+    return grad_v if v_dtype is None else grad_v.to(v_dtype), w2, w3
 
 
 def gat_attention_plain(
@@ -177,8 +189,11 @@ def gat_attention_plain(
     seed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The whole function in plain PyTorch, differentiated by autograd:
-    gathers, the detached exact shift, ``exp`` and ``index_add_``."""
+    gathers, the detached exact shift, ``exp`` and ``index_add_``. A
+    bfloat16 ``v`` is converted to float32 before its gather, so its
+    gradient is summed in float32 and rounded once."""
     n, e = indptr.numel() - 1, src.numel()
+    v = v.to(sum_dtype(v.dtype))
     rows, s = csr_rows(indptr, e), src.long()
     shift = _row_shift(indptr, rows, s, a_src.detach(), a_dst.detach(), negative_slope)
     p = torch.exp(_leaky(a_src[s] + a_dst[rows], negative_slope) - shift[rows])
@@ -190,7 +205,8 @@ def gat_attention_plain(
     return _zeros_like_rows(n, v).index_add(0, rows, alpha.unsqueeze(-1) * v[s])
 
 
-def _check(name, indptr, index_arrays, floats, seed, keep) -> None:
+def _check(name, indptr, index_arrays, floats, seed, keep, rows=()) -> None:
+    """``floats`` must be float32, ``rows`` (v) float32 or bfloat16."""
     dev = floats[0].device
     if indptr.dtype not in (torch.int32, torch.int64) or indptr.dim() != 1 or indptr.numel() < 1:
         raise TypeError(f"{name}: indptr must be 1-D int32/int64, got {indptr.dtype} {tuple(indptr.shape)}")
@@ -200,9 +216,12 @@ def _check(name, indptr, index_arrays, floats, seed, keep) -> None:
     for a in floats:
         if a.dtype != torch.float32:
             raise TypeError(f"{name} takes float32 operands, got {a.dtype}")
+    for a in rows:
+        if a.dtype not in ROW_DTYPES:
+            raise TypeError(f"{name} takes float32 or bfloat16 v, got {a.dtype}")
     if keep < 1.0 and (seed is None or seed.dtype != torch.int32 or seed.numel() != 1):
         raise ValueError(f"{name}: dropout (keep < 1) needs a (1,) int32 seed tensor")
-    tensors = [indptr, *index_arrays, *floats] + ([seed] if keep < 1.0 else [])
+    tensors = [indptr, *index_arrays, *floats, *rows] + ([seed] if keep < 1.0 else [])
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name} operands lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
@@ -213,11 +232,12 @@ def _check(name, indptr, index_arrays, floats, seed, keep) -> None:
         raise ValueError(f"{name}: keep must be in (0, 1], got {keep}")
 
 
-def _fn(name: str, n_ptrs_before_dims: int):
-    """The C entry point: indptr and its type, the pass's pointers, its sizes
-    and dropout, the row split (``RowSplit.kernel_args``), two more partials
+def _fn(name: str, dtype: torch.dtype, n_ptrs_before_dims: int):
+    """The C entry point of pass ``name`` for rows of ``dtype`` (v, or b2's
+    grad_v): indptr and its type, the pass's pointers, its sizes and
+    dropout, the row split (``RowSplit.kernel_args``), two more partials
     buffers and the stream."""
-    fn = getattr(load("gat_attention"), name)
+    fn = getattr(load("gat_attention"), f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
     if fn.argtypes is None:
         p, ll = ctypes.c_void_p, ctypes.c_longlong
         fn.argtypes = ([p, ctypes.c_int] + [p] * n_ptrs_before_dims
@@ -252,9 +272,10 @@ def gat_attention_fwd(
     seed: Optional[torch.Tensor] = None, split: Optional[RowSplit] = None,
 ):
     """The forward pass over the dst CSR (``indptr`` (N_dst+1,), ``src`` (E,)
-    int32, ``v`` (N_src, H, D), ``a_src`` (N_src, H), ``a_dst`` (N_dst, H)).
-    Returns ``out`` and ``w1`` (N_dst, H, D), ``inv_s``, ``w1s`` and
-    ``shift`` (N_dst, H); every one is 0 on an empty row.
+    int32, ``v`` (N_src, H, D) float32 or bfloat16, ``a_src`` (N_src, H),
+    ``a_dst`` (N_dst, H) float32). Returns ``out`` and ``w1`` (N_dst, H, D),
+    ``inv_s``, ``w1s`` and ``shift`` (N_dst, H), all float32; every one is 0
+    on an empty row.
 
     ``split``: the CSR's row split (``g.split`` for a graph's dst CSR), on
     the device of ``indptr``, checked as ``csr_spmm`` checks it: one whose
@@ -264,7 +285,7 @@ def gat_attention_fwd(
     one, a launch on the card builds it from ``indptr`` (a host sync). The
     package's ops always pass the graph's plan.
     """
-    _check("gat_attention_fwd", indptr, [src], [v, a_src, a_dst], seed, keep)
+    _check("gat_attention_fwd", indptr, [src], [a_src, a_dst], seed, keep, rows=[v])
     n, (n_src, heads, d) = indptr.numel() - 1, v.shape
     if a_src.shape != (n_src, heads) or a_dst.shape != (n, heads):
         raise ValueError(f"gat_attention_fwd: a_src {tuple(a_src.shape)} / a_dst "
@@ -286,7 +307,7 @@ def gat_attention_fwd(
     pnum, pw1u, pscal = _partials(c, v.device, (c, heads, d), (c, heads, d), (3, c, heads))
     seed_ptr, thresh, scale = _drop_args(keep, seed)
     with torch.cuda.device(v.device):
-        err = _fn("gat_fwd_f32", 9)(
+        err = _fn("gat_fwd", v.dtype, 9)(
             indptr.data_ptr(), int(indptr.dtype == torch.int64), src.data_ptr(), v.data_ptr(),
             a_src.data_ptr(), a_dst.data_ptr(), out.data_ptr(), w1.data_ptr(), inv_s.data_ptr(),
             w1s.data_ptr(), shift.data_ptr(), n, heads, d, negative_slope, seed_ptr, thresh,
@@ -296,27 +317,34 @@ def gat_attention_fwd(
     if err:
         raise RuntimeError(f"gat_attention_fwd kernel launch failed with CUDA error {err}")
     gat_attention_fwd.launches += 1
+    gat_attention_fwd.launches_bf16 += int(v.dtype == torch.bfloat16)
     gat_attention_fwd.combines += int(split.num_long > 0)
     return out, w1, inv_s, w1s, shift
 
 
 gat_attention_fwd.launches = 0
+gat_attention_fwd.launches_bf16 = 0
 gat_attention_fwd.combines = 0
 
 
 def gat_attention_bwd(
     indptr, dst, eid, g, node, a_src, *, negative_slope: float, keep: float = 1.0,
     seed: Optional[torch.Tensor] = None, split: Optional[RowSplit] = None,
+    v_dtype: torch.dtype = torch.float32,
 ):
     """The b2 pass over the reverse CSR (``indptr`` (N_src+1,), ``dst`` and
     ``eid`` (E,) int32: each slot's original dst and forward-canonical id),
     with ``g`` (N_dst, H, D) the output cotangent, ``node`` (N_dst, H, 4)
-    the packed a_dst, shift, inv_s and C, and ``a_src`` (N_src, H). Returns
-    ``grad_v``, ``w2`` (N_src, H, D) and ``w3`` (N_src, H).
+    the packed a_dst, shift, inv_s and C, and ``a_src`` (N_src, H), all
+    float32. Returns ``grad_v`` (N_src, H, D) in ``v_dtype`` (v's type,
+    float32 or bfloat16: summed in float32, rounded once), ``w2`` (N_src,
+    H, D) and ``w3`` (N_src, H) float32.
 
     ``split``: the reverse CSR's row split (``g.reverse.split``), as for
     ``gat_attention_fwd``."""
     _check("gat_attention_bwd", indptr, [dst, eid], [g, node, a_src], seed, keep)
+    if v_dtype not in ROW_DTYPES:
+        raise TypeError(f"gat_attention_bwd: v_dtype must be float32 or bfloat16, got {v_dtype}")
     n, (n_dst, heads, d) = indptr.numel() - 1, g.shape
     if node.shape != (n_dst, heads, 4) or a_src.shape != (n, heads):
         raise ValueError(f"gat_attention_bwd: node {tuple(node.shape)} / a_src "
@@ -327,10 +355,12 @@ def gat_attention_bwd(
         split.check(indptr, dst.numel(), "gat_attention_bwd")
     if g.device.type == "cpu":
         return gat_attention_bwd_plain(indptr, dst, eid, g, node, a_src,
-                                       negative_slope=negative_slope, keep=keep, seed=seed)
+                                       negative_slope=negative_slope, keep=keep, seed=seed,
+                                       v_dtype=v_dtype)
     if node.data_ptr() % 16:
         raise ValueError("gat_attention_bwd: node must be 16-byte aligned (one float4 per row)")
-    grad_v, w2 = (torch.empty((n, heads, d), dtype=torch.float32, device=g.device) for _ in range(2))
+    grad_v = torch.empty((n, heads, d), dtype=v_dtype, device=g.device)
+    w2 = torch.empty((n, heads, d), dtype=torch.float32, device=g.device)
     w3 = torch.empty((n, heads), dtype=torch.float32, device=g.device)
     if n == 0 or d == 0 or heads == 0:
         return grad_v, w2, w3
@@ -340,7 +370,7 @@ def gat_attention_bwd(
     pgv, pw2, pw3 = _partials(c, g.device, (c, heads, d), (c, heads, d), (c, heads))
     seed_ptr, thresh, scale = _drop_args(keep, seed)
     with torch.cuda.device(g.device):
-        err = _fn("gat_b2_f32", 8)(
+        err = _fn("gat_b2", v_dtype, 8)(
             indptr.data_ptr(), int(indptr.dtype == torch.int64), dst.data_ptr(), eid.data_ptr(),
             g.data_ptr(), node.data_ptr(), a_src.data_ptr(), grad_v.data_ptr(), w2.data_ptr(),
             w3.data_ptr(), n, heads, d, negative_slope, seed_ptr, thresh, scale,
@@ -350,11 +380,13 @@ def gat_attention_bwd(
     if err:
         raise RuntimeError(f"gat_attention_bwd kernel launch failed with CUDA error {err}")
     gat_attention_bwd.launches += 1
+    gat_attention_bwd.launches_bf16 += int(v_dtype == torch.bfloat16)
     gat_attention_bwd.combines += B2_COMBINES * int(split.num_long > 0)
     return grad_v, w2, w3
 
 
 gat_attention_bwd.launches = 0
+gat_attention_bwd.launches_bf16 = 0
 gat_attention_bwd.combines = 0
 
 
@@ -380,6 +412,7 @@ class _GATAttention(torch.autograd.Function):
         grad_v, w2, w3 = gat_attention_bwd(
             rev.indptr, rev.src, rev.eid, g_out, node, a_src,
             negative_slope=ctx.negative_slope, keep=ctx.keep, seed=ctx.seed, split=rev.split,
+            v_dtype=v.dtype,
         )
         grad_a_src = (v * w2).sum(-1) - w3
         return grad_v, grad_a_src, grad_a_dst, None, None, None, None
@@ -390,9 +423,10 @@ def gat_attention(
     negative_slope: float = 0.2, keep: float = 1.0, seed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused attention aggregation over graph ``g`` (with its reverse):
-    ``v`` (N_src, H, D), ``a_src`` (N_src, H), ``a_dst`` (N_dst, H), all
-    float32; ``keep`` < 1 applies the hash dropout with the (1,) int32
-    ``seed``. Returns (N_dst, H, D); a row with no in-edges is 0."""
+    ``v`` (N_src, H, D) float32 or bfloat16, ``a_src`` (N_src, H), ``a_dst``
+    (N_dst, H) float32; ``keep`` < 1 applies the hash dropout with the (1,)
+    int32 ``seed``. Returns (N_dst, H, D) float32; a row with no in-edges is
+    0. v's gradient comes in v's type."""
     if g.reverse is None:
         raise ValueError("gat_attention needs the graph's reverse for its backward")
     if v.shape[0] != g.num_src_nodes or a_dst.shape[0] != g.num_dst_nodes:

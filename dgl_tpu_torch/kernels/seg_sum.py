@@ -15,6 +15,11 @@ ascending chunk order and writes the row once. No atomics decide the order,
 so two runs are bitwise equal and small-integer sums exact. Each warp of the
 rest takes two consecutive rows (``kRowsPerWarp`` in the source).
 
+``msg`` is float32 or bfloat16; the sums and the output are float32 either
+way, as the JAX package's ``_seg_sum_by_dst`` promotes bf16 messages
+(``dgl_tpu/ops/spmm.py:121-123``). ``seg_sum.launches_bf16`` counts the
+bfloat16 instantiation's launches among ``launches``.
+
 Counterpart of ``dgl_tpu/kernels/piece_reduce.py:segment_sum_mxu``. Its
 backward, ``grad_msg[j] = gout[dst[j]]``, is a row gather (an XLA op in the
 JAX package, P1 in source order here: ``row_gather.py:row_gather_by_source``
@@ -31,7 +36,16 @@ import torch
 from ..graph.split import RowSplit, row_split
 from .build import load
 
-__all__ = ["seg_sum", "seg_sum_plain", "csr_rows"]
+__all__ = ["seg_sum", "seg_sum_plain", "csr_rows", "ROW_DTYPES", "sum_dtype"]
+
+ROW_DTYPES = (torch.float32, torch.bfloat16)  # the rows the kernels gather
+
+
+def sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the kernels and their plain versions sum rows of ``dtype``
+    in: float32 for bfloat16 rows, the rows' own type otherwise (float64 in
+    the reference runs)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def csr_rows(indptr: torch.Tensor, n_edges: int) -> torch.Tensor:
@@ -44,15 +58,17 @@ def csr_rows(indptr: torch.Tensor, n_edges: int) -> torch.Tensor:
 
 def seg_sum_plain(indptr: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch: ``index_add_`` of the messages
-    into the rows that ``indptr`` assigns them."""
-    out = torch.zeros((indptr.numel() - 1,) + tuple(msg.shape[1:]), dtype=msg.dtype,
+    into the rows that ``indptr`` assigns them; bfloat16 messages are
+    converted to float32 first and summed in float32, as the kernel does."""
+    dtype = sum_dtype(msg.dtype)
+    out = torch.zeros((indptr.numel() - 1,) + tuple(msg.shape[1:]), dtype=dtype,
                       device=msg.device)
-    return out.index_add_(0, csr_rows(indptr, msg.shape[0]), msg)
+    return out.index_add_(0, csr_rows(indptr, msg.shape[0]), msg.to(dtype))
 
 
 def _check(indptr, msg) -> None:
-    if msg.dtype != torch.float32:
-        raise TypeError(f"seg_sum takes float32 messages, got {msg.dtype}")
+    if msg.dtype not in ROW_DTYPES:
+        raise TypeError(f"seg_sum takes float32 or bfloat16 messages, got {msg.dtype}")
     if msg.dim() != 2:
         raise ValueError(f"seg_sum takes 2-D messages (E, W), got shape {tuple(msg.shape)}")
     if indptr.dtype not in (torch.int32, torch.int64) or indptr.dim() != 1 or indptr.numel() < 1:
@@ -63,8 +79,8 @@ def _check(indptr, msg) -> None:
         raise ValueError("seg_sum operands must be contiguous")
 
 
-def _kernel_fn():
-    fn = load("seg_sum").seg_sum_f32
+def _kernel_fn(dtype: torch.dtype):
+    fn = getattr(load("seg_sum"), "seg_sum_bf16" if dtype == torch.bfloat16 else "seg_sum_f32")
     if fn.argtypes is None:
         p = ctypes.c_void_p
         ll = ctypes.c_longlong
@@ -75,10 +91,11 @@ def _kernel_fn():
 
 def seg_sum(indptr: torch.Tensor, msg: torch.Tensor,
             split: Optional[RowSplit] = None) -> torch.Tensor:
-    """``out[r] = Σ_{j in [indptr[r], indptr[r+1])} msg[j]``; float32 in and out.
+    """``out[r] = Σ_{j in [indptr[r], indptr[r+1])} msg[j]``; float32 out.
 
-    ``indptr`` (R+1,) int32/int64, ``msg`` (E, W) in CSR order with
-    ``E == indptr[-1]``. Returns (R, W); an empty row gives 0.
+    ``indptr`` (R+1,) int32/int64, ``msg`` (E, W) float32 or bfloat16 in CSR
+    order with ``E == indptr[-1]``. Returns (R, W) float32; an empty row
+    gives 0.
 
     ``split``: the CSR's row split (``graph.split`` / ``graph.reverse.split``
     for a graph's CSRs), on the device of ``indptr``. One whose row or edge
@@ -102,7 +119,7 @@ def seg_sum(indptr: torch.Tensor, msg: torch.Tensor,
     if split is None:
         split = row_split(indptr)
     partials = torch.empty((split.num_chunks, w), dtype=torch.float32, device=msg.device)
-    fn = _kernel_fn()
+    fn = _kernel_fn(msg.dtype)
     with torch.cuda.device(msg.device):
         err = fn(
             indptr.data_ptr(), int(indptr.dtype == torch.int64), msg.data_ptr(), out.data_ptr(),
@@ -112,9 +129,11 @@ def seg_sum(indptr: torch.Tensor, msg: torch.Tensor,
     if err:
         raise RuntimeError(f"seg_sum kernel launch failed with CUDA error {err}")
     seg_sum.launches += 1
+    seg_sum.launches_bf16 += int(msg.dtype == torch.bfloat16)
     seg_sum.combines += int(split.num_long > 0)
     return out
 
 
 seg_sum.launches = 0
+seg_sum.launches_bf16 = 0
 seg_sum.combines = 0

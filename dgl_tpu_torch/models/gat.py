@@ -9,13 +9,15 @@ Dropout masks and attention-dropout seeds come from the ``generator``
 passed to ``forward``; the initial weights from the CPU ``generator``
 passed to the constructor. Over blocks (``ns-gat-dgl.py:22-60``) layer
 ``i`` runs on ``graphs[i]`` with ``(h, h[:num_dst_nodes])`` and takes
-GATConv's positional block form. The JAX model's ``remat`` is a TPU memory
-workaround and is not ported.
+GATConv's positional block form. ``activation`` (elu by default) acts on
+the hidden layers; ``edge_dtype`` (None or ``torch.bfloat16``) goes to every
+layer (``nn/conv.py:GATConv``). The JAX model's ``remat`` is a TPU memory
+workaround and is not ported: K3 saves no (E, H, D) residual.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +41,8 @@ class GAT(nn.Module):
         attn_drop: float = 0.0,
         negative_slope: float = 0.2,
         residual: bool = False,
+        activation: Callable[[torch.Tensor], torch.Tensor] = F.elu,
+        edge_dtype: Optional[torch.dtype] = None,
         *,
         fused: bool = False,
         lowering: str = "fused",
@@ -58,7 +62,8 @@ class GAT(nn.Module):
                 attn_drop=0.0 if i == 0 else attn_drop,
                 negative_slope=negative_slope,
                 residual=residual,
-                activation=None if last else F.elu,
+                activation=None if last else activation,
+                edge_dtype=edge_dtype,
                 fused=fused,
                 lowering=lowering,
                 device="cpu",

@@ -10,6 +10,9 @@ initial weights from the CPU ``generator`` passed to the constructor.
 ``lowering`` goes to every layer's ``gspmm`` (``ops/spmm.py``). Over
 blocks (``ns-sage-dgl.py:21-48``) layer ``i`` runs on ``graphs[i]`` with
 ``(h, h[:num_dst_nodes])``: a block's destinations are its leading sources.
+``msg_dtype`` (None or ``torch.bfloat16``, the JAX model's field) goes to
+every layer: each SpMM reads its rows in it and sums in float32
+(``nn/conv.py:SAGEConv``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ class GraphSAGE(nn.Module):
         aggr: str = "mean",
         dropout: float = 0.5,
         batch_norm: bool = False,
+        msg_dtype: Optional[torch.dtype] = None,
         *,
         lowering: str = "fused",
         device: DeviceLike = None,
@@ -55,6 +59,7 @@ class GraphSAGE(nn.Module):
                 aggr,
                 feat_drop=dropout if (last and not batch_norm) else 0.0,
                 activation=None if (last or batch_norm) else F.relu,
+                msg_dtype=msg_dtype,
                 lowering=lowering,
                 device="cpu",
                 generator=generator,

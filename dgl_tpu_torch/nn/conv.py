@@ -66,6 +66,13 @@ class SAGEConv(nn.Module):
     ``gspmm(g, copy_u, aggr, x)``, replaces the aggregation entirely; it is
     invalid with ``feat_drop``, which must act before aggregation.
 
+    ``msg_dtype`` (None or ``torch.bfloat16``): the type the SpMM reads its
+    rows in, the JAX layer's bf16 messages (``dgl_tpu/nn/conv.py:63-66``).
+    ``fc_neigh(x_src)`` (project first) or ``x_src`` is cast to it just
+    before the SpMM, as ``dgl_tpu/nn/conv.py:106-111`` casts; K1 sums in
+    float32 and returns float32. ``x_agg`` is never cast. None keeps
+    float32.
+
     ``generator`` (a CPU generator) draws the initial weights.
     """
 
@@ -76,6 +83,7 @@ class SAGEConv(nn.Module):
         aggr: str = "mean",
         feat_drop: float = 0.0,
         activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        msg_dtype: Optional[torch.dtype] = None,
         *,
         lowering: str = "fused",
         device: DeviceLike = None,
@@ -87,7 +95,7 @@ class SAGEConv(nn.Module):
         dev = resolve_device(device)
         self.in_feats, self.out_feats = in_feats, out_feats
         self.aggr, self.feat_drop, self.activation = aggr, feat_drop, activation
-        self.lowering = lowering
+        self.lowering, self.msg_dtype = lowering, msg_dtype
         self.fc_self = nn.utils.skip_init(nn.Linear, in_feats, out_feats, bias=False)
         self.fc_neigh = nn.utils.skip_init(nn.Linear, in_feats, out_feats, bias=False)
         self.fc_neigh_bias = nn.Parameter(torch.zeros(out_feats))
@@ -112,13 +120,18 @@ class SAGEConv(nn.Module):
         if x_agg is not None:
             h_neigh = self.fc_neigh(x_agg)
         elif self.out_feats < x_src.shape[-1]:
-            h_neigh = gspmm(g, "copy_u", self.aggr, x=self.fc_neigh(x_src), lowering=self.lowering)
+            z = self._msg(self.fc_neigh(x_src))
+            h_neigh = gspmm(g, "copy_u", self.aggr, x=z, lowering=self.lowering)
         else:
-            h_neigh = self.fc_neigh(gspmm(g, "copy_u", self.aggr, x=x_src, lowering=self.lowering))
+            h_neigh = self.fc_neigh(gspmm(g, "copy_u", self.aggr, x=self._msg(x_src),
+                                          lowering=self.lowering))
         out = self.fc_self(x_dst) + h_neigh + self.fc_neigh_bias
         if self.activation is not None:
             out = self.activation(out)
         return out
+
+    def _msg(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.msg_dtype is None else x.to(self.msg_dtype)
 
 
 # the edge form's (E, H, D) message buffer above which the JAX package
@@ -169,6 +182,16 @@ class GATConv(nn.Module):
     kernel, as ``dgl_tpu/nn/conv.py:157-172`` computes them; ``fused`` is
     ignored there.
 
+    ``edge_dtype`` (None or ``torch.bfloat16``), the JAX layer's field
+    (``dgl_tpu/nn/conv.py:136-139``): the edge form gathers ``W x`` in it and
+    casts ``alpha`` to it before the weighted sum (``:212-227``): the logits
+    come out float32 by promotion, and K2 sums the bfloat16 messages in
+    float32. The fused form hands K3 ``v`` in it, the port's counterpart of
+    the lane path's compute dtype (``:265``, ``:289``); K3 keeps the softmax
+    and its sums in float32. The memory-safe form stays float32, as the JAX
+    one does; the switch to it counts the messages at ``edge_dtype``'s size
+    (``:186``). None keeps float32.
+
     ``generator`` (a CPU generator) draws the initial weights: ``fc``
     xavier-uniform (gain 1), ``attn_l``/``attn_r`` uniform in
     ``±sqrt(6 / (H + D))``, flax's xavier-uniform on a (1, H, D) shape.
@@ -184,6 +207,7 @@ class GATConv(nn.Module):
         negative_slope: float = 0.2,
         residual: bool = False,
         activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        edge_dtype: Optional[torch.dtype] = None,
         *,
         fused: bool = False,
         lowering: str = "fused",
@@ -200,6 +224,7 @@ class GATConv(nn.Module):
         self.in_feats, self.out_feats, self.num_heads = in_feats, out_feats, num_heads
         self.feat_drop, self.attn_drop, self.negative_slope = feat_drop, attn_drop, negative_slope
         self.activation, self.fused, self.lowering = activation, fused, lowering
+        self.edge_dtype = edge_dtype
         self.fc = nn.utils.skip_init(nn.Linear, in_feats, h * d, bias=False)
         xavier_uniform_(self.fc.weight, 1.0, generator)
         bound = math.sqrt(6.0 / (h + d))
@@ -251,22 +276,26 @@ class GATConv(nn.Module):
             seed = torch.randint(-(2**31), 2**31 - 1, (1,), dtype=torch.int32,
                                  device=x.device, generator=generator)
         if in_d >= d:
-            return gat_attention(g, z, a_src, a_dst, negative_slope=self.negative_slope,
-                                 keep=keep, seed=seed)
-        agg = gat_attention(g, x.unsqueeze(1).expand(-1, h, in_d), a_src, a_dst,
+            return gat_attention(g, self._edge_cast(z), a_src, a_dst,
+                                 negative_slope=self.negative_slope, keep=keep, seed=seed)
+        agg = gat_attention(g, self._edge_cast(x.unsqueeze(1).expand(-1, h, in_d)), a_src, a_dst,
                             negative_slope=self.negative_slope, keep=keep, seed=seed)
         return torch.einsum("nhi,hdi->nhd", agg, self.fc.weight.view(h, d, in_d))
 
     def _edge(self, g, z, a_src, a_dst, generator):
         h, d = self.num_heads, self.out_feats
         bound = F.leaky_relu(a_src.detach().amax(0, keepdim=True) + a_dst, self.negative_slope)
-        if g.num_edges * h * d * z.element_size() > _EDGE_MSG_LIMIT_BYTES:
+        itemsize = (self.edge_dtype or torch.float32).itemsize
+        if g.num_edges * h * d * itemsize > _EDGE_MSG_LIMIT_BYTES:
             return self._memory_safe(g, z, a_src, a_dst, bound, generator)
-        z_e = gather_src_rows(g, z.reshape(-1, h * d)).view(-1, h, d)
+        z_e = gather_src_rows(g, self._edge_cast(z.reshape(-1, h * d))).view(-1, h, d)
         logits = F.leaky_relu((z_e * self.attn_r).sum(-1) + gather_dst(g, a_dst), self.negative_slope)
         alpha = edge_softmax(g, logits, dst_bound=bound)
-        alpha = dropout(alpha, self.attn_drop, self.training, generator)
+        alpha = self._edge_cast(dropout(alpha, self.attn_drop, self.training, generator))
         return gspmm(g, "copy_e", "sum", e=z_e * alpha.unsqueeze(-1), lowering=self.lowering)
+
+    def _edge_cast(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.edge_dtype is None else t.to(self.edge_dtype)
 
     def _memory_safe(self, g, z, a_src, a_dst, bound, generator):
         """(E, H) logits, softmax and dropout; the heads' weighted sums as

@@ -49,10 +49,10 @@ class CategoricalEncoder(nn.Module):
 
 
 class AtomEncoder(CategoricalEncoder):
-    def __init__(self, emb_dim: int, **kw):
-        super().__init__(emb_dim, ATOM_FEATURE_DIMS, **kw)
+    def __init__(self, emb_dim: int, feature_dims: Sequence[int] = ATOM_FEATURE_DIMS, **kw):
+        super().__init__(emb_dim, feature_dims, **kw)
 
 
 class BondEncoder(CategoricalEncoder):
-    def __init__(self, emb_dim: int, **kw):
-        super().__init__(emb_dim, BOND_FEATURE_DIMS, **kw)
+    def __init__(self, emb_dim: int, feature_dims: Sequence[int] = BOND_FEATURE_DIMS, **kw):
+        super().__init__(emb_dim, feature_dims, **kw)

@@ -4,7 +4,8 @@ Counterpart of ``dgl_tpu/nn/norm.py:MaskedBatchNorm``, with its semantics
 rather than ``nn.BatchNorm1d``'s: the running variance tracks the biased
 batch variance, and the running statistics move as
 ``momentum · running + (1 - momentum) · batch`` with ``momentum = 0.9``.
-With ``mask=None`` every node counts.
+With ``mask=None`` every node counts. ``use_scale`` / ``use_bias``
+(the flax module's fields) keep or drop the learned ``weight`` / ``bias``.
 """
 
 from __future__ import annotations
@@ -22,13 +23,13 @@ __all__ = ["MaskedBatchNorm"]
 class MaskedBatchNorm(nn.Module):
     def __init__(
         self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
-        *, device: DeviceLike = None,
+        use_scale: bool = True, use_bias: bool = True, *, device: DeviceLike = None,
     ):
         super().__init__()
         dev = resolve_device(device)
         self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.ones(num_features, device=dev))
-        self.bias = nn.Parameter(torch.zeros(num_features, device=dev))
+        self.weight = nn.Parameter(torch.ones(num_features, device=dev)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(num_features, device=dev)) if use_bias else None
         self.register_buffer("running_mean", torch.zeros(num_features, device=dev))
         self.register_buffer("running_var", torch.ones(num_features, device=dev))
 
@@ -48,4 +49,9 @@ class MaskedBatchNorm(nn.Module):
                 mo = self.momentum
                 self.running_mean.copy_(mo * self.running_mean + (1 - mo) * mean)
                 self.running_var.copy_(mo * self.running_var + (1 - mo) * var)
-        return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
+        y = (x - mean) / torch.sqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight
+        if self.bias is not None:
+            y = y + self.bias
+        return y

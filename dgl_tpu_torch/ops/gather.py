@@ -21,8 +21,12 @@ edges.
   segment_sum`` by dst); backward: the row gather by dst.
 
 Edge arrays are in the graph's canonical (dst-sorted) order, any trailing
-shape, of a type of an even byte size (float32, bfloat16, ...: P1 moves
-2-byte words). The backwards are kernel launches that autograd does not
+shape, float32 or bfloat16. The gathers keep their input's type and their
+adjoints sum in float32 and round once to it; ``seg_sum_dst`` of bfloat16
+messages returns float32 sums, the JAX ``_seg_sum_by_dst``'s promotion, and
+its gradient is bfloat16, the messages' type (where the JAX function's
+custom VJP returns float32, torch's autograd casts a gradient to its
+input's type). The backwards are kernel launches that autograd does not
 trace, so the ops have first-order gradients only: a double backward
 raises.
 """
@@ -34,7 +38,7 @@ from torch.autograd.function import once_differentiable
 
 from ..graph.graph import Graph
 from ..kernels.csr_spmm import csr_spmm
-from .segment import _gather_rows, _seg_sum_rows, segment_sum
+from .segment import _SegmentSum, _gather_rows, _seg_sum_rows
 
 __all__ = ["gather_dst", "gather_src", "gather_src_rows", "spread_dst", "seg_sum_dst"]
 
@@ -51,7 +55,7 @@ class _GatherSrcRows(torch.autograd.Function):
     def backward(ctx, ge):
         rev = ctx.g.reverse
         flat = ge.reshape(ge.shape[0], -1).contiguous()
-        grad_x = csr_spmm(rev.indptr, rev.eid, flat, split=rev.split)
+        grad_x = csr_spmm(rev.indptr, rev.eid, flat, split=rev.split).to(ge.dtype)
         return grad_x.reshape((-1,) + tuple(ge.shape[1:])), None
 
 
@@ -64,7 +68,7 @@ class _SpreadDst(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, ge):
-        return _seg_sum_rows(ge, ctx.g.indptr, ctx.g.split), None
+        return _seg_sum_rows(ge, ctx.g.indptr, ctx.g.split).to(ge.dtype), None
 
 
 def gather_src_rows(g: Graph, x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +91,8 @@ gather_src = gather_src_rows  # the JAX package's plain ``x[src]``: the same val
 
 def seg_sum_dst(g: Graph, msg: torch.Tensor) -> torch.Tensor:
     """Differentiable sorted segment sum of edge messages by dst (one K2
-    launch) whose backward is ``gather_dst``."""
+    launch) whose backward is ``gather_dst``; float32 sums of float32 or
+    bfloat16 messages."""
     if msg.shape[0] != g.num_edges:
         raise ValueError(f"edge messages must have {g.num_edges} rows, got {tuple(msg.shape)}")
-    return segment_sum(msg, g.dst, g.indptr, g.split)
+    return _SegmentSum.apply(msg, g.indptr, g.split)

@@ -11,6 +11,9 @@ not ported):
   ``gout[seg_ids]``, P1 in source order over the same row offsets
   (``kernels/row_gather.py:row_gather_by_source``, positions equal to
   slots). An empty segment gives 0; mean divides by ``max(count, 1)``.
+  bfloat16 data is summed in float32 (K2's bfloat16 instantiation) and
+  the result rounded once to bfloat16, the type the JAX ``segment_sum``
+  and ``segment_mean`` return;
 * ``segment_max`` / ``segment_min``: plain PyTorch ``scatter_reduce`` (an
   XLA op in the JAX package, not a kernel); the exact shift of
   ``edge_softmax``, the max readout and ``gspmm``'s max/min use them.
@@ -52,17 +55,22 @@ def _gather_rows(v: torch.Tensor, indptr: torch.Tensor, pos: Optional[torch.Tens
 
 
 class _SegmentSum(torch.autograd.Function):
+    """K2 over ``indptr``: float32 sums of float32 or bfloat16 data. Its
+    backward gathers the cotangent rounded to the data's type (rounding the
+    N rows before the gather equals rounding the E gathered rows)."""
+
     @staticmethod
-    def forward(ctx, data, seg_ids, indptr, split):
+    def forward(ctx, data, indptr, split):
         ctx.save_for_backward(indptr)
-        ctx.split, ctx.num = split, data.shape[0]
+        ctx.split, ctx.num, ctx.dtype = split, data.shape[0], data.dtype
         return _seg_sum_rows(data, indptr, split)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gout):
         (indptr,) = ctx.saved_tensors
-        return _gather_rows(gout, indptr, None, ctx.split, num_out=ctx.num), None, None, None
+        grad = _gather_rows(gout.to(ctx.dtype), indptr, None, ctx.split, num_out=ctx.num)
+        return grad, None, None
 
 
 def segment_sum(data: torch.Tensor, seg_ids: torch.Tensor, indptr: torch.Tensor,
@@ -72,19 +80,25 @@ def segment_sum(data: torch.Tensor, seg_ids: torch.Tensor, indptr: torch.Tensor,
     ``seg_ids`` (E,) ascending, ``indptr`` (S + 1,) the same segments as row
     offsets (``indptr[s]:indptr[s + 1]`` holds segment ``s``), ``split``
     their row split (see ``kernels/seg_sum.py``; without one a launch on the
-    card reads ``indptr`` back). ``data`` is float32 or bfloat16 (K2's
-    types); first-order gradients only: a double backward raises."""
+    card reads ``indptr`` back). ``data`` is float32 or bfloat16, the
+    result in its type: a bfloat16 sum is taken in float32 and rounded once.
+    First-order gradients only: a double backward raises."""
+    return _sums(data, seg_ids, indptr, split).to(data.dtype)
+
+
+def _sums(data, seg_ids, indptr, split):
     if data.shape[0] != seg_ids.shape[0]:
         raise ValueError(f"data has {data.shape[0]} rows, seg_ids {seg_ids.shape[0]}")
-    return _SegmentSum.apply(data, seg_ids, indptr, split)
+    return _SegmentSum.apply(data, indptr, split)
 
 
 def segment_mean(data: torch.Tensor, seg_ids: torch.Tensor, indptr: torch.Tensor,
                  split: Optional[RowSplit] = None) -> torch.Tensor:
-    """``segment_sum`` divided by ``max(count, 1)`` per segment."""
-    out = segment_sum(data, seg_ids, indptr, split)
+    """``segment_sum`` divided by ``max(count, 1)`` per segment (in float32
+    for bfloat16 data, rounded once)."""
+    out = _sums(data, seg_ids, indptr, split)
     inv = 1.0 / (indptr[1:] - indptr[:-1]).clamp(min=1).to(out.dtype)
-    return out * inv.reshape((-1,) + (1,) * (out.dim() - 1))
+    return (out * inv.reshape((-1,) + (1,) * (out.dim() - 1))).to(data.dtype)
 
 
 def _segment_extremum(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,

@@ -34,6 +34,17 @@ and reduced over ``f``, as ``dgl_tpu/ops/spmm.py:636-649`` does: no K1 or K2
 launch, and autograd differentiates the reshape. It comes before
 ``lowering``: the layout is the block's semantics, not a lowering.
 
+``x`` and ``e`` may be bfloat16, the JAX package's bf16 messages: the
+fused sum/mean forwards read them as bfloat16 and sum in float32 (K1's and
+K2's bfloat16 instantiations) and return float32, as the JAX ``gspmm``
+does; every gradient comes in its input's type, summed in float32 and
+rounded once (``dgl_tpu/ops/spmm.py:244,290,305,308``). ``copy_u``'s
+backward aggregates the float32 cotangent over the reverse CSR with K1's
+float32 instantiation and rounds the sum to x's type; the cotangent is not
+rounded to bfloat16 first, as the TPU lane kernel does. The scatter lowering
+returns the messages' type, as the JAX one does (its ``segment_sum`` keeps
+bf16), summing in float32 and rounding once.
+
 ``lowering="scatter"`` is a second lowering the caller names, the PyG twin
 (``dgl_tpu/ops/spmm.py:604-626``, the JAX package's
 ``DGL_TPU_LOWERING=scatter``), for sum and mean: the (E, ...) messages are
@@ -52,6 +63,7 @@ import torch
 
 from ..graph.graph import Graph
 from ..kernels.csr_spmm import csr_spmm
+from ..kernels.seg_sum import sum_dtype
 from .gather import gather_src_rows, seg_sum_dst
 from .segment import segment_max, segment_min
 
@@ -70,7 +82,7 @@ def _inv_deg(g: Graph, dtype) -> torch.Tensor:
 class _CopyU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, g: Graph, mean: bool) -> torch.Tensor:
-        ctx.g, ctx.mean = g, mean
+        ctx.g, ctx.mean, ctx.dtype = g, mean, x.dtype
         return csr_spmm(g.indptr, g.src, x.contiguous(), mean=mean, split=g.split)
 
     @staticmethod
@@ -80,7 +92,7 @@ class _CopyU(torch.autograd.Function):
             g_out = g_out * _inv_deg(g, g_out.dtype).unsqueeze(1)
         rev = g.reverse
         grad_x = csr_spmm(rev.indptr, rev.src, g_out.contiguous(), split=rev.split)
-        return grad_x, None, None
+        return grad_x.to(ctx.dtype), None, None
 
 
 def _scale_mean(g: Graph, out: torch.Tensor) -> torch.Tensor:
@@ -88,9 +100,12 @@ def _scale_mean(g: Graph, out: torch.Tensor) -> torch.Tensor:
 
 
 def _scatter(g: Graph, msg: torch.Tensor, mean: bool) -> torch.Tensor:
-    out = torch.zeros((g.num_dst_nodes,) + tuple(msg.shape[1:]), dtype=msg.dtype,
-                      device=msg.device).index_add_(0, g.dst, msg)
-    return _scale_mean(g, out) if mean else out
+    """``index_add_`` of the messages by dst, in float32 for bfloat16
+    messages, returned in the messages' type."""
+    dtype = sum_dtype(msg.dtype)
+    out = torch.zeros((g.num_dst_nodes,) + tuple(msg.shape[1:]), dtype=dtype,
+                      device=msg.device).index_add_(0, g.dst, msg.to(dtype))
+    return (_scale_mean(g, out) if mean else out).to(msg.dtype)
 
 
 _BLOCK_REDUCE = {"sum": torch.sum, "mean": torch.mean, "max": torch.amax, "min": torch.amin}
@@ -121,11 +136,14 @@ def gspmm(
       op: message op; ``copy_u`` uses only ``x``, ``copy_e`` only ``e``, the
         binary ops combine both with broadcasting.
       reduce: ``sum``, ``mean``, ``max`` or ``min``.
-      x: (num_src_nodes, ...) float32 source-node features; 2-D for ``copy_u``.
-      e: (num_edges, ...) float32 edge features in canonical order.
+      x: (num_src_nodes, ...) float32 or bfloat16 source-node features; 2-D
+        for ``copy_u``.
+      e: (num_edges, ...) float32 or bfloat16 edge features in canonical
+        order.
       lowering: ``fused`` (the kernels) or ``scatter`` (the PyG twin, above).
     Returns:
-      (num_dst_nodes, ...) aggregated features.
+      (num_dst_nodes, ...) aggregated features: float32 for the fused sum
+      and mean of bfloat16 (above), else the inputs' type.
     """
     if op not in _COPY_U + _COPY_E + tuple(_BINARY):
         raise ValueError(f"unknown spmm op: {op!r}")

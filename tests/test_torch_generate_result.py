@@ -31,7 +31,10 @@ def _load_jax_harness():
 
 JAX = _load_jax_harness()
 JAX_ROWS = {w[0]: w for w in JAX.WORKLOADS}
-# the JAX rows' TPU-only flags, each with the number of values it takes
+# the flags of the JAX rows that the port's full rows drop, each with the
+# number of values it takes: the TPU's lane plans, dispatches, fetch interval
+# and frozen cluster cache, and bf16 messages (main_sage takes them; its
+# products row runs float32, the precision of its V100 baseline)
 TPU_FLAGS = {"--lane-kernel": 0, "--lane-force": 0, "--bf16-messages": 0, "--scan-epochs": 1,
              "--scan-steps": 0, "--scan-iters": 0, "--fetch-every": 1, "--freeze-clusters": 0}
 

@@ -3,7 +3,7 @@ checks, and, on a CUDA card, K1, K2 (seg_sum), both K3 passes
 (gat_attention_fwd / _bwd) and P1 in both orders and P2
 (row_gather_async / _by_source / _smem) against their plain versions; K1, K2 and both K3 passes also on a CSR whose rows
 straddle the row split (graph/split.py), against the plain version and
-exact sums.
+exact sums, and in their bfloat16 instantiations.
 
 This file imports no JAX, so the card's tests can run where JAX is absent:
     python -m pytest --noconftest tests/test_torch_kernel.py -m cuda
@@ -230,6 +230,71 @@ def test_gat_attention_passes_match_plain_on_card(heads, d, keep):
     for got, want in zip(bwd, gat_attention_bwd_plain(*args, **kw)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert all(torch.equal(a, b) for a, b in zip(bwd, gat_attention_bwd(*args, **kw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 16, 47, 64, 100])
+def test_bf16_k1_k2_match_plain_on_card(d):
+    """The bfloat16 instantiations: float32 sums of bfloat16 rows, held to
+    the plain version (which widens the rows first) and, on small integers,
+    to exact sums; the bfloat16 launches counted."""
+    dev = _card()
+    rng = np.random.default_rng(100 + d)
+    indptr, idx, plan = _split_csr(rng, 3000)
+    ip, ix = torch.from_numpy(indptr).to(dev), torch.from_numpy(idx).to(dev)
+    plan = plan.to(dev)
+    x = torch.from_numpy(rng.normal(1.0, 1.0, (3000, d)).astype(np.float32)).to(dev).bfloat16()
+    msg = torch.from_numpy(rng.normal(1.0, 1.0, (len(idx), d)).astype(np.float32)).to(dev).bfloat16()
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, len(idx)).astype(np.float32)).to(dev)
+    short = torch.from_numpy(np.diff(indptr) <= 1000).to(dev)
+    before = csr_spmm.launches_bf16, seg_sum.launches_bf16
+    for ww in (None, w):
+        got = csr_spmm(ip, ix, x, ww, split=plan)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got[short], csr_spmm_plain(ip, ix, x, ww)[short], rtol=1e-4,
+                                   atol=1e-4)
+    got = seg_sum(ip, msg, split=plan)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got[short], seg_sum_plain(ip, msg)[short], rtol=1e-4, atol=1e-4)
+    ints = torch.randint(-4, 5, x.shape, device=dev).bfloat16()  # exact in any order
+    assert torch.equal(csr_spmm(ip.int(), ix, ints, split=plan),
+                       csr_spmm_plain(ip, ix, ints.double()).float())
+    assert (csr_spmm.launches_bf16, seg_sum.launches_bf16) == (before[0] + 3, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [1.0, 0.82])
+@pytest.mark.parametrize("heads,d", [(1, 16), (4, 40), (4, 41)])
+def test_bf16_gat_attention_passes_match_plain_on_card(heads, d, keep):
+    """v in bfloat16: the forward's float32 outputs against the plain
+    version; b2's bfloat16 grad_v equal to its float32 grad_v rounded once,
+    and within one bfloat16 ulp of the plain version's."""
+    dev = _card()
+    rng = np.random.default_rng(heads * d + 7)
+    n, e = 2000, 30_000
+    from dgl_tpu_torch import from_edges
+
+    g = from_edges(rng.integers(0, n, e), rng.integers(0, 3 * n // 4, e), n, device=dev)
+    rev = g.reverse
+    v = torch.randn(n, heads, d, device=dev).bfloat16()
+    g_out = torch.randn(n, heads, d, device=dev)
+    a_s, a_d = (torch.randn(n, heads, device=dev) for _ in range(2))
+    kw = dict(negative_slope=0.2, keep=keep, seed=torch.tensor([78], dtype=torch.int32, device=dev))
+    before = gat_attention_fwd.launches_bf16, gat_attention_bwd.launches_bf16
+    fwd = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
+    for got, want in zip(fwd, gat_attention_fwd_plain(g.indptr, g.src, v, a_s, a_d, **kw)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    node = torch.stack([a_d, fwd[4], fwd[2], (g_out * fwd[0]).sum(-1)], -1)
+    args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
+    bwd = gat_attention_bwd(*args, split=rev.split, v_dtype=torch.bfloat16, **kw)
+    ref = gat_attention_bwd(*args, split=rev.split, **kw)
+    assert bwd[0].dtype == torch.bfloat16 and torch.equal(bwd[0], ref[0].bfloat16())
+    assert torch.equal(bwd[1], ref[1]) and torch.equal(bwd[2], ref[2])
+    plain = gat_attention_bwd_plain(*args, v_dtype=torch.bfloat16, **kw)[0]
+    torch.testing.assert_close(bwd[0].float(), plain.float(), rtol=2.0 ** -7, atol=1e-4)
+    assert (gat_attention_fwd.launches_bf16, gat_attention_bwd.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda

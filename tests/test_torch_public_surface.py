@@ -9,6 +9,8 @@ port or leaves the JAX package's ``__all__``. The aliases that close the
 surface compute what the JAX functions compute, on the CPU, float32."""
 
 import ast
+import dataclasses
+import inspect
 import io
 import importlib
 import importlib.util
@@ -20,15 +22,22 @@ import pytest
 import scipy.sparse
 import torch
 
+import flax.linen as flax_nn
+import jax
 import jax.numpy as jnp
 
 import dgl_tpu
+import dgl_tpu.models as jmodels
+import dgl_tpu.nn as jnn
 import dgl_tpu.ops as jops
 from dgl_tpu.train import Logger as JaxLogger
 from dgl_tpu.train import op_time as jax_op_time
 
 import dgl_tpu_torch
+import dgl_tpu_torch.models as tmodels
+import dgl_tpu_torch.nn as tnn
 import dgl_tpu_torch.ops as tops
+from dgl_tpu_torch.convert import gat_state_dict_from_flax, sage_state_dict_from_flax
 from dgl_tpu_torch.train import Logger, op_time
 
 JAX_ROOT = os.path.dirname(dgl_tpu.__file__)
@@ -100,6 +109,83 @@ def _jax_exports():
 
 
 JAX_EXPORTS = _jax_exports()
+
+
+# -- every field of the flax modules is a constructor argument of the port's --
+
+# the port's name of a flax field where the two differ
+FIELD_NAMES = {"epsilon": "eps"}
+# fields the port's constructor does not take, each with its reason
+FIELDS_NOT_PORTED = {
+    ("GAT", "remat"): "TPU memory: nn.remat recomputes each layer's (E, H·D) attention "
+                      "residuals, which K3 never saves",
+}
+
+
+def _flax_modules():
+    """(name, flax class, port class) of every flax module in the
+    ``__all__`` of ``dgl_tpu.nn`` and ``dgl_tpu.models``."""
+    return [(name, getattr(jmod, name), getattr(tmod, name))
+            for jmod, tmod in ((jnn, tnn), (jmodels, tmodels)) for name in jmod.__all__
+            if inspect.isclass(getattr(jmod, name))
+            and issubclass(getattr(jmod, name), flax_nn.Module)]
+
+
+def _fields(cls):
+    return [f.name for f in dataclasses.fields(cls) if f.name not in ("parent", "name")]
+
+
+@pytest.mark.parametrize("name,flax_cls,port_cls", _flax_modules(),
+                         ids=[m[0] for m in _flax_modules()])
+def test_the_port_constructor_takes_every_field_of_the_flax_module(name, flax_cls, port_cls):
+    params = inspect.signature(port_cls.__init__).parameters
+    missing = [f for f in _fields(flax_cls) if (name, f) not in FIELDS_NOT_PORTED
+               and FIELD_NAMES.get(f, f) not in params]
+    assert not missing, f"{name} takes no {missing}"
+    for (cls_name, field), _ in FIELDS_NOT_PORTED.items():
+        if cls_name == name:
+            assert field in _fields(flax_cls) and field not in params, (name, field)
+
+
+@pytest.mark.parametrize("use_scale,use_bias", [(False, True), (True, False), (False, False)])
+def test_masked_batch_norm_flags_match_flax(use_scale, use_bias):
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal((40, 6)).astype(np.float32)
+    fm = jnn.MaskedBatchNorm(use_scale=use_scale, use_bias=use_bias)
+    variables = fm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = jax.tree_util.tree_map(np.asarray, variables.get("params", {}))
+    want, _ = fm.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
+    tm = tnn.MaskedBatchNorm(6, use_scale=use_scale, use_bias=use_bias, device="cpu")
+    want_names = {n for n, keep in (("weight", use_scale), ("bias", use_bias)) if keep}
+    assert {n for n, _ in tm.named_parameters()} == want_names
+    sd = sage_state_dict_from_flax({"bn_0": params})  # the converters' BN entries
+    tm.load_state_dict({k.removeprefix("bns.0."): v for k, v in sd.items()}, strict=False)
+    _close(tm(torch.from_numpy(x)).detach(), want)
+
+
+def test_gat_activation_matches_flax():
+    """A non-default hidden activation (relu for elu), weights carried over."""
+    rng = np.random.default_rng(16)
+    n, e = 30, 150
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    x = rng.standard_normal((n, 7)).astype(np.float32)
+    fm = jmodels.GAT(hidden_feats=4, out_feats=3, heads=(2, 1), activation=jax.nn.relu,
+                     remat=False)
+    gj = dgl_tpu.from_edges(src, dst, n)
+    shapes = {"gat_0": {"fc": {"kernel": (7, 8)}, "attn_l": (1, 2, 4), "attn_r": (1, 2, 4)},
+              "gat_1": {"fc": {"kernel": (8, 3)}, "attn_l": (1, 1, 3), "attn_r": (1, 1, 3)}}
+    params = jax.tree_util.tree_map(  # drawn here: flax's init compiles for seconds
+        lambda shape: rng.standard_normal(shape).astype(np.float32), shapes,
+        is_leaf=lambda t: isinstance(t, tuple))
+    want = jax.jit(fm.apply)({"params": params}, gj, jnp.asarray(x))
+    tm = tmodels.GAT(7, 4, 3, (2, 1), activation=torch.relu, device="cpu")
+    tm.load_state_dict(gat_state_dict_from_flax(params))
+    gt = dgl_tpu_torch.from_edges(src, dst, n, device="cpu")
+    got = tm(gt, torch.from_numpy(x)).detach()
+    _close(got, want)
+    elu = tmodels.GAT(7, 4, 3, (2, 1), device="cpu")
+    elu.load_state_dict(gat_state_dict_from_flax(params))
+    assert not torch.allclose(elu(gt, torch.from_numpy(x)).detach(), got)
 
 
 def test_the_lists_of_exceptions_name_jax_exports():

@@ -118,7 +118,8 @@ def test_unknown_dataset_and_left_out_flags_raise(cache):
         main_sage.run("citeseer", device="cpu")
     with pytest.raises(ValueError, match="unknown overrides"):
         main_sage.run("cora", device="cpu", heads=4)
-    for flags in (["--lane-kernel"], ["--bf16-messages"], ["--scan-epochs", "5"]):
+    # --bf16-messages is ported (tests/test_torch_bf16.py); the TPU's flags are not
+    for flags in (["--lane-kernel"], ["--lane-force"], ["--scan-epochs", "5"]):
         with pytest.raises(SystemExit):
             main_sage.main(["--device", "cpu", *flags])
 
