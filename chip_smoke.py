@@ -16,32 +16,39 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      the same inputs within a summation-error bound (integer sums: bit for
      bit), and rows of at most HUB_DEG terms to the plain PyTorch version at
      RTOL/ATOL; two kernel runs must be bitwise equal. The same checks on
-     CSRs around the row split T (graph/split.py): rows of T - 1, T, T + 1,
-     2T and 2T + 1 edges, every row long, no row long, E = 0, int32 and
-     int64 indptr; and a plan that does not match indptr refused before any
-     launch. bf16 messages (check_bf16_k1_k2): K1 and K2 on bfloat16 rows,
-     D in {1, 8, 16, 47, 64, 100} (2-, 4-, 8- and 16-byte loads), over the
+     CSRs around the row split T (graph/split.py), D in K1_D = {1, 3, 16,
+     40, 41, 47, 100, 602}: rows of T - 1, T, T + 1, 2T and 2T + 1 edges,
+     every row long (each folded in the launch), no row long, E = 0, int32
+     and int64 indptr, the plan's counters back at 0 after every launch; a
+     plan that does not match indptr refused before any launch; the same
+     with every chunk warp walking two chunks (check_k1_chunk_pairs); and x at
+     bases 4 and 8 bytes off 16-byte alignment (bfloat16 also 2), float32
+     and bfloat16, its first and last rows read often and its storage ending
+     with x (check_k1_misaligned). bf16 messages (check_bf16_k1_k2): K1 and
+     K2 on bfloat16 rows, K1 at D in K1_BF16_D (K1_D and {8, 64}), K2 at D in
+     {1, 8, 16, 47, 64, 100}, over the
      random graph's two CSRs and the CSRs around the split, int32 and int64
      indptr, K1 sum, mean and weighted: float32 sums held to float64 sums of
      the same bfloat16 values within the same bound, to the plain version,
      small integers bit for bit, two runs bitwise equal;
   4. reddit: the same checks on the full reddit graph at D = 16, forward
-     and reverse CSR (one combine launch for the reverse CSR's long rows),
-     with CUDA-event times of the kernel at T = 256, 512 and 1024, the plain
-     version and torch.sparse.mm, and the bytes bound; T and each CSR's long
+     and reverse CSR (one launch each: the reverse CSR's long rows fold in
+     it, its counters back at 0), with CUDA-event times of the kernel and
+     torch.sparse.mm in turns, of the kernel at T = 256, 512 and 1024 and of
+     the plain version, the bytes bound and the no-reuse gather time
+     (spmm_floor, computed); T and each CSR's long
      rows and chunks; gspmm's forward and backward under
      torch.cuda.set_sync_debug_mode("error"), which a host sync fails; K1's
      bfloat16 instantiation on each CSR (k1_bf16_times: the checks, then
      timed in turns with float32 on the same values, beside the plain
-     version, torch.sparse.mm on the bfloat16 CSR where torch takes it, and
-     the bound at 2 bytes a feature);
+     version, torch.sparse.mm on the bfloat16 CSR where torch takes it, in
+     turns, the bound and the floor at 2 bytes a feature);
   5. main: dgl_tpu_torch.bench.run("reddit") at full size, once unhoisted
-     and once hoisted, K1's launch and combine counters set to 0 before each
-     run and read after it; the loss must be finite and fall, K1 must launch
+     and once hoisted, K1's launch counter set to 0 before each run and
+     read after it; the loss must be finite and fall, K1 must launch
      exactly 4 times per unhoisted step and 2 per hoisted step plus once for
-     the hoisted precompute, its combine once per backward launch (the
-     reverse CSR's long rows), and both modes must agree on the first
-     step's loss;
+     the hoisted precompute (the reverse CSR's long rows fold inside each
+     backward launch), and both modes must agree on the first step's loss;
   6. gat_random: K3 (gat_attention_fwd, gat_attention_bwd, each with the
      row split of the CSR it walks) and K2 (seg_sum) on random CSRs with
      empty rows and 10^5-edge hub rows in both directions, H in {1, 4, 8},
@@ -109,13 +116,13 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      form, heads (1, 1, 1) and (4, 4, 4)) then pubmed (edge form), each run
      with every launch and combine counter set to 0 before it and read
      after it. reddit and arxiv: K3 forward and b2 exactly 3 per step each,
-     K2 and K1 none, the combines their graphs' plans give (see
+     K2 and K1 none, K3's combines their graphs' plans give (see
      phase_gat_main); reddit's training peak device memory above the graph
      and data held below one (E, 16) float32 buffer, arxiv's below
      fused_gat_memory_bound (derived from the shapes); pubmed: K3 none, K2
      exactly 12 per step plus one per edge-softmax rescue, K1 3 per step,
-     K1's combine once per K1 launch (pubmed's reverse CSR has long rows)
-     and K2's none, P1 in source order 18 per step plus two per rescue
+     no combine launch (K1 folds pubmed's reverse CSR's long rows inside its
+     launch; K2's dst CSR has none), P1 in source order 18 per step plus two per rescue
      (gat_edge_per_step); pubmed's profiled steps run no index_select.
      Losses finite and falling. Then, on pubmed's graph, gather_src_rows,
      gather_dst, spread_dst and segment_sum: forwards bit for bit against
@@ -126,15 +133,16 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      256, BN, bidirected; 10 epochs) and the full ogbn-products graph (3
      layers, hidden 64, bidirected; 5 epochs), each hoisted and with
      --no-precompute, arxiv also with lowering="scatter", every counter set
-     to 0 before a run and read after it: K1's launches and combines as
-     derived from the code (sage_k1_launches), none under scatter; losses
-     finite and falling; the first step's loss equal across the modes.
+     to 0 before a run and read after it: K1's launches as derived from the
+     code (sage_k1_launches), none under scatter (K1 has no combine launch);
+     losses finite and falling; the first step's loss equal across the modes.
      Then K1 at every width those runs give it (arxiv D = 40, 128, 256;
      products D = 47, 64, 100), forward on the dst CSR and backward on the
-     reverse CSR, held to float64 sums and timed beside torch.sparse.mm and
-     its bound; load_s, setup_s, precompute_s, memory and each CSR's split.
+     reverse CSR, held to float64 sums and timed in turns with
+     torch.sparse.mm, beside its bound and its computed no-reuse gather time;
+     load_s, setup_s, precompute_s, memory and each CSR's split.
      The bf16 path: products unhoisted with bf16 messages (main_sage
-     --bf16-messages), 5 epochs: K1's launches and combines equal the
+     --bf16-messages), 5 epochs: K1's launches equal the
      float32 run's, the forward's on bfloat16 rows, the first step's loss
      within 1e-2 of the float32 run's, its epoch time beside; K1's bfloat16
      instantiation at products' widths each way, timed in turns with float32;
@@ -158,7 +166,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      set_sync_debug_mode("error"); main_rgcn (3 layers, hidden 32) in the
      default form (a layer aggregates first where its input is narrower:
      layers 1 and 3) and with fuse_relations (every layer aggregates
-     first), K1's launches and combines against rgcn_k1_launches, the
+     first), K1's launches against rgcn_k1_launches, the
      training's peak above its inputs below one (E, 32) float32 buffer,
      losses falling and equal on the first step, the device profile (busy,
      idle share, K1's share);
@@ -173,7 +181,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      iteration under set_sync_debug_mode("error"); the driver (GCMC_ITERS
      iterations, an RMSE evaluation every 5, then GCMC_PROFILE profiled
      iterations) with every counter set to 0 before it and read after it:
-     K1's, K2's and P1-in-source-order launches and combines as
+     K1's, K2's and P1-in-source-order launches and K2's combines as
      gcmc_per_iter derives them; losses finite and falling; the
      reference's two lines and both CSV files; the best test RMSE below
      the test RMSE of predicting the training ratings' mean (printed); the
@@ -277,7 +285,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      to the V100 baseline where the suite has one; each profiled row's
      device profile names the kernels its path must launch;
   19. kernels: one line listing every ported kernel with its numbers, K1's,
-     K2's and K3's with T, long rows, chunks and combine launches, K3's at
+     K2's and K3's with T, long rows, chunks and K2's and K3's combine
+     launches (K1 has none: its launch folds them), K3's at
      arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
      K1's at the SAGE widths and K1's and K2's launches on the new paths,
      P1 in source order beside P1 in index order with its plan's build
@@ -288,7 +297,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      launches (launches_cluster_*), K1, K3 and P1 at a cluster batch's
      shapes (*_cluster_*) and K3 forward on the whole products graph
      (*_products_h4_d64); the GCMC run's launches of K1, K2 and P1 in
-     source order (launches_gcmc, combines_gcmc) and their times at its
+     source order (launches_gcmc; K2's combines_gcmc) and their times at its
      shapes (*_gcmc_*); both K3 passes' times with each dropout key
      (ms_edge_head_key_*, ms_edge_key_*); the distributed phase's
      launches on rank 0 (launches_halo_sage, launches_halo_rgcn,
@@ -425,6 +434,17 @@ def spmm_bound(n_rows, n_src, nnz, d, indptr_bytes, x_bytes=4):
     moved = nnz * 4 + (n_rows + 1) * indptr_bytes + n_src * d * x_bytes + n_rows * d * 4
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, 2 * nnz * d / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def spmm_floor(n_rows, nnz, d, indptr_bytes, x_bytes=4, weighted=False):
+    """K1's no-reuse gather time (ms), computed, not measured: every edge's
+    row of x read once from HBM (no row reused from L2), plus the indices
+    (and weights), indptr and the float32 output. A floor only where x is
+    far beyond L2 (products); where rows are reused from L2 (reddit, arxiv,
+    proteins) the kernel can run below it."""
+    moved = (nnz * (d * x_bytes + (8 if weighted else 4)) + (n_rows + 1) * indptr_bytes
+             + n_rows * d * 4)
+    return 1e3 * moved / HBM_BYTES_PER_S
 
 
 def phase_device():
@@ -564,10 +584,15 @@ def _refuses_mismatched_plan(fn, ip, *args, **kw):
             raise AssertionError(f"{fn.__name__} launched before refusing a mismatched row split")
 
 
+K1_D = (1, 3, 16, 40, 41, 47, 100, 602)  # every vector width, odd widths, two column pieces
+
+
 def check_split_k1(rng, dev):
-    """K1 on CSRs around the split, D in {1, 16, 41, 602}, int32 and int64
-    indptr, sum and mean, with and without edge weights: float64 bounds, the
-    plain version, integer sums bit for bit and a second run, bitwise."""
+    """K1 on CSRs around the split (every row long: each folded in the
+    launch; no row long), D in K1_D, int32 and int64 indptr, sum and mean,
+    with and without edge weights: float64 bounds, the plain version,
+    integer sums bit for bit, a second run bitwise and the plan's counters
+    back at 0."""
     from dgl_tpu_torch.graph.split import SPLIT_T, row_split
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
 
@@ -575,7 +600,7 @@ def check_split_k1(rng, dev):
     for name, degrees in _split_degrees(rng, SPLIT_T).items():
         ip, idx = _csr_of(degrees, n_src, rng, dev)
         plan = row_split(ip)
-        for d in (1, 16, 41, 602):
+        for d in K1_D:
             x, _, w = _inputs(rng, "normal", n_src, d, idx.numel(), dev)
             xi, _, wi = _inputs(rng, "integer", n_src, d, idx.numel(), dev)
             for indptr in (ip.int(), ip):
@@ -591,8 +616,100 @@ def check_split_k1(rng, dev):
                         if not mean:
                             check(f"{what} integer", csr_spmm(indptr, idx, xi, wwi, split=plan), ip,
                                   reference64(ip, idx, xi, wwi), exact=True)
+                        if plan.counters.any():
+                            raise AssertionError(f"{what}: the fold left a counter above 0")
                         cases += 1
         _refuses_mismatched_plan(csr_spmm, ip, idx, x)
+    return cases, acc
+
+
+def check_k1_chunk_pairs(rng, dev):
+    """K1 with every chunk warp walking two consecutive chunks (the rule of
+    plans of k1_geometry.h's kChunkPairsMin = 2048 chunks or more, reached
+    here by plans cut at t = 2) on the CSRs around the split, D in {1, 16,
+    47, 100}, float32 and bfloat16: float64 bounds, the plain version,
+    integer sums bit for bit, two runs bitwise equal, the counters back at
+    0."""
+    from dgl_tpu_torch.graph.split import SPLIT_T, row_split
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
+
+    n_src, cases, acc = 3000, 0, [0.0, 0.0, 0.0]
+    for name in ("around_T", "all_long"):
+        ip, idx = _csr_of(_split_degrees(rng, SPLIT_T)[name], n_src, rng, dev)
+        plan = row_split(ip, t=2)
+        if plan.num_chunks < 2048:
+            raise AssertionError(f"chunk pairs {name}: {plan.num_chunks} chunks, fewer than 2048")
+        for dtype in (torch.float32, BF16):
+            for d in (1, 16, 47, 100):
+                x, _, w = _inputs(rng, "normal", n_src, d, idx.numel(), dev)
+                xi, _, wi = _inputs(rng, "integer", n_src, d, idx.numel(), dev)
+                x, xi = x.to(dtype), xi.to(dtype)
+                for mean, ww in ((False, None), (True, None), (False, w)):
+                    what = (f"chunk pairs {name} {dtype} D={d} mean={mean} "
+                            f"weighted={ww is not None}")
+                    got = csr_spmm(ip, idx, x, ww, mean=mean, split=plan)
+                    if not torch.equal(got, csr_spmm(ip, idx, x, ww, mean=mean, split=plan)):
+                        raise AssertionError(f"{what}: two kernel runs differ")
+                    _merge(acc, [check(what, got, ip, reference64(ip, idx, x, ww, mean=mean),
+                                       csr_spmm_plain(ip, idx, x, ww, mean=mean))])
+                    cases += 1
+                check(f"chunk pairs {name} {dtype} D={d} integer",
+                      csr_spmm(ip, idx, xi, wi, split=plan), ip,
+                      reference64(ip, idx, xi, wi), exact=True)
+                if plan.counters.any():
+                    raise AssertionError(f"chunk pairs {name}: the fold left a counter above 0")
+    return cases, acc
+
+
+def _x_view(rng, kind, n, d, dtype, shift_bytes, dev):
+    """(n, d) rows at ``shift_bytes`` past a 16-byte-aligned allocation that
+    ends where x ends, so a span rounded out to 16 bytes at x's first or
+    last row would leave the storage."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    shift = shift_bytes // elem
+    a = rng.normal(1.0, 1.0, n * d) if kind == "normal" else rng.integers(-4, 5, n * d)
+    flat = torch.empty(shift + n * d, dtype=dtype, device=dev)
+    flat[shift:] = torch.from_numpy(a.astype(np.float32)).to(dev).to(dtype)
+    x = flat[shift:].view(n, d)
+    if x.data_ptr() % 16 != shift_bytes:
+        raise AssertionError(f"x's base is {x.data_ptr() % 16} bytes off 16, not {shift_bytes}")
+    return x
+
+
+def check_k1_misaligned(rng, dev):
+    """K1 on x bases 4 and 8 bytes off 16-byte alignment (bfloat16 also 2),
+    float32 and bfloat16, D in K1_D, over a CSR around the split whose
+    indices read x's first and last rows often, x's storage ending with x:
+    float64 bounds, the plain version, integer sums bit for bit, two runs
+    bitwise equal, sum, mean and weighted."""
+    from dgl_tpu_torch.graph.split import SPLIT_T, row_split
+    from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
+
+    n_src, cases, acc = 700, 0, [0.0, 0.0, 0.0]
+    ip, idx = _csr_of(_split_degrees(rng, SPLIT_T)["around_T"] + [40] * 200, n_src, rng, dev)
+    ends = torch.rand(idx.shape, device=dev) < 0.25  # a quarter read row 0 or n_src - 1
+    idx = torch.where(ends, (torch.rand(idx.shape, device=dev) < 0.5).int() * (n_src - 1), idx)
+    plan = row_split(ip)
+    e = idx.numel()
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, e).astype(np.float32)).to(dev)
+    wi = torch.from_numpy(rng.integers(1, 4, e).astype(np.float32)).to(dev)
+    for dtype in (torch.float32, BF16):
+        for shift in ((4, 8) if dtype == torch.float32 else (2, 4, 8)):
+            for d in K1_D:
+                x = _x_view(rng, "normal", n_src, d, dtype, shift, dev)
+                xi = _x_view(rng, "integer", n_src, d, dtype, shift, dev)
+                for mean, ww, wwi in ((False, None, None), (True, None, None), (False, w, wi)):
+                    what = (f"misaligned {dtype} +{shift} B D={d} mean={mean} "
+                            f"weighted={ww is not None}")
+                    got = csr_spmm(ip, idx, x, ww, mean=mean, split=plan)
+                    if not torch.equal(got, csr_spmm(ip, idx, x, ww, mean=mean, split=plan)):
+                        raise AssertionError(f"{what}: two kernel runs differ")
+                    _merge(acc, [check(what, got, ip, reference64(ip, idx, x, ww, mean=mean),
+                                       csr_spmm_plain(ip, idx, x, ww, mean=mean))])
+                    if not mean:
+                        check(f"{what} integer", csr_spmm(ip.int(), idx, xi, wwi, split=plan), ip,
+                              reference64(ip, idx, xi, wwi), exact=True)
+                    cases += 1
     return cases, acc
 
 
@@ -600,6 +717,7 @@ def check_split_k1(rng, dev):
 
 BF16 = torch.bfloat16
 BF16_D = (1, 8, 16, 47, 64, 100)  # every load width: 2, 4, 8 and 16 bytes a lane
+K1_BF16_D = tuple(sorted(set(BF16_D) | set(K1_D)))  # K1's bfloat16 rows at K1_D too
 
 
 def _bf16_rows(rng, kind, n, d, dev):
@@ -610,8 +728,8 @@ def _bf16_rows(rng, kind, n, d, dev):
 
 
 def check_bf16_k1_k2(rng, dev, g):
-    """K1 and K2 on bfloat16 rows, D in BF16_D, over the random graph's dst
-    and reverse CSRs (hub rows of 10^5 edges) and the CSRs around the split,
+    """K1 and K2 on bfloat16 rows, D in K1_BF16_D (K1) and BF16_D (K2), over
+    the random graph's dst and reverse CSRs (hub rows of 10^5 edges) and the CSRs around the split,
     int32 and int64 indptr, K1 sum and mean, with and without edge weights:
     against float64 sums of the same bfloat16 values within check's float32
     bound (the values convert exactly; the sums are float32), against the
@@ -632,9 +750,10 @@ def check_bf16_k1_k2(rng, dev, g):
         e = idx.numel()
         w = torch.from_numpy(rng.uniform(0.5, 1.5, e).astype(np.float32)).to(dev)
         wi = torch.from_numpy(rng.integers(1, 4, e).astype(np.float32)).to(dev)
-        for d in BF16_D:
+        for d in K1_BF16_D:
             x, xi = (_bf16_rows(rng, k, n_src, d, dev) for k in ("normal", "integer"))
-            msg, mi = (_bf16_rows(rng, k, e, d, dev) for k in ("normal", "integer"))
+            if d in BF16_D:
+                msg, mi = (_bf16_rows(rng, k, e, d, dev) for k in ("normal", "integer"))
             for indptr in (ip.int(), ip.long()):
                 for mean, ww, wwi in ((False, None, None), (True, None, None), (False, w, wi)):
                     what = (f"bf16 {name} D={d} {indptr.dtype} mean={mean} "
@@ -649,8 +768,9 @@ def check_bf16_k1_k2(rng, dev, g):
                         check(f"{what} integer", csr_spmm(indptr, idx, xi, wwi, split=plan), ip,
                               reference64(ip, idx, xi, wwi), exact=True)
                     cases += 1
-                check_k2(f"bf16 {name} W={d} {indptr.dtype}", indptr, msg, mi, k2, plan)
-                cases += 1
+                if d in BF16_D:
+                    check_k2(f"bf16 {name} W={d} {indptr.dtype}", indptr, msg, mi, k2, plan)
+                    cases += 1
     if csr_spmm.launches_bf16 == k1_before or seg_sum.launches_bf16 == k2_before:
         raise AssertionError("bfloat16 rows launched no bfloat16 kernel")
     return cases, k1, k2
@@ -682,14 +802,14 @@ def _split_fields(g):
             "chunks_rev": g.reverse.split.num_chunks}
 
 
-def t_sweep(fn, indptr):
-    """``fn(plan)``'s median ms with the plan of each T in (256, 512, 1024);
-    None when no row is longer than 256 edges, as all three plans are then
-    empty and time the same launch."""
+def t_sweep(fn, indptr, ts=(256, 512, 1024)):
+    """``fn(plan)``'s median ms with the plan of each T in ``ts``; None when
+    no row is longer than the least T, as every plan is then empty and times
+    the same launch."""
     from dgl_tpu_torch.graph.split import row_split
 
-    plans = {t: row_split(indptr, t) for t in (256, 512, 1024)}
-    if plans[256].num_long == 0:
+    plans = {t: row_split(indptr, t) for t in ts}
+    if plans[min(ts)].num_long == 0:
         return None
     return {t: {"long_rows": plan.num_long, "chunks": plan.num_chunks,
                 "ms": median_ms(lambda: fn(plan), reps=30, warmup=3)}
@@ -744,6 +864,8 @@ def phase_random():
                 used = max([used] + [e[2] for e in errs])
                 cases += len(errs)
     split_cases, acc = check_split_k1(rng, dev)
+    misaligned_cases, acc_mis = check_k1_misaligned(rng, dev)
+    pair_cases, acc_pairs = check_k1_chunk_pairs(rng, dev)
     t_bf16 = time.perf_counter()
     bf16_cases, bf16_k1, bf16_k2 = check_bf16_k1_k2(np.random.default_rng(15), dev, g)
     torch.cuda.synchronize()
@@ -753,8 +875,12 @@ def phase_random():
          zero_in_degree_rows=int((g.in_degrees() == 0).sum()), max_abs_err=max(worst, acc[0]),
          max_abs_err_f64=max(worst64, acc[1]), max_bound_used=max(used, acc[2]), rtol=RTOL,
          atol=ATOL, hub_deg=HUB_DEG, deterministic=True, split_cases=split_cases,
-         split_max_abs_err=acc[0], split_max_bound_used=acc[2], **_split_fields(g),
-         bf16_cases=bf16_cases, bf16_seconds=bf16_s, bf16_d=BF16_D,
+         split_max_abs_err=acc[0], split_max_bound_used=acc[2], k1_d=K1_D,
+         misaligned_cases=misaligned_cases, misaligned_max_abs_err=acc_mis[0],
+         misaligned_max_bound_used=acc_mis[2], chunk_pair_cases=pair_cases,
+         chunk_pair_max_abs_err=acc_pairs[0], chunk_pair_max_bound_used=acc_pairs[2],
+         **_split_fields(g),
+         bf16_cases=bf16_cases, bf16_seconds=bf16_s, bf16_d=BF16_D, bf16_k1_d=K1_BF16_D,
          bf16_k1_max_abs_err=bf16_k1[0], bf16_k1_max_abs_err_f64=bf16_k1[1],
          bf16_k1_max_bound_used=bf16_k1[2], bf16_k2_max_abs_err=bf16_k2[0],
          bf16_k2_max_abs_err_f64=bf16_k2[1], bf16_k2_max_bound_used=bf16_k2[2])
@@ -788,12 +914,15 @@ def phase_reddit():
     for side, (gg, xx, mean) in sides.items():
         kern = lambda: csr_spmm(gg.indptr, gg.src, xx, mean=mean, split=gg.split)  # noqa: E731
         plain = lambda: csr_spmm_plain(gg.indptr, gg.src, xx, mean=mean)  # noqa: E731
-        combines = csr_spmm.combines
+        launches = csr_spmm.launches
         err, err64, used = check(f"reddit {side}", kern(), gg.indptr,
                            reference64(gg.indptr, gg.src, xx, mean=mean), plain())
-        if csr_spmm.combines - combines != int(gg.split.num_long > 0):
-            raise AssertionError(f"reddit {side}: {gg.split.num_long} long rows but "
-                                 f"{csr_spmm.combines - combines} combine launches")
+        # the long rows' combine is folded into the one launch
+        if csr_spmm.launches - launches != 1:
+            raise AssertionError(f"reddit {side}: {gg.split.num_long} long rows, "
+                                 f"{csr_spmm.launches - launches} launches")
+        if gg.split.counters.any():
+            raise AssertionError(f"reddit {side}: the fold left a counter above 0")
         # every edge counted once: integer sums are exact in any order
         check(f"reddit {side} integer", csr_spmm(gg.indptr, gg.src, x_int, split=gg.split),
               gg.indptr, reference64(gg.indptr, gg.src, x_int), exact=True)
@@ -803,12 +932,14 @@ def phase_reddit():
         lib_err = (torch.sparse.mm(a, xx)
                    - csr_spmm(gg.indptr, gg.src, xx, split=gg.split)).abs().max().item()
         bound_ms, bound_by = spmm_bound(n, n, e, d, 4)
+        kernel_ms, library_ms = in_turns(kern, lambda: torch.sparse.mm(a, xx), reps=30)
         res[side] = {
-            "kernel_ms": median_ms(kern, reps=30, warmup=3),
+            "kernel_ms": kernel_ms,
             "plain_ms": median_ms(plain, reps=10, warmup=2),
-            "library_ms": median_ms(lambda: torch.sparse.mm(a, xx), reps=30, warmup=3),
+            "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "floor_ms_computed": spmm_floor(n, e, d, 4),
             "max_abs_err": err,
             "max_abs_err_f64": err64,
             "max_bound_used": used,
@@ -832,8 +963,11 @@ def phase_reddit():
          plain_ms_fwd=res["fwd"]["plain_ms"], plain_ms_bwd=res["bwd"]["plain_ms"],
          library_ms_fwd=res["fwd"]["library_ms"], library_ms_bwd=res["bwd"]["library_ms"],
          bound_ms_fwd=res["fwd"]["bound_ms"], bound_ms_bwd=res["bwd"]["bound_ms"],
+         floor_ms_computed_fwd=res["fwd"]["floor_ms_computed"],
+         floor_ms_computed_bwd=res["bwd"]["floor_ms_computed"],
          **{f"bf16_{k}_{side}": res[side]["bf16"][k] for side in ("fwd", "bwd")
-            for k in ("ms", "ms_f32_in_turns", "plain_ms", "library_ms", "bound_ms")},
+            for k in ("ms", "ms_f32_in_turns", "plain_ms", "library_ms", "bound_ms",
+                      "floor_ms_computed")},
          detail=res)
     return res, g
 
@@ -842,9 +976,10 @@ def k1_bf16_times(what, indptr, idx, x, x_int, mean, split, n_src, reps=20, plai
     """K1's bfloat16 instantiation on ``x`` rounded to bfloat16 (x_int, small
     integers, bit for bit): held to float64 sums of the same values and,
     where ``plain``, to the plain version; timed in turns with the float32
-    instantiation on the same values widened to float32; the plain version,
-    torch.sparse.mm on the bfloat16 CSR (where this torch takes it) and the
-    bound at 2 bytes a feature (the output stays float32)."""
+    instantiation on the same values widened to float32, and then in turns
+    with torch.sparse.mm on the bfloat16 CSR (where this torch takes it; its
+    ``ms`` then); the plain version, the bound and the no-reuse gather floor
+    at 2 bytes a feature (the output stays float32)."""
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
 
     xb = x.to(BF16)
@@ -872,8 +1007,11 @@ def k1_bf16_times(what, indptr, idx, x, x_int, mean, split, n_src, reps=20, plai
         return lambda: torch.sparse.mm(a, xb)
 
     lib_ms, lib_note = bf16_library_ms(library, reps=reps)
+    if lib_ms is not None:  # K1 and the library in turns, as at every timed K1 shape
+        ms, lib_ms = in_turns(kern, library(), reps=reps)
     bound, by = spmm_bound(n_rows, n_src, e, d, indptr.element_size(), x_bytes=2)
     return {"d": d, "mean": mean, "ms": ms, "ms_f32_in_turns": ms32,
+            "floor_ms_computed": spmm_floor(n_rows, e, d, indptr.element_size(), x_bytes=2),
             "plain_ms": (median_ms(lambda: csr_spmm_plain(indptr, idx, xb, mean=mean), reps=5,
                                    warmup=1) if plain else None),
             "library_ms": lib_ms, "library_note": lib_note, "bound_ms": bound, "bound_by": by,
@@ -885,13 +1023,12 @@ def phase_main():
     from dgl_tpu_torch import bench
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
 
-    res, launches, combines = {}, {}, {}
+    res, launches = {}, {}
     for mode in ("unhoisted", "hoisted"):
-        csr_spmm.launches = csr_spmm.combines = 0
+        csr_spmm.launches = 0
         r = bench.run("reddit", epochs=5, warmup=3, device="cuda",
                       hoisted=mode == "hoisted", unhoisted=mode == "unhoisted")
         launches[mode] = csr_spmm.launches
-        combines[mode] = csr_spmm.combines
         res[mode] = dict(r[mode], setup_s=r["setup_s"], device=r["device"], synthetic=r["synthetic"],
                          precompute_s=r.get("precompute_s"))
     steps = {mode: len(res[mode]["losses"]) for mode in res}
@@ -900,11 +1037,6 @@ def phase_main():
     want = {"unhoisted": 4 * steps["unhoisted"], "hoisted": 2 * steps["hoisted"] + 1}
     if launches != want:
         raise AssertionError(f"K1 launched {launches} times over {steps} steps; want {want}")
-    # only the reverse CSR has long rows: one combine per backward launch
-    want = {"unhoisted": 2 * steps["unhoisted"], "hoisted": steps["hoisted"]}
-    if combines != want:
-        raise AssertionError(f"K1's combine launched {combines} times over {steps} steps; "
-                             f"want {want}")
     for mode in res:
         losses = res[mode]["losses"]
         if not losses[-1] < losses[0]:
@@ -920,9 +1052,8 @@ def phase_main():
          losses_unhoisted=res["unhoisted"]["losses"], losses_hoisted=res["hoisted"]["losses"],
          launches_unhoisted=launches["unhoisted"], launches_hoisted=launches["hoisted"],
          launches_per_unhoisted_step=launches["unhoisted"] / steps["unhoisted"],
-         combines_unhoisted=combines["unhoisted"], combines_hoisted=combines["hoisted"],
          steps_unhoisted=steps["unhoisted"], steps_hoisted=steps["hoisted"])
-    return launches, combines
+    return launches
 
 
 # -- GAT: K3 (fused attention) and K2 (segment sum) --------------------------
@@ -1267,6 +1398,20 @@ def _gat_graph(name, dev):
         src, dst = transforms.to_bidirected(src, dst, data.num_nodes)
     src, dst = transforms.add_self_loops(src, dst, data.num_nodes)
     return from_edges(src, dst, data.num_nodes, device=dev)
+
+
+def zero_counts(counters):
+    """Set each wrapper's launch count, and its combine count where it has
+    one, to 0 (K1 has none: its launch folds its long rows)."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "combines"):
+            fn.combines = 0
+
+
+def combine_counts(counters):
+    """The combine launches of the wrappers that have a combine launch."""
+    return {k: fn.combines for k, fn in counters.items() if hasattr(fn, "combines")}
 
 
 def timed_combines(wrapper, call, per_call, reps, warmup):
@@ -2122,8 +2267,7 @@ def phase_gat_main():
     res, launches, rescues, combines = {}, {}, {}, {}
     for ds in steps:
         torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = fn.combines = 0
+        zero_counts(counters)
         row_gather_by_source.launches = 0
         edge_softmax.rescues = 0
         log = io.StringIO()
@@ -2132,7 +2276,7 @@ def phase_gat_main():
                              profile_epochs=profiled[ds])
         launches[ds] = {k: fn.launches for k, fn in counters.items()}
         launches[ds]["row_gather_by_source"] = row_gather_by_source.launches
-        combines[ds] = {k: fn.combines for k, fn in counters.items()}
+        combines[ds] = combine_counts(counters)
         rescues[ds] = edge_softmax.rescues
         res[ds] = r
         if "Training time/epoch" not in log.getvalue():
@@ -2145,17 +2289,15 @@ def phase_gat_main():
         s, gg = steps[ds], graphs[ds]
         want_l[ds] = {"csr_spmm": 0, "gat_attention_fwd": 3 * s, "gat_attention_bwd": 3 * s,
                       "seg_sum": 0, "row_gather_by_source": 0}
-        want_c[ds] = {"csr_spmm": 0, "gat_attention_fwd": 3 * s * int(gg.split.num_long > 0),
+        want_c[ds] = {"gat_attention_fwd": 3 * s * int(gg.split.num_long > 0),
                       "gat_attention_bwd": B2_COMBINES * 3 * s * int(gg.reverse.split.num_long > 0),
                       "seg_sum": 0}
     s, pub = steps["pubmed"], graphs["pubmed"]
     per_step, per_rescue = gat_edge_per_step()
     want_l["pubmed"] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0} | {
         k: n * s + per_rescue[k] * rescues["pubmed"] for k, n in per_step.items()}
-    # K1's launches (the gather adjoint) run over pubmed's reverse CSR, whose
-    # long rows each take a combine; K2 runs over the dst CSR, which has none
-    want_c["pubmed"] = {"csr_spmm": want_l["pubmed"]["csr_spmm"] * int(pub.reverse.split.num_long > 0),
-                        "gat_attention_fwd": 0, "gat_attention_bwd": 0,
+    # K2 runs over the dst CSR, which has no long row
+    want_c["pubmed"] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0,
                         "seg_sum": want_l["pubmed"]["seg_sum"] * int(pub.split.num_long > 0)}
     gathers = graph_gather_checks(pub, torch.Generator(device="cuda").manual_seed(4))
     del graphs, pub
@@ -2284,12 +2426,19 @@ def reference64_sparse(indptr, indices, x, n_src, mean, w=None):
     return want, mag
 
 
-def k1_width(name, gg, d, mean, gen, plain, by_eid=False):
+def k1_width(name, gg, d, mean, gen, plain, by_eid=False, reps=20, diagnose=False):
     """K1 over one CSR at width d: held to float64 sums (and to the plain
-    version where ``plain``), CUDA-event medians of the kernel, the plain
-    version and torch.sparse.mm at the same shape, and the bytes bound.
+    version where ``plain``), CUDA-event medians of the kernel and
+    torch.sparse.mm at the same shape in turns, of the plain version, the
+    bytes bound and the computed no-reuse gather time.
     ``by_eid``: the CSR's eid is the index into (E, d) rows, as
-    gather_src_rows' adjoint launches K1 over the reverse CSR."""
+    gather_src_rows' adjoint launches K1 over the reverse CSR. ``reps``: CUDA
+    events a median (10 at products' shapes, whose calls take milliseconds).
+    ``diagnose`` (the small CSRs): also K1 with plans cut at each T in
+    K1_T_SWEEP (t_sweep), so that no warp walks more than T edges of a row
+    (where the time falls with T, a lone warp's walk of the longest row sets
+    the launch's time), and K1's and the library's host and device time a
+    call (host_and_device)."""
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
 
     n_rows, e = gg.num_dst_nodes, gg.num_edges
@@ -2307,12 +2456,45 @@ def k1_width(name, gg, d, mean, gen, plain, by_eid=False):
                                 torch.ones(e, device=x.device), size=(n_rows, n_src),
                                 check_invariants=False)
     bound, by = spmm_bound(n_rows, n_src, e, d, 4)
-    return {"d": d, "mean": mean, "ms": median_ms(kern, reps=20, warmup=3),
+    ms, lib_ms = in_turns(kern, lambda: torch.sparse.mm(a, x), reps=reps)
+    return {"d": d, "mean": mean, "ms": ms,
             "plain_ms": (median_ms(lambda: csr_spmm_plain(gg.indptr, idx, x, mean=mean),
                                    reps=5, warmup=1) if plain else None),
-            "library_ms": median_ms(lambda: torch.sparse.mm(a, x), reps=20, warmup=3),
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err, "max_abs_err_f64": err64,
-            "max_bound_used": used}
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+            "floor_ms_computed": spmm_floor(n_rows, e, d, gg.indptr.element_size()),
+            "max_abs_err": err, "max_abs_err_f64": err64, "max_bound_used": used,
+            **({"t_sweep": t_sweep(lambda p: csr_spmm(gg.indptr, idx, x, mean=mean, split=p),
+                                   gg.indptr, K1_T_SWEEP),
+                "host_device": host_and_device(kern),
+                "library_host_device": host_and_device(lambda: torch.sparse.mm(a, x))}
+               if diagnose else {})}
+
+
+def host_and_device(fn, calls=100):
+    """A call's host time (ms: ``calls`` calls enqueued with no sync between
+    them, so the card keeps up where the call is host-bound) and its device
+    time (torch.profiler's busy time a call, over 20 calls): where the event
+    pair's time is near the host's and above the device's, the call is
+    host-bound."""
+    from dgl_tpu_torch.train.timing import device_profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    prof = device_profile(fn, 20, torch.device("cuda"), unit="call")
+    return {"host_ms_a_call": host_ms, "device_ms_a_call": prof["device_busy_ms_per_call"],
+            "wall_ms_a_call": prof["wall_ms_per_call"]}
+
+
+# plans' T for the sweeps at the CSRs where K1 lost time in its redesign
+# (GCMC's relations, a cluster batch, proteins' weighted shapes): a warp
+# walks at most T edges of a row, against graph/split.py's 512
+K1_T_SWEEP = (32, 64, 128, 256, 512)
 
 
 def phase_sage_main():
@@ -2320,8 +2502,8 @@ def phase_sage_main():
     full ogbn-products (3 layers, hidden 64, bidirected), each hoisted and
     unhoisted, arxiv also with lowering="scatter", every counter set to 0
     before a run and read after it. K1's launches are sage_k1_launches per
-    step (+1 hoisted), scatter's none; each launch over a CSR with long rows
-    combines once. Losses finite and falling; the modes agree on the first
+    step (+1 hoisted), scatter's none; no combine launch (each launch folds
+    its CSR's long rows). Losses finite and falling; the modes agree on the first
     step's loss. Then K1 at each width the runs launched it, forward (mean,
     dst CSR) and backward (sum, reverse CSR), against float64 sums,
     torch.sparse.mm and its bound (the plain version on arxiv only: on
@@ -2342,7 +2524,7 @@ def phase_sage_main():
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(7)
-    res, launches, combines, want_l, want_c, plans, widths = {}, {}, {}, {}, {}, {}, {}
+    res, launches, want_l, plans, widths = {}, {}, {}, {}, {}
     launches_bf16, want_bf16 = {}, {}
     for ds, epochs in SAGE_EPOCHS.items():
         cfg = main_sage.DATASET_CFG[ds]
@@ -2354,14 +2536,14 @@ def phase_sage_main():
             modes["bf16"] = (False, "fused", True)
         for mode, (hoist, lowering, bf16) in modes.items():
             torch.cuda.synchronize()
-            csr_spmm.launches = csr_spmm.combines = csr_spmm.launches_bf16 = 0
+            csr_spmm.launches = csr_spmm.launches_bf16 = 0
             log = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(log):
                 r = main_sage.run(ds, epochs=epochs, runs=1, device="cuda", precompute=hoist,
                                   lowering=lowering, bf16_messages=bf16)
             r["run_s"] = time.perf_counter() - t0
-            launches[(ds, mode)], combines[(ds, mode)] = csr_spmm.launches, csr_spmm.combines
+            launches[(ds, mode)] = csr_spmm.launches
             launches_bf16[(ds, mode)] = csr_spmm.launches_bf16
             if "Training time/epoch" not in log.getvalue():
                 raise AssertionError(f"{ds} {mode}: no 'Training time/epoch' line")
@@ -2369,7 +2551,6 @@ def phase_sage_main():
             torch.cuda.empty_cache()
         g, _ = _sage_graph(ds, dev)
         plans[ds] = _split_fields(g)
-        fwd_long, rev_long = int(g.split.num_long > 0), int(g.reverse.split.num_long > 0)
         for mode, (hoist, lowering, bf16) in modes.items():
             steps = len(res[(ds, mode)]["losses"][0])
             per_step = sage_k1_launches(feat, cfg["hidden"], classes, cfg["layers"], hoist)
@@ -2378,7 +2559,6 @@ def phase_sage_main():
             if lowering == "scatter":
                 n_fwd = n_bwd = 0
             want_l[(ds, mode)] = n_fwd + n_bwd
-            want_c[(ds, mode)] = n_fwd * fwd_long + n_bwd * rev_long
             # bf16 messages: the forward reads bfloat16 rows, the backward's
             # cotangent is float32
             want_bf16[(ds, mode)] = n_fwd if bf16 else 0
@@ -2386,10 +2566,12 @@ def phase_sage_main():
                                                                cfg["layers"], False)}
                            | {feat})
         widths[ds] = {}
+        reps = 20 if ds == "ogbn-arxiv" else 10
         for d in ds_widths:
             widths[ds][d] = {
-                "fwd": k1_width(f"{ds} fwd", g, d, True, gen, plain=ds == "ogbn-arxiv"),
-                "bwd": k1_width(f"{ds} bwd", g.reverse, d, False, gen, plain=ds == "ogbn-arxiv"),
+                "fwd": k1_width(f"{ds} fwd", g, d, True, gen, plain=ds == "ogbn-arxiv", reps=reps),
+                "bwd": k1_width(f"{ds} bwd", g.reverse, d, False, gen, plain=ds == "ogbn-arxiv",
+                                reps=reps),
             }
             if ds == "ogbn-products":  # the bf16 path's widths, each way
                 for side, gg, mean in (("fwd", g, True), ("bwd", g.reverse, False)):
@@ -2397,14 +2579,13 @@ def phase_sage_main():
                     x = 1.0 + torch.randn(n_src, d, device=dev, generator=gen)
                     x_int = torch.randint(-4, 5, (n_src, d), device=dev, generator=gen).float()
                     widths[ds][d][f"{side}_bf16"] = k1_bf16_times(
-                        f"{ds} {side} D={d}", gg.indptr, gg.src, x, x_int, mean, gg.split, n_src)
+                        f"{ds} {side} D={d}", gg.indptr, gg.src, x, x_int, mean, gg.split, n_src,
+                        reps=reps)
                     del x, x_int
         del g
         torch.cuda.empty_cache()
     if launches != want_l:
         raise AssertionError(f"K1 launches {launches}; want {want_l}")
-    if combines != want_c:
-        raise AssertionError(f"K1 combines {combines}; want {want_c}")
     if launches_bf16 != want_bf16:
         raise AssertionError(f"K1 bfloat16 launches {launches_bf16}; want {want_bf16}")
     p32, p16 = res[("ogbn-products", "unhoisted")], res[("ogbn-products", "bf16")]
@@ -2428,14 +2609,14 @@ def phase_sage_main():
     emit("sage_main", seconds=time.perf_counter() - t_phase, device=res[("ogbn-arxiv", "hoisted")]["device"],
          synthetic=res[("ogbn-arxiv", "hoisted")]["synthetic"], epochs=SAGE_EPOCHS,
          **{key(*k): {f: r[f] for f in fields} | {"losses": r["losses"][0],
-                                                  "launches": launches[k], "combines": combines[k],
+                                                  "launches": launches[k],
                                                   "launches_bf16": launches_bf16[k]}
             for k, r in res.items()},
          splits=plans, first_step_atol=SAGE_LOSS_ATOL, first_step_bf16_rtol=SAGE_BF16_LOSS_RTOL,
          products_epoch_s_bf16=p16["epoch_s"], products_epoch_s_f32=p32["epoch_s"],
          products_first_loss_bf16=l16, products_first_loss_f32=l32,
          k1_widths={ds: {str(d): w for d, w in v.items()} for ds, v in widths.items()})
-    return launches, combines, widths, launches_bf16
+    return launches, widths, launches_bf16
 
 
 # -- graph classification: GCN on ENZYMES, molhiv and ppa ------------------
@@ -2537,12 +2718,14 @@ def gc_kernel_checks(gen):
                 reps=30, warmup=3),
             "bound_ms": bound, "bound_by": by}
     enz = _gc_batch("ENZYMES", False).graph
-    k1 = {"molhiv": {256: {"fwd": k1_width("molhiv batch fwd", g, 256, False, gen, plain=True),
+    k1 = {"molhiv": {256: {"fwd": k1_width("molhiv batch fwd", g, 256, False, gen, plain=True,
+                                           diagnose=True),
                            "bwd": k1_width("molhiv batch adjoint", g.reverse, 256, False, gen,
-                                           plain=True, by_eid=True)}},
-          "enzymes": {128: {"fwd": k1_width("ENZYMES batch fwd", enz, 128, False, gen, plain=True),
+                                           plain=True, by_eid=True, diagnose=True)}},
+          "enzymes": {128: {"fwd": k1_width("ENZYMES batch fwd", enz, 128, False, gen, plain=True,
+                                            diagnose=True),
                             "bwd": k1_width("ENZYMES batch bwd", enz.reverse, 128, False, gen,
-                                            plain=True)}}}
+                                            plain=True, diagnose=True)}}}
     k2 = {"graphs": batch.num_graphs, "nodes": g.num_dst_nodes, "edges": g.num_edges, "d": 256,
           "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
           "copy_e_max_abs_err": acc_e[0], "copy_e_max_abs_err_f64": acc_e[1],
@@ -2593,8 +2776,7 @@ def phase_gc_main():
     res, launches, combines, want_l, longest = {}, {}, {}, {}, {}
     for key, (ds, lowering, num_graphs, epochs) in GC_RUNS.items():
         torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = fn.combines = 0
+        zero_counts(counters)
         row_gather_by_source.launches = 0
         log = io.StringIO()
         t0 = time.perf_counter()
@@ -2605,7 +2787,7 @@ def phase_gc_main():
         r["run_s"] = time.perf_counter() - t0
         launches[key] = {k: fn.launches for k, fn in counters.items()}
         launches[key]["row_gather_by_source"] = row_gather_by_source.launches
-        combines[key] = {k: fn.combines for k, fn in counters.items()}
+        combines[key] = combine_counts(counters)
         if "Training time/epoch" not in log.getvalue():
             raise AssertionError(f"{key}: no 'Training time/epoch' line")
         res[key] = r
@@ -2615,7 +2797,7 @@ def phase_gc_main():
         torch.cuda.empty_cache()
     if max(longest.values()) > SPLIT_T:
         raise AssertionError(f"a batch could hold a row over T = {SPLIT_T}: {longest}")
-    want_c = {key: {k: 0 for k in counters} for key in GC_RUNS}
+    want_c = {key: {"seg_sum": 0} for key in GC_RUNS}
     if launches != want_l:
         raise AssertionError(f"launches {launches}; want {want_l}")
     if combines != want_c:
@@ -2687,8 +2869,10 @@ def k1_weighted(name, gg, w, x, mean, x_int, w_int):
     """Weighted K1 over one CSR (``w`` in its order): held to float64 sums,
     to the plain version and, on small integers with integer weights, bit
     for bit; two runs bitwise equal; CUDA-event medians of the kernel, the
-    plain version and torch.sparse.mm on the weighted CSR (the mean's 1/deg
-    in its values), and the bound."""
+    plain version, and torch.sparse.mm on the weighted CSR (the mean's 1/deg
+    in its values) in turns with the kernel, the bound, the computed
+    no-reuse gather time, and the kernel with plans cut at each T in
+    K1_T_SWEEP (t_sweep)."""
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
 
     n_rows, n_src, e, d = gg.num_dst_nodes, gg.num_src_nodes, gg.num_edges, x.shape[1]
@@ -2709,11 +2893,14 @@ def k1_weighted(name, gg, w, x, mean, x_int, w_int):
     a = torch.sparse_csr_tensor(gg.indptr.long(), gg.src.long(), vals, size=(n_rows, n_src),
                                 check_invariants=False)
     bound, by = wspmm_bound(n_rows, n_src, e, d)
-    return {"d": d, "mean": mean, "ms": median_ms(kern, reps=20, warmup=3),
-            "plain_ms": median_ms(plain, reps=5, warmup=1),
-            "library_ms": median_ms(lambda: torch.sparse.mm(a, x), reps=20, warmup=3),
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err, "max_abs_err_f64": err64,
-            "max_bound_used": used, "max_row_nnz": int(gg.in_degrees().max())}
+    ms, lib_ms = in_turns(kern, lambda: torch.sparse.mm(a, x))
+    return {"d": d, "mean": mean, "ms": ms, "plain_ms": median_ms(plain, reps=5, warmup=1),
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+            "floor_ms_computed": spmm_floor(n_rows, e, d, gg.indptr.element_size(), weighted=True),
+            "max_abs_err": err, "max_abs_err_f64": err64,
+            "max_bound_used": used, "max_row_nnz": int(gg.in_degrees().max()),
+            "t_sweep": t_sweep(lambda p: csr_spmm(gg.indptr, gg.src, x, w, mean=mean, split=p),
+                               gg.indptr, K1_T_SWEEP)}
 
 
 def rel_checks(g, weights, weights_int, gen, d, per_relation):
@@ -2822,8 +3009,8 @@ def phase_rgcn_main():
     step under the sync check; then main_rgcn.run (3 layers, hidden 32) for
     RGCN_EPOCHS epochs and RGCN_PROFILE profiled ones, in the default form
     and with fuse_relations, each with K1's counters set to 0 before and
-    read after: rgcn_k1_launches per step, one combine per launch over a
-    CSR with long rows; the training's peak above its inputs below one
+    read after: rgcn_k1_launches per step and no combine launch (each
+    launch folds its CSR's long rows); the training's peak above its inputs below one
     (E, 32) float32 buffer; the loss falls; the reference's lines; the forms
     agree on the first step's loss. Returns the K1 fields by (side, D), the
     default run's launch counts and the graph."""
@@ -2876,14 +3063,14 @@ def phase_rgcn_main():
     runs, limit = {}, n_edges * RGCN_HIDDEN * 4
     for form, fuse in (("default", False), ("fused", True)):
         torch.cuda.synchronize()
-        csr_spmm.launches = csr_spmm.combines = 0
+        csr_spmm.launches = 0
         log = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             r = main_rgcn.run(epochs=RGCN_EPOCHS, runs=1, device="cuda", fuse_relations=fuse,
                               profile_epochs=RGCN_PROFILE)
         r["run_s"] = time.perf_counter() - t0
-        r["launches"], r["combines"] = csr_spmm.launches, csr_spmm.combines
+        r["launches"] = csr_spmm.launches
         r["lines"] = [ln for ln in log.getvalue().splitlines()
                       if ln.startswith("Training time/epoch")]
         if len(r["lines"]) != RGCN_EPOCHS - 3:
@@ -2892,11 +3079,9 @@ def phase_rgcn_main():
         r["steps"] = len(r["losses"][0]) + RGCN_PROFILE
         n_fwd = sum(side == "fwd" for _, side, _, _ in per_step[form]) * r["steps"]
         n_bwd = sum(side == "bwd" for _, side, _, _ in per_step[form]) * r["steps"]
-        want_c = n_fwd * int(g.split.num_long > 0) + n_bwd * int(g.reverse.split.num_long > 0)
-        if (r["launches"], r["combines"]) != (n_fwd + n_bwd, want_c):
-            raise AssertionError(f"{form}: K1 launched {r['launches']} times with "
-                                 f"{r['combines']} combines in {r['steps']} steps; want "
-                                 f"{n_fwd + n_bwd} and {want_c}")
+        if r["launches"] != n_fwd + n_bwd:
+            raise AssertionError(f"{form}: K1 launched {r['launches']} times in {r['steps']} "
+                                 f"steps; want {n_fwd + n_bwd}")
         r["per_step_derived"] = len(per_step[form])
         r["train_extra_bytes"] = r["train_peak_bytes"] - r["setup_bytes"]
         if not r["train_extra_bytes"] < limit:
@@ -2921,14 +3106,14 @@ def phase_rgcn_main():
         raise AssertionError(f"RGCN first-step losses differ between the forms: {first}")
     fields = ("run_s", "device", "synthetic", "load_s", "setup_s", "weights_s", "epoch_s",
               "epochs_s", "setup_bytes", "train_peak_bytes", "train_extra_bytes", "losses",
-              "launches", "combines", "steps", "per_step_derived", "lines", "profile")
+              "launches", "steps", "per_step_derived", "lines", "profile")
     emit("rgcn_main", seconds=time.perf_counter() - t_phase, nodes=n_nodes, edges=n_edges,
          relations=n_rel, tasks=n_tasks, hidden=RGCN_HIDDEN, graph_s=graph_s, **_split_fields(g),
          k1_weighted=k1, gspmm_rel=rel, no_host_sync=True, e_by_32_bytes=limit,
          **{form: {f: r[f] for f in fields} for form, r in runs.items()})
     del weights
     torch.cuda.empty_cache()
-    return k1, runs["default"]["launches"], runs["default"]["combines"], g
+    return k1, runs["default"]["launches"], g
 
 
 # -- GCMC on ml-100k: K1 on bipartite relation CSRs, P1 and K2 in the decoder
@@ -2950,18 +3135,16 @@ def gcmc_per_iter(enc, dec, train=True, num_basis=GCMC_BASES):
     gradient, one K1 over its reverse CSR backward; each decoder basis is one
     u_dot_v, two P1 gathers (gather_src_rows over the reverse CSR,
     gather_dst over the dst CSR) whose adjoints are one K1 over the reverse
-    CSR by eid and one K2 over the dst CSR. A launch over a CSR with long
-    rows combines once. An evaluation runs the forwards only. Returns
-    (launches, combines)."""
+    CSR by eid and one K2 over the dst CSR. A K2 launch over a CSR with long
+    rows combines once; K1 folds its long rows inside its launch. An
+    evaluation runs the forwards only. Returns (launches, combines)."""
     launches = {"csr_spmm": 0, "seg_sum": 0, "row_gather_by_source": 2 * num_basis}
-    combines = {"csr_spmm": 0, "seg_sum": 0}
+    combines = {"seg_sum": 0}
     long = lambda gg: int(gg.split.num_long > 0)  # noqa: E731
-    for g in enc.relations.values():
+    for _ in enc.relations.values():
         launches["csr_spmm"] += 1 + train
-        combines["csr_spmm"] += long(g) + train * long(g.reverse)
     if train:
         launches["csr_spmm"] += num_basis
-        combines["csr_spmm"] += num_basis * long(dec.reverse)
         launches["seg_sum"] = num_basis
         combines["seg_sum"] = num_basis * long(dec)
     return launches, combines
@@ -3015,16 +3198,20 @@ def gcmc_kernel_checks(data, gen):
     enc, dec, _ = data.train
     dev = dec.indptr.device
     k1 = {}
+    # the relation with the most ratings (the kernels line's gcmc_relation)
+    # also gets k1_width's diagnosis
+    top = max((kv for kv in enc.relations.items() if not str(kv[0][1]).startswith("rev-")),
+              key=lambda kv: kv[1].num_edges)[0][1]
     for (_, rel, _), g in enc.relations.items():
         for side, gg in (("fwd", g), ("bwd", g.reverse)):
             k1[f"{rel}_{side}"] = k1_width(f"gcmc {rel} {side}", gg, GCMC_REL_D, False, gen,
-                                           plain=True)
+                                           plain=True, diagnose=rel == top)
             k1[f"{rel}_{side}"].update(rows=gg.num_dst_nodes, edges=gg.num_edges,
                                        longest_row=int(gg.in_degrees().max()),
                                        long_rows=gg.split.num_long)
             k1_exact(f"gcmc {rel} {side}", gg, GCMC_REL_D, gen)
     k1["dec_adjoint"] = k1_width("gcmc decoder adjoint", dec.reverse, GCMC_OUT_D, False, gen,
-                                 plain=True, by_eid=True)
+                                 plain=True, by_eid=True, diagnose=True)
     k1_exact("gcmc decoder adjoint", dec.reverse, GCMC_OUT_D, gen, by_eid=True)
     rev = dec.reverse
     u = 1.0 + torch.randn(dec.num_src_nodes, GCMC_OUT_D, device=dev, generator=gen)
@@ -3125,8 +3312,7 @@ def phase_gcmc_main():
 
     counters = {"csr_spmm": csr_spmm, "seg_sum": seg_sum}
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = fn.combines = 0
+    zero_counts(counters)
     row_gather_by_source.launches = 0
     log = io.StringIO()
     with tempfile.TemporaryDirectory() as save_dir, contextlib.redirect_stdout(log):
@@ -3141,7 +3327,7 @@ def phase_gcmc_main():
                 csv_rows[name] = f.read().splitlines()
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["row_gather_by_source"] = row_gather_by_source.launches
-    combines = {k: fn.combines for k, fn in counters.items()}
+    combines = combine_counts(counters)
     per = {"iter": gcmc_per_iter(enc, dec),
            "valid": gcmc_per_iter(*data.valid[:2], train=False),
            "test": gcmc_per_iter(*data.test[:2], train=False)}
@@ -3357,10 +3543,7 @@ def phase_ns_main():
     res, launches, combines = {}, {}, {}
     for key, (driver, argv) in NS_RUNS.items():
         torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
-            if hasattr(fn, "combines"):
-                fn.combines = 0
+        zero_counts(counters)
         flags = argv + (["--profile", str(NS_PROFILE_STEPS)] if key in ("sage", "gat") else [])
         log = io.StringIO()
         t0 = time.perf_counter()
@@ -3368,7 +3551,7 @@ def phase_ns_main():
             r = drivers[driver].main(flags + ["--device", "cuda"])
         r["run_s"] = time.perf_counter() - t0
         launches[key] = {k: fn.launches for k, fn in counters.items()}
-        combines[key] = {k: fn.combines for k, fn in counters.items() if hasattr(fn, "combines")}
+        combines[key] = combine_counts(counters)
         out = log.getvalue()
         want_lines = ["Epoch 00000 | Step 00000 | Loss", "Speed (samples/sec)", "Epoch Time(s):"]
         want_lines += ["Eval Acc", "Test Acc:"] if r["eval_epochs"] else []
@@ -3386,7 +3569,7 @@ def phase_ns_main():
         kind = "gat" if NS_RUNS[key][0] == "ns_gat" else "sage"
         steps = r["steps"] + (NS_PROFILE_STEPS if r["profile"] else 0)
         want_l[key] = ns_launches(kind, 2, steps, len(r["eval_epochs"]))
-        want_c[key] = {k: n * int(g.split.num_long > 0) if k in ("csr_spmm", "gat_attention_fwd")
+        want_c[key] = {k: n * int(g.split.num_long > 0) if k == "gat_attention_fwd"
                        else 0 for k, n in want_l[key].items() if k in combines[key]}
         losses = r["losses"]
         if not (all(math.isfinite(v) for v in losses)
@@ -3688,8 +3871,10 @@ def cluster_batch_checks(batch, x_full, gen):
            "max_in_degree": int(g.in_degrees().max()), **_split_fields(g)}
     for h, d in ((CLUSTER_HEADS, CLUSTER_HIDDEN // CLUSTER_HEADS), (1, 47)):
         out[f"k3_h{h}_d{d}"] = k3_shape(f"cluster batch H={h} D={d}", g, h, d, gen, keep=0.5)
-    out["k1"] = {d: {"fwd": k1_width("cluster batch fwd", g, d, True, gen, plain=True),
-                     "bwd": k1_width("cluster batch bwd", g.reverse, d, False, gen, plain=True)}
+    out["k1"] = {d: {"fwd": k1_width("cluster batch fwd", g, d, True, gen, plain=True,
+                                     diagnose=True),
+                     "bwd": k1_width("cluster batch bwd", g.reverse, d, False, gen, plain=True,
+                                     diagnose=True)}
                  for d in (100, CLUSTER_HIDDEN)}
     idx = torch.from_numpy(batch.nodes).cuda()
     got = row_gather_async(x_full, idx)
@@ -4732,15 +4917,15 @@ def main():
     phase_build()
     phase_random()
     red, red_graph = phase_reddit()
-    launches, combines = phase_main()
+    launches = phase_main()
     phase_gat_random()
     gred, gred_arxiv, gred_arxiv40, key_times, gat_graph, gatconv_bf16 = phase_gat_reddit()
     floors, rows = phase_row_gather(red, red_graph, gred, gat_graph)
     del gat_graph
     glaunch, gcombines = phase_gat_main()
-    slaunch, scombines, widths, slaunch_bf16 = phase_sage_main()
+    slaunch, widths, slaunch_bf16 = phase_sage_main()
     claunch, ccombines, readout, gc_k1 = phase_gc_main()
-    rk1, rlaunch, rcombines, prot_graph = phase_rgcn_main()
+    rk1, rlaunch, prot_graph = phase_rgcn_main()
     torch.cuda.empty_cache()
     gcmc = phase_gcmc_main()
     phase_kernel_sweep({"reddit": red_graph, "ogbn-arxiv": _raw_graph("ogbn-arxiv"),
@@ -4808,11 +4993,8 @@ def main():
             "launches": launches["unhoisted"],
             "launches_hoisted": launches["hoisted"],
             "launches_pubmed_gat": glaunch["pubmed"]["csr_spmm"],
-            # the row split: its combine launches on the same runs, T, and
-            # the long rows and chunks of reddit's reverse CSR
-            "combines": combines["unhoisted"],
-            "combines_hoisted": combines["hoisted"],
-            "combines_pubmed_gat": gcombines["pubmed"]["csr_spmm"],
+            # the row split (each launch folds its long rows): T, and the
+            # long rows and chunks of reddit's reverse CSR
             "split_T": red["bwd"]["split_T"],
             "long_rows": red["bwd"]["long_rows"],
             "chunks": red["bwd"]["chunks"],
@@ -4831,14 +5013,11 @@ def main():
             "library_ms_bwd": red["bwd"]["library_ms"],
             # the SAGE driver's runs (unhoisted, hoisted, arxiv's scatter)
             # and the GCN driver's (K1: the GCNConv aggregations and the
-            # gsddmm(copy_u) adjoints), with their combines
+            # gsddmm(copy_u) adjoints)
             **{f"launches_sage_{k}{m}": slaunch[(ds, mode)] for k, ds in sage_keys.items()
                for mode, m in (("unhoisted", ""), ("hoisted", "_hoisted"), ("scatter", "_scatter"))
                if (ds, mode) in slaunch},
-            **{f"combines_sage_{k}{m}": scombines[(ds, mode)] for k, ds in sage_keys.items()
-               for mode, m in (("unhoisted", ""), ("hoisted", "_hoisted"))},
             **{f"launches_gcn_{k}": v["csr_spmm"] for k, v in claunch.items()},
-            **{f"combines_gcn_{k}": v["csr_spmm"] for k, v in ccombines.items()},
             # the RGCN run on full proteins (40 a step: 8 relations, layer 1
             # forward at D = 1, layers 2 and 3 each way at D = 32), and the
             # weighted launches at every (CSR, width) the run launches: fwd
@@ -4855,7 +5034,6 @@ def main():
             **{f"{k}_cluster_d{d}_{side}": cl_batch["k1"][d][side][k]
                for d in cl_batch["k1"] for side in ("fwd", "bwd")
                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
-            "combines_rgcn": rcombines,
             # the sharded runs on two ranks sharing the card (rank 0; per
             # step: halo_sage_launches, halo_rgcn_launches), the spmd check
             # (forward and backward a rank) and the payloads' adjoints over
@@ -4869,7 +5047,6 @@ def main():
             # relations each way and the decoder's 2 adjoints; 10 an
             # evaluation) and K1 at its shapes
             "launches_gcmc": gcmc["launches"]["csr_spmm"],
-            "combines_gcmc": gcmc["combines"]["csr_spmm"],
             **gcmc_k1,
             **{f"{k}_proteins_{shape.split('_')[1]}_weighted_{shape.split('_')[0]}": r[k]
                for shape, r in rk1.items()
@@ -4994,10 +5171,8 @@ def main():
             red["fwd"]["bf16"], library_note=red["fwd"]["bf16"]["library_note"],
             ms_f32_in_turns=red["fwd"]["bf16"]["ms_f32_in_turns"],
             launches_all_products_bf16=slaunch[("ogbn-products", "bf16")],
-            combines_products_bf16=scombines[("ogbn-products", "bf16")],
             **{f"{k}_rev": red["bwd"]["bf16"][k] for k in ("ms", "ms_f32_in_turns", "plain_ms",
-                                                          "library_ms", "bound_ms",
-                                                          "max_abs_err")},
+                                                          "library_ms", "bound_ms", "max_abs_err")},
             **{f"{k}_products_d{d}_{side}": widths["ogbn-products"][d][f"{side}_bf16"][k]
                for d in widths["ogbn-products"] for side in ("fwd", "bwd")
                for k in ("ms", "ms_f32_in_turns", "library_ms", "bound_ms", "max_abs_err")}),

@@ -5,10 +5,12 @@ a launch lasts as long as its longest row. On the synthetic reddit graph the
 reverse CSR has a row of 212,102 edges, a second of 121,314, and 1,852 rows
 of more than 512 edges. So every row of more than ``T`` edges is cut into
 chunks of at most ``T`` edges, in ascending edge order; a kernel runs each
-chunk as one warp's work, into a partials buffer, and a combine launch adds
-each long row's partials in ascending chunk order (no atomics: two runs are
-bitwise equal). Rows of at most ``T`` edges run on the per-row code as
-before.
+chunk as one warp's work, into a partials buffer, and each long row's
+partials are added in ascending chunk order (no atomic decides an order of
+additions: two runs are bitwise equal): by a combine launch in K2 and K3,
+inside the launch in K1, whose last chunk warp of a row folds it, counted
+on the plan's ``counters``. Rows of at most ``T`` edges run on the per-row
+code as before.
 
 The plan is built once on the host, with the graph (``from_edges``), from
 the CSR's ``indptr`` in numpy, so the ops never read ``indptr`` back from
@@ -38,7 +40,10 @@ class RowSplit:
     ``rows`` (L,) int64: the rows of more than ``t`` edges, ascending;
     ``chunk_ptr`` (L + 1,) int64: long row ``i`` owns chunks
     ``chunk_ptr[i]:chunk_ptr[i + 1]``; ``chunks`` (C, 2) int64: each chunk's
-    ``[begin, end)`` edge offsets, at most ``t`` edges, ascending.
+    ``[begin, end)`` edge offsets, at most ``t`` edges, ascending;
+    ``counters`` (L,) int32 zeros: K1 counts each long row's chunk warps
+    there as they arrive, and the last sets its counter back to 0, so two K1
+    launches over one CSR must not run at once on two streams.
     ``num_rows`` and ``num_edges`` are the CSR's, to check a plan against the
     ``indptr`` it is used with.
     """
@@ -49,6 +54,7 @@ class RowSplit:
     rows: torch.Tensor
     chunk_ptr: torch.Tensor
     chunks: torch.Tensor
+    counters: torch.Tensor
 
     @property
     def num_long(self) -> int:
@@ -61,16 +67,20 @@ class RowSplit:
     def to(self, device) -> "RowSplit":
         return dataclasses.replace(self, rows=self.rows.to(device),
                                    chunk_ptr=self.chunk_ptr.to(device),
-                                   chunks=self.chunks.to(device))
+                                   chunks=self.chunks.to(device),
+                                   counters=self.counters.to(device))
 
-    def kernel_args(self, partials: Optional[torch.Tensor]) -> tuple:
+    def kernel_args(self, partials: Optional[torch.Tensor], counters: bool = False) -> tuple:
         """The plan's arguments of the kernels' C entry points (``long_t,
         rows, chunk_ptr, n_long, chunks, n_chunks, partials``), with the (C, D)
         float32 ``partials`` buffer the chunks are summed into; ``None`` (a
-        null pointer, which no kernel reads) for a plan with no chunks."""
-        return (self.t, self.rows.data_ptr(), self.chunk_ptr.data_ptr(), self.num_long,
+        null pointer, which no kernel reads) for a plan with no chunks.
+        ``counters``: K1's, which folds the long rows in its launch, take the
+        arrival counters after ``partials``."""
+        args = (self.t, self.rows.data_ptr(), self.chunk_ptr.data_ptr(), self.num_long,
                 self.chunks.data_ptr(), self.num_chunks,
                 None if partials is None else partials.data_ptr())
+        return args + (self.counters.data_ptr(),) if counters else args
 
     def check(self, indptr: torch.Tensor, num_edges: int, what: str) -> None:
         """Raise ``ValueError`` unless the plan has this CSR's row and edge
@@ -78,14 +88,19 @@ class RowSplit:
 
         The rows themselves are not compared, as that would read ``indptr``
         back: a plan of another CSR with the same counts passes, and the
-        kernels then leave every long row it does not list unwritten."""
+        kernels then write the rows it lists from its chunks; K2 and K3 leave
+        every long row it does not list unwritten, K1 sums such a row in its
+        run warps."""
         if (self.num_rows, self.num_edges) != (indptr.numel() - 1, num_edges):
             raise ValueError(
                 f"{what}: the row split is for {self.num_rows} rows and {self.num_edges} edges, "
                 f"the CSR has {indptr.numel() - 1} rows and {num_edges} edges"
             )
-        if any(t.device != indptr.device for t in (self.rows, self.chunk_ptr, self.chunks)):
+        if any(t.device != indptr.device
+               for t in (self.rows, self.chunk_ptr, self.chunks, self.counters)):
             raise ValueError(f"{what}: the row split lies on another device than indptr")
+        if self.counters.dtype != torch.int32 or self.counters.shape != self.rows.shape:
+            raise ValueError(f"{what}: the row split's counters are not one int32 a long row")
 
 
 def row_split(indptr, t: int = SPLIT_T, device=None) -> RowSplit:
@@ -112,4 +127,5 @@ def row_split(indptr, t: int = SPLIT_T, device=None) -> RowSplit:
 
     return RowSplit(t=int(t), num_rows=len(ip) - 1, num_edges=int(ip[-1]),
                     rows=to(rows.astype(np.int64)), chunk_ptr=to(chunk_ptr),
-                    chunks=to(np.stack([begin, end], axis=1).reshape(-1, 2)))
+                    chunks=to(np.stack([begin, end], axis=1).reshape(-1, 2)),
+                    counters=to(np.zeros(len(rows), np.int32)))

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use.
 
 Each source under ``csrc/`` becomes one shared library with a plain C
-interface, loaded with ``ctypes``. Libraries go to ``kernels/_build/``
+interface, loaded with ``ctypes`` (``csr_spmm.cu`` two: its float32 entry
+point and, built with ``DEFINES``, its bfloat16 one). Libraries go to ``kernels/_build/``
 (listed in ``.gitignore``), named by a hash of the source and the flags: a
 changed source is rebuilt, an unchanged one is reused. ``build`` starts one
 ``nvcc`` per missing library, all at once, and waits for them all.
@@ -16,9 +17,9 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
-__all__ = ["SOURCES", "HEADERS", "BUILD_DIR", "build", "load", "nvcc_path"]
+__all__ = ["SOURCES", "DEFINES", "HEADERS", "BUILD_DIR", "build", "load", "nvcc_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -26,9 +27,14 @@ SOURCES: Dict[str, str] = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
     for name in ("csr_spmm", "seg_sum", "gat_attention", "row_gather")
 }
-# device helpers every source includes (``#include "lanes.cuh"`` resolves
-# beside the source); a changed header rebuilds every library
-HEADERS = [os.path.join(_HERE, "csrc", "lanes.cuh")]
+# K1's bfloat16 entry point: csr_spmm.cu again, with K1_ROWS_BF16, so that
+# its instantiations build beside the float32 ones, in parallel
+SOURCES["csr_spmm_bf16"] = SOURCES["csr_spmm"]
+DEFINES: Dict[str, List[str]] = {"csr_spmm_bf16": ["-DK1_ROWS_BF16"]}
+# headers the sources include (``#include "lanes.cuh"`` resolves beside the
+# source): the device helpers every source includes and K1's geometry; a
+# changed header rebuilds every library
+HEADERS = [os.path.join(_HERE, "csrc", name) for name in ("lanes.cuh", "k1_geometry.h")]
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,7 +56,7 @@ def _lib_path(name: str) -> str:
     for path in [SOURCES[name], *HEADERS]:
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(_FLAGS).encode())
+    h.update(" ".join(_FLAGS + DEFINES.get(name, [])).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -69,7 +75,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             result[name] = {"path": path, "seconds": 0.0, "log": ""}
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([nvcc_path(), *_FLAGS, "-o", tmp, SOURCES[name]],
+        proc = subprocess.Popen([nvcc_path(), *_FLAGS, *DEFINES.get(name, []), "-o", tmp,
+                                 SOURCES[name]],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, path, tmp, time.perf_counter())
     failed = []

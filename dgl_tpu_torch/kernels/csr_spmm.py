@@ -2,17 +2,33 @@
 
 ``csr_spmm`` launches the hand-written CUDA kernel in ``csrc/csr_spmm.cu``
 for CUDA tensors and uses ``csr_spmm_plain`` only for CPU tensors.
-``csr_spmm.launches`` counts the calls that launch the kernel and
-``csr_spmm.combines`` the combine launches among them (the row split).
+``csr_spmm.launches`` counts the calls that launch the kernel, one launch a
+call: the long rows' combine runs inside that launch.
+
+The kernel stages the gathered rows in shared memory: each warp keeps a
+ring of stages of rows in flight, each row copied as the 16-byte-aligned
+span that covers it, at any width and alignment of ``x``: by TMA bulk
+copies (one a row) for wide spans, by cp.async copies of 16 bytes spread
+over the lanes for narrow ones; the indices come in blocks of 32 edges
+fetched ahead of the stages. Its lanes then sum the staged rows column by
+column. ``csrc/k1_geometry.h`` sizes the ring, the copy route, the lane
+layout and the runs of rows (one warp each) from the row width, the value's
+bytes, the alignment of ``x`` and the CSR's counts, on the host side of the
+launch. The source note in ``csrc/csr_spmm.cu`` says why, with the card's
+numbers in ``PERF.md``.
 
 Long rows are split: every row of more than ``T`` edges (the plan's ``t``;
 ``graph/split.py:SPLIT_T`` = 512 for a graph's CSRs) is cut into chunks of
-at most ``T`` edges, each summed by one warp of the same launch into a
-(C, D) partials buffer; a second, small launch adds each long row's chunks in
-ascending chunk order, applies mean's ``1/deg`` of the whole row, and writes
-the row once. No atomics decide the order, so two runs are bitwise equal.
-``T`` bounds the longest walk any warp makes: one warp per row walked the
-reverse reddit CSR's 212,102-edge row alone.
+at most ``T`` edges, each summed by one warp of the same launch (two
+consecutive chunks a warp on plans with many chunks)
+into a (C, D) partials buffer; the warp that completes a long row's
+count of chunks (on the plan's ``counters``) adds the row's chunks in
+ascending chunk order, applies mean's ``1/deg`` of the whole row, and
+writes the row once. No atomic decides an order of additions, so two runs
+are bitwise equal. ``2T`` bounds the longest walk a chunk warp makes: one
+warp per row walked the reverse reddit CSR's 212,102-edge row alone. The
+counters belong to the plan, so two launches over one CSR must not run at
+once on two streams (the package runs on one).
 
 ``x`` is float32 or bfloat16. A bfloat16 ``x`` launches the kernel's
 bfloat16 instantiation (``csr_spmm.launches_bf16`` counts those launches
@@ -37,6 +53,7 @@ from .build import load
 from .seg_sum import ROW_DTYPES, csr_rows, sum_dtype
 
 __all__ = ["csr_spmm", "csr_spmm_plain"]
+
 
 def csr_spmm_plain(
     indptr: torch.Tensor,
@@ -88,12 +105,13 @@ def _check(indptr, indices, x, w) -> None:
 
 
 def _kernel_fn(dtype: torch.dtype):
-    fn = getattr(load("csr_spmm"), "csr_spmm_bf16" if dtype == torch.bfloat16 else "csr_spmm_f32")
+    name = "csr_spmm_bf16" if dtype == torch.bfloat16 else "csr_spmm_f32"
+    fn = getattr(load("csr_spmm_bf16" if dtype == torch.bfloat16 else "csr_spmm"), name)
     if fn.argtypes is None:
         p = ctypes.c_void_p
         ll = ctypes.c_longlong
-        fn.argtypes = [p, ctypes.c_int, p, p, p, p, ll, ctypes.c_int, ctypes.c_int, ll, p, p, ll,
-                       p, ll, p, p]
+        i = ctypes.c_int
+        fn.argtypes = [p, i, p, p, p, ll, p, ll, i, i, ll, p, p, ll, p, ll, p, p, ll, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -117,10 +135,11 @@ def csr_spmm(
     ``split``: the CSR's row split (``graph.split`` / ``graph.reverse.split``
     for a graph's CSRs), on the device of ``indptr``. One whose row or edge
     count differs raises ``ValueError`` before any launch; one of another CSR
-    with the same counts is not caught, and leaves the rows of more than
-    ``split.t`` edges that it does not list undefined. Without one, a launch
-    on the card builds it from ``indptr``: a copy of ``indptr`` to the host,
-    which waits for the card. The package's ops always pass the graph's plan.
+    with the same counts is not caught, and the rows it lists are then
+    written from its chunks. Without one, a launch on the card builds it
+    from ``indptr``: a copy of ``indptr`` to the host, which waits for the
+    card. The package's ops always pass the graph's plan. Two launches with
+    one plan must not run at once on two streams (its counters).
     """
     _check(indptr, indices, x, w)
     if split is not None:
@@ -140,18 +159,16 @@ def csr_spmm(
     with torch.cuda.device(x.device):
         err = fn(
             indptr.data_ptr(), int(indptr.dtype == torch.int64), indices.data_ptr(),
-            None if w is None else w.data_ptr(), x.data_ptr(), out.data_ptr(),
-            n_rows, d, int(mean), *split.kernel_args(partials),
+            None if w is None else w.data_ptr(), x.data_ptr(), x.shape[0], out.data_ptr(),
+            n_rows, d, int(mean), *split.kernel_args(partials, counters=True), indices.numel(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"csr_spmm kernel launch failed with CUDA error {err}")
     csr_spmm.launches += 1
     csr_spmm.launches_bf16 += int(x.dtype == torch.bfloat16)
-    csr_spmm.combines += int(split.num_long > 0)
     return out
 
 
 csr_spmm.launches = 0
 csr_spmm.launches_bf16 = 0
-csr_spmm.combines = 0

@@ -3,7 +3,10 @@ checks, and, on a CUDA card, K1, K2 (seg_sum), both K3 passes
 (gat_attention_fwd / _bwd) and P1 in both orders and P2
 (row_gather_async / _by_source / _smem) against their plain versions; K1, K2 and both K3 passes also on a CSR whose rows
 straddle the row split (graph/split.py), against the plain version and
-exact sums, and in their bfloat16 instantiations.
+exact sums, and in their bfloat16 instantiations; K1 at odd widths, on x
+bases 4 and 8 bytes off 16-byte alignment whose storage ends with x, and
+on CSRs made only of long rows and of none (the combine folded into the
+launch, the plan's counters back at 0).
 
 This file imports no JAX, so the card's tests can run where JAX is absent:
     python -m pytest --noconftest tests/test_torch_kernel.py -m cuda
@@ -168,9 +171,11 @@ def test_split_k1_matches_plain_and_exact_sums_on_card():
             x = torch.from_numpy(rng.normal(1.0, 1.0, (2000, d)).astype(np.float32)).to(dev)
             for mean in (False, True):
                 for ww in (None, w):
-                    before, combines = csr_spmm.launches, csr_spmm.combines
+                    before = csr_spmm.launches
                     got = csr_spmm(ip, idx, x, ww, mean=mean, split=plan)
-                    assert (csr_spmm.launches, csr_spmm.combines) == (before + 1, combines + 1)
+                    # one launch: the long rows' combine is folded into it
+                    assert csr_spmm.launches == before + 1
+                    assert not plan.counters.any()
                     want = csr_spmm_plain(ip, idx, x, ww, mean=mean)
                     torch.testing.assert_close(got[short], want[short], rtol=1e-4, atol=1e-4)
                     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-2)
@@ -178,6 +183,95 @@ def test_split_k1_matches_plain_and_exact_sums_on_card():
             ints = torch.from_numpy(rng.integers(-4, 5, (2000, d)).astype(np.float32)).to(dev)
             exact = csr_spmm_plain(ip, idx, ints.double()).float()  # exact in any order
             assert torch.equal(csr_spmm(ip, idx, ints, split=plan), exact)
+
+
+def _x_view(rng, n, d, dtype, shift_bytes, dev, kind="normal"):
+    """(n, d) rows at ``shift_bytes`` past a 16-byte-aligned allocation that
+    ends where x ends: a span rounded out to 16 bytes at x's first or last
+    row would leave the storage."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    shift = shift_bytes // elem
+    a = (rng.normal(1.0, 1.0, n * d) if kind == "normal"
+         else rng.integers(-4, 5, n * d)).astype(np.float32)
+    flat = torch.empty(shift + n * d, dtype=dtype, device=dev)
+    flat[shift:] = torch.from_numpy(a).to(dev).to(dtype)
+    x = flat[shift:].view(n, d)
+    assert x.data_ptr() % 16 == shift_bytes and x.untyped_storage().nbytes() == flat.numel() * elem
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_odd_widths_and_misaligned_bases_on_card(dtype):
+    """D in {1, 3, 40, 41, 47, 100, 602}, x at 0, 4 and 8 bytes off 16-byte
+    alignment (bfloat16 also 2), its first and last rows gathered often, on
+    a CSR with long rows: the plain version, small integers bit for bit,
+    two runs bitwise equal, sum, mean and weighted."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    n_src = 500
+    indptr, idx, plan = _split_csr(rng, n_src)
+    ends = rng.random(len(idx)) < 0.2  # a fifth of the edges read row 0 or n_src - 1
+    idx[ends] = rng.choice([0, n_src - 1], int(ends.sum())).astype(np.int32)
+    ip, ix, plan = torch.from_numpy(indptr).to(dev), torch.from_numpy(idx).to(dev), plan.to(dev)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, len(idx)).astype(np.float32)).to(dev)
+    wi = torch.from_numpy(rng.integers(1, 4, len(idx)).astype(np.float32)).to(dev)
+    short = torch.from_numpy(np.diff(indptr) <= 1000).to(dev)
+    shifts = (0, 4, 8) if dtype == torch.float32 else (0, 2, 4, 8)
+    for d in (1, 3, 40, 41, 47, 100, 602):
+        for shift in shifts:
+            x = _x_view(rng, n_src, d, dtype, shift, dev)
+            xi = _x_view(rng, n_src, d, dtype, shift, dev, kind="integer")
+            for mean, ww, wwi in ((False, None, None), (True, None, None), (False, w, wi)):
+                got = csr_spmm(ip, ix, x, ww, mean=mean, split=plan)
+                want = csr_spmm_plain(ip, ix, x, ww, mean=mean)
+                torch.testing.assert_close(got[short], want[short], rtol=1e-4, atol=1e-4)
+                torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-2)
+                assert torch.equal(got, csr_spmm(ip, ix, x, ww, mean=mean, split=plan))
+                if not mean:
+                    exact = csr_spmm_plain(ip, ix, xi.double(), wwi).float()
+                    assert torch.equal(csr_spmm(ip.int(), ix, xi, wwi, split=plan), exact)
+    assert not plan.counters.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_long", "all_long_pairs", "no_long"])
+def test_k1_fold_on_all_long_and_no_long_csrs_on_card(case):
+    """A CSR of long rows only (every row folded in the launch by the chunk
+    warp that completes its count) and one of none, D in {1, 16, 47, 100},
+    float32 and bfloat16; ``all_long_pairs`` cuts the plan at t = 2, so it
+    has more than 2048 chunks and each chunk warp walks two
+    (``k1_geometry.h``): exact integer sums, the plain version, one launch a
+    call, two runs bitwise equal and the counters back at 0."""
+    from dgl_tpu_torch.graph.split import SPLIT_T, row_split
+
+    dev = _card()
+    rng = np.random.default_rng(12)
+    t = SPLIT_T
+    degrees = ([t + 1 + 97 * i for i in range(30)] if case != "no_long"
+               else [t] * 5 + rng.integers(0, t + 1, 2000).tolist())
+    indptr = np.zeros(len(degrees) + 1, np.int64)
+    np.cumsum(degrees, out=indptr[1:])
+    idx = torch.from_numpy(rng.integers(0, 3000, int(indptr[-1])).astype(np.int32)).to(dev)
+    ip = torch.from_numpy(indptr).to(dev)
+    plan = row_split(ip, t=2 if case == "all_long_pairs" else t)
+    assert plan.num_long == (0 if case == "no_long" else len(degrees))
+    assert (plan.num_chunks > 2048) == (case == "all_long_pairs")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1, 16, 47, 100):
+            x = torch.from_numpy(rng.normal(1.0, 1.0, (3000, d)).astype(np.float32)).to(dev)
+            xi = torch.randint(-4, 5, (3000, d), device=dev).float()
+            x, xi = x.to(dtype), xi.to(dtype)
+            for mean in (False, True):
+                before = csr_spmm.launches
+                got = csr_spmm(ip, idx, x, mean=mean, split=plan)
+                assert csr_spmm.launches == before + 1
+                torch.testing.assert_close(got, csr_spmm_plain(ip, idx, x, mean=mean),
+                                           rtol=1e-3, atol=1e-2)
+                assert torch.equal(got, csr_spmm(ip, idx, x, mean=mean, split=plan))
+            assert torch.equal(csr_spmm(ip, idx, xi, split=plan),
+                               csr_spmm_plain(ip, idx, xi.double()).float())
+            assert not plan.counters.any()
 
 
 @pytest.mark.cuda

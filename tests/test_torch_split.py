@@ -10,6 +10,8 @@ tensors too), and every op of the package hands the kernels the graph's
 own plan, so none builds one from a device ``indptr``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -85,16 +87,40 @@ def test_plan_of_a_tensor_matches_the_plan_of_its_numpy_array():
 
 def test_kernel_args_follow_the_c_entry_points_order():
     """``long_t, rows, chunk_ptr, n_long, chunks, n_chunks, partials``, as
-    ``csr_spmm_f32``, ``seg_sum_f32`` and K3's entry points take them; a
-    plan with no chunks may pass a null partials pointer."""
+    ``seg_sum_f32`` and K3's entry points take them, and then ``counters``
+    for ``csr_spmm_f32``, which folds the long rows in its launch; a plan
+    with no chunks may pass a null partials pointer."""
     plan = row_split(_indptr([2, 9, 0, 17]), 4)
     partials = torch.empty(plan.num_chunks, 3)
     assert plan.kernel_args(partials) == (
         4, plan.rows.data_ptr(), plan.chunk_ptr.data_ptr(), 2,
         plan.chunks.data_ptr(), plan.num_chunks, partials.data_ptr())
+    assert plan.kernel_args(partials, counters=True) == (
+        plan.kernel_args(partials) + (plan.counters.data_ptr(),))
     assert plan.num_chunks == 3 + 5
     short = row_split(_indptr([2, 3]), 4)
     assert short.kernel_args(None)[5:] == (0, None)
+
+
+@pytest.mark.parametrize("case", ["around_t", "all_long", "no_long", "empty_rows_only"])
+def test_counters_are_one_zeroed_int32_a_long_row_and_move_with_the_plan(case):
+    """K1's arrival counters: built zeroed on the plan's device, one a long
+    row, carried by ``to`` (and by ``Graph.to``), and checked by ``check``."""
+    indptr = _indptr(_degree_cases(4)[case])
+    plan = row_split(indptr, 4)
+    assert plan.counters.dtype == torch.int32 and plan.counters.shape == (plan.num_long,)
+    assert not plan.counters.any() and plan.counters.device.type == "cpu"
+    moved = plan.to("cpu")
+    assert torch.equal(moved.counters, plan.counters)
+    plan.check(torch.from_numpy(indptr), int(indptr[-1]), "k1")
+    if plan.num_long:
+        bad = dataclasses.replace(plan, counters=plan.counters[:-1])
+        with pytest.raises(ValueError, match="counters"):
+            bad.check(torch.from_numpy(indptr), int(indptr[-1]), "k1")
+        bad = dataclasses.replace(plan, counters=plan.counters.long())
+        with pytest.raises(ValueError, match="counters"):
+            csr_spmm(torch.from_numpy(indptr), torch.zeros(int(indptr[-1]), dtype=torch.int32),
+                     torch.ones(1, 2), split=bad)
 
 
 def test_from_edges_builds_a_plan_for_both_csrs_and_to_carries_them():
@@ -114,7 +140,7 @@ def test_from_edges_builds_a_plan_for_both_csrs_and_to_carries_them():
     moved = g.to("cpu")
     for a, b in ((g.split, moved.split), (g.reverse.split, moved.reverse.split)):
         assert (a.t, a.num_rows, a.num_edges) == (b.t, b.num_rows, b.num_edges)
-        for name in ("rows", "chunk_ptr", "chunks"):
+        for name in ("rows", "chunk_ptr", "chunks", "counters"):
             assert torch.equal(getattr(a, name), getattr(b, name)), name
 
 
