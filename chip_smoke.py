@@ -121,8 +121,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      and data held below one (E, 16) float32 buffer, arxiv's below
      fused_gat_memory_bound (derived from the shapes); pubmed: K3 none, K2
      exactly 12 per step plus one per edge-softmax rescue, K1 3 per step,
-     no combine launch (K1 folds pubmed's reverse CSR's long rows inside its
-     launch; K2's dst CSR has none), P1 in source order 18 per step plus two per rescue
+     no combine launch (K1 and K2 fold long rows inside their launch), P1 in source order 18 per step plus two per rescue
      (gat_edge_per_step); pubmed's profiled steps run no index_select.
      Losses finite and falling. Then, on pubmed's graph, gather_src_rows,
      gather_dst, spread_dst and segment_sum: forwards bit for bit against
@@ -181,8 +180,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      iteration under set_sync_debug_mode("error"); the driver (GCMC_ITERS
      iterations, an RMSE evaluation every 5, then GCMC_PROFILE profiled
      iterations) with every counter set to 0 before it and read after it:
-     K1's, K2's and P1-in-source-order launches and K2's combines as
-     gcmc_per_iter derives them; losses finite and falling; the
+     K1's, K2's and P1-in-source-order launches and K2's combines (0: K2
+     folds the decoder's long rows in its launch) as gcmc_per_iter derives
+     them; losses finite and falling; the
      reference's two lines and both CSV files; the best test RMSE below
      the test RMSE of predicting the training ratings' mean (printed); the
      profile (busy, idle share, top kernels);
@@ -286,7 +286,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      device profile names the kernels its path must launch;
   19. kernels: one line listing every ported kernel with its numbers, K1's,
      K2's and K3's with T, long rows, chunks and K2's and K3's combine
-     launches (K1 has none: its launch folds them), K3's at
+     launches (K1 has none and K2's are 0: their launches fold them), K3's at
      arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
      K1's at the SAGE widths and K1's and K2's launches on the new paths,
      P1 in source order beside P1 in index order with its plan's build
@@ -306,6 +306,13 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      launched by products SAGE with bf16 messages; seg_sum_bf16 and both K3
      passes' *_bf16, by the bf16 GATConv step), each with its float32
      instantiation's time in the same turns (ms_f32_in_turns).
+K2 and P1 at every shape they are timed at (gc_main's readout and copy_e,
+gcmc_main's decoder K2 and both gathers, gat_reddit's K2 rows and bf16 K2,
+row_gather's streams, ns_main's step gather, cluster_main's batch gather)
+also report each call's host time and device time beside the library
+call's (host_and_device: "host_device", "library_host_device",
+"index_add_host_device"): where the event pair is about the host's time
+and above the device's, the call is host-bound.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1402,7 +1409,8 @@ def _gat_graph(name, dev):
 
 def zero_counts(counters):
     """Set each wrapper's launch count, and its combine count where it has
-    one, to 0 (K1 has none: its launch folds its long rows)."""
+    one, to 0 (K1 has none: its launch folds its long rows; K2's stays 0, as
+    its launch folds them too)."""
     for fn in counters.values():
         fn.launches = 0
         if hasattr(fn, "combines"):
@@ -1725,28 +1733,84 @@ def k2_bf16_times(indptr, msg, ints, split):
     mb, acc = msg.to(BF16), [0.0, 0.0, 0.0]
     check_k2("reddit fwd bf16", indptr, mb, ints.to(BF16), acc, split)
     m32 = mb.float()
-    ms32, ms = in_turns(lambda: seg_sum(indptr, m32, split=split),
-                        lambda: seg_sum(indptr, mb, split=split), reps=20, warmup=2)
+    kern = lambda: seg_sum(indptr, mb, split=split)  # noqa: E731
+    ms32, ms = in_turns(lambda: seg_sum(indptr, m32, split=split), kern, reps=20, warmup=2)
     offsets = indptr.long()
-    lib, note = bf16_library_ms(
-        lambda: lambda: torch.segment_reduce(mb, "sum", offsets=offsets), reps=20, warmup=2)
+    lib_call = lambda: torch.segment_reduce(mb, "sum", offsets=offsets)  # noqa: E731
+    lib, note = bf16_library_ms(lambda: lib_call, reps=20, warmup=2)
     n, (e, w) = indptr.numel() - 1, msg.shape
     bound, by = k2_bound(n, e, w, msg_bytes=2)
     return {"ms": ms, "ms_f32_in_turns": ms32,
             "plain_ms": median_ms(lambda: seg_sum_plain(indptr, mb), reps=5, warmup=1),
             "library_ms": lib, "library_note": note, "bound_ms": bound, "bound_by": by,
-            "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2]}
+            "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
+            "host_device": host_and_device(kern),
+            "library_host_device": host_and_device(lib_call) if lib is not None else None}
+
+
+def k2_reddit(g, gen, res):
+    """K2 at (E, 16) on reddit with self-loops over the dst and the reverse
+    CSR (check_k2: float64 bounds, the plain version, integers bit for bit,
+    two runs equal; one launch a call, no combine launch), CUDA-event
+    medians of the kernel, the plain version, segment_reduce and index_add_
+    (its row ids made outside the timed calls), each call's host and device
+    time (host_and_device), the T sweep and the bound; the bfloat16
+    instantiation over the dst CSR (k2_bf16_times). Fills
+    res["seg_sum_fwd"], res["seg_sum_rev"] and res["seg_sum_bf16"]."""
+    from dgl_tpu_torch.kernels.seg_sum import csr_rows, seg_sum, seg_sum_plain
+
+    dev = g.indptr.device
+    n, e, d = g.num_dst_nodes, g.num_edges, 16
+    msg = 1.0 + torch.randn(e, d, device=dev, generator=gen)
+    ints = torch.randint(-4, 5, (e, d), device=dev, generator=gen).float()
+    for side, gg in (("fwd", g), ("rev", g.reverse)):
+        indptr, acc = gg.indptr, [0.0, 0.0, 0.0]
+        launches, combines = seg_sum.launches, seg_sum.combines
+        got = check_k2(f"reddit {side}", indptr, msg, ints, acc, gg.split)
+        # three runs, three launches: the long rows fold inside each
+        if (seg_sum.launches - launches, seg_sum.combines - combines) != (3, 0):
+            raise AssertionError(f"reddit {side}: {seg_sum.launches - launches} K2 launches and "
+                                 f"{seg_sum.combines - combines} combine launches in three runs; "
+                                 "want 3 and 0")
+        if gg.split.counters.any():
+            raise AssertionError(f"reddit {side}: the plan's counters are not back at 0")
+        offsets = indptr.long()
+        rows = csr_rows(indptr, e)  # index_add_'s row ids, made outside the timed calls
+        lib = torch.segment_reduce(msg, "sum", offsets=offsets)
+        bound, by = k2_bound(n, e, d)
+        kern = lambda: seg_sum(indptr, msg, split=gg.split)  # noqa: E731
+        segment_reduce = lambda: torch.segment_reduce(msg, "sum", offsets=offsets)  # noqa: E731
+        r = res[f"seg_sum_{side}"] = {
+            "ms": median_ms(kern, reps=20, warmup=2),
+            "plain_ms": median_ms(lambda: seg_sum_plain(indptr, msg), reps=5, warmup=1),
+            "library_ms": median_ms(segment_reduce, reps=20, warmup=2),
+            "index_add_ms": median_ms(lambda: torch.zeros(n, d, device=dev).index_add_(0, rows, msg),
+                                      reps=20, warmup=2),
+            "library_max_abs_err_vs_kernel": (lib - got).abs().max().item(),
+            "bound_ms": bound, "bound_by": by,
+            "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
+            "max_row_nnz": int((indptr[1:] - indptr[:-1]).max()),
+            "split_T": gg.split.t, "long_rows": gg.split.num_long, "chunks": gg.split.num_chunks,
+            "t_sweep": t_sweep(lambda p: seg_sum(indptr, msg, split=p), indptr),
+            "host_device": host_and_device(kern),
+            "library_host_device": host_and_device(segment_reduce),
+        }
+        r["at_or_below_segment_reduce"] = r["ms"] <= r["library_ms"]
+        r["at_or_below_index_add"] = r["ms"] <= r["index_add_ms"]
+        del rows, lib, got
+        if side == "fwd":  # the edge form's bf16 copy_e sum runs over the dst CSR
+            res["seg_sum_bf16"] = k2_bf16_times(indptr, msg, ints, gg.split)
+    return msg
 
 
 def phase_gat_reddit():
-    from dgl_tpu_torch.kernels.seg_sum import csr_rows, seg_sum, seg_sum_plain
+    from dgl_tpu_torch.kernels.seg_sum import seg_sum
     from dgl_tpu_torch.ops import seg_sum_dst
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     g = _gat_graph("reddit", dev)
     load_s = time.perf_counter() - t0
-    rev = g.reverse
     n, e, h, d = g.num_dst_nodes, g.num_edges, 1, 16
     gen = torch.Generator(device=dev).manual_seed(2)
     res = k3_shape("reddit", g, h, d, gen, REDDIT_KEEP)
@@ -1761,38 +1825,7 @@ def phase_gat_reddit():
     arxiv_fields = {"nodes": arxiv.num_dst_nodes, "edges": arxiv.num_edges, "heads": 4,
                     "d": [16, 40], **_split_fields(arxiv)}
     del arxiv
-    msg = 1.0 + torch.randn(e, d, device=dev, generator=gen)
-    ints = torch.randint(-4, 5, (e, d), device=dev, generator=gen).float()
-    for side, gg in (("fwd", g), ("rev", rev)):
-        indptr, acc = gg.indptr, [0.0, 0.0, 0.0]
-        combines = seg_sum.combines
-        got = check_k2(f"reddit {side}", indptr, msg, ints, acc, gg.split)
-        if seg_sum.combines - combines != 3 * int(gg.split.num_long > 0):
-            raise AssertionError(f"reddit {side}: {gg.split.num_long} long rows but "
-                                 f"{seg_sum.combines - combines} K2 combine launches in three runs")
-        offsets = indptr.long()
-        rows = csr_rows(indptr, e)  # index_add_'s row ids, made outside the timed calls
-        lib = torch.segment_reduce(msg, "sum", offsets=offsets)
-        bound, by = k2_bound(n, e, d)
-        r = res[f"seg_sum_{side}"] = {
-            "ms": median_ms(lambda: seg_sum(indptr, msg, split=gg.split), reps=20, warmup=2),
-            "plain_ms": median_ms(lambda: seg_sum_plain(indptr, msg), reps=5, warmup=1),
-            "library_ms": median_ms(lambda: torch.segment_reduce(msg, "sum", offsets=offsets),
-                                    reps=20, warmup=2),
-            "index_add_ms": median_ms(lambda: torch.zeros(n, d, device=dev).index_add_(0, rows, msg),
-                                      reps=20, warmup=2),
-            "library_max_abs_err_vs_kernel": (lib - got).abs().max().item(),
-            "bound_ms": bound, "bound_by": by,
-            "max_abs_err": acc[0], "max_abs_err_f64": acc[1], "max_bound_used": acc[2],
-            "max_row_nnz": int((indptr[1:] - indptr[:-1]).max()),
-            "split_T": gg.split.t, "long_rows": gg.split.num_long, "chunks": gg.split.num_chunks,
-            "t_sweep": t_sweep(lambda p: seg_sum(indptr, msg, split=p), indptr),
-        }
-        r["at_or_below_segment_reduce"] = r["ms"] <= r["library_ms"]
-        r["at_or_below_index_add"] = r["ms"] <= r["index_add_ms"]
-        del rows
-        if side == "fwd":  # the edge form's bf16 copy_e sum runs over the dst CSR
-            res["seg_sum_bf16"] = k2_bf16_times(indptr, msg, ints, gg.split)
+    msg = k2_reddit(g, gen, res)
     # seg_sum_dst's forward and backward on the card read nothing back: no host sync
     mk = msg.clone().requires_grad_()
     cot = torch.randn(n, d, device=dev, generator=gen)
@@ -1800,7 +1833,7 @@ def phase_gat_reddit():
                  lambda: seg_sum(g.indptr, msg))  # no plan: built from indptr, a sync
     if mk.grad is None:
         raise AssertionError("seg_sum_dst's backward gave no gradient under the sync check")
-    del msg, ints, mk
+    del msg, mk
     pubmed = _gat_graph("pubmed", dev)
     adjoint = {"reddit": adjoint_times(g, d, gen), "pubmed": adjoint_times(pubmed, 64, gen)}
     gatconv_bf16 = gatconv_bf16_step(pubmed, gen)
@@ -1883,9 +1916,11 @@ def check_row_gather(gen):
         return base[shift:].view(n, d), idx
 
     # (n, d, e, tiles) for P1 and P2; every e is ragged against every tile
+    # (1682, 75): GCMC's decoder rows, whose last one ends off 16 bytes of x's
+    # end in both types (its span cannot be one bulk copy)
     p1 = [(5000, 16, 100_003, (128, 256)), (3000, 41, 77_777, (128, 256)),
           (2000, 256, 10_001, (128, 256)), (300, 10_000, 1_001, (1, 256)),
-          (1000, 1, 5_003, (256, 1000))]
+          (1000, 1, 5_003, (256, 1000)), (1682, 75, 85_000, (128, 256))]
     p2 = [(2708, 16, 100_003, (512, 2048)), (500, 41, 77_777, (512, 100)),
           (227, 256, 10_001, (512, 2048))]  # 227 rows of 1 KB: exactly the limit
     for fn, shapes in ((row_gather_async, p1), (row_gather_smem, p2)):
@@ -2028,11 +2063,13 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
         lib64 = median_ms(lambda: x.index_select(0, idx64), reps=20, warmup=3)
         fill = median_ms(lambda: buf.fill_(1.0), reps=20, warmup=3)
         # an event pair around one call also spans the wrapper's host work,
-        # which a small gather (pubmed's) does not hide: the profiler's
-        # device time per call beside it
-        busy = {name: device_profile(fn, 20, dev)["device_busy_ms_per_epoch"] for name, fn in (
+        # which a small gather (pubmed's) does not hide: each call's host
+        # time and the profiler's device time beside it (host_and_device)
+        split = {name: host_and_device(fn) for name, fn in (
             ("p1", lambda: row_gather_async(x, idx)), ("by_source", by_source),
-            ("index_select", lambda: x.index_select(0, idx)), ("fill", lambda: buf.fill_(1.0)))}
+            ("index_select", lambda: x.index_select(0, idx)))}
+        busy = {name: hd["device_ms_a_call"] for name, hd in split.items()}
+        busy["fill"] = device_profile(lambda: buf.fill_(1.0), 20, dev)["device_busy_ms_per_epoch"]
         bound, by, bound_rows = gather_bound(idx, 4 * d)
         floors[key] = {
             "rows": idx.numel(), "n": n, "d": d, "p1_ms_tile128": p1[128], "p1_ms_tile256": p1[256],
@@ -2044,6 +2081,7 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
             "p1_device_ms": busy["p1"], "by_source_device_ms": busy["by_source"],
             "index_select_device_ms": busy["index_select"],
             "fill_device_ms": busy["fill"], "gather_floor_device_ms": busy["p1"] - busy["fill"],
+            "host_device": split,
             "bound_ms": bound, "bound_ms_e_rows": bound_rows,
             "kernel": kernel, "kernel_ms": src_ms if key == "gather_src_rows" else kernel_ms,
         }
@@ -2100,6 +2138,12 @@ def phase_row_gather(red, red_graph, gred, gat_graph):
                for k, f in (("ms", "by_source_ms"), ("plan_ms", "plan_ms"),
                             ("library_ms", "index_select_ms"), ("bound_ms", "bound_ms"),
                             ("index_order_ms", "p1_ms_tile256"))},
+            **{f"{k}_{stream}": floors[stream]["host_device"][order][f]
+               for stream in ("k1_fwd", "gather_src_rows", "tool_default")
+               for order, pre in (("by_source", ""), ("p1", "index_order_"),
+                                  ("index_select", "library_"))
+               for k, f in ((f"{pre}host_ms", "host_ms_a_call"),
+                            (f"{pre}device_ms", "device_ms_a_call"))},
             "shape": f"x (169343, 256) float32, e = {default['rows']} (the probe's default), "
                      "the plan built beforehand",
         },
@@ -2296,9 +2340,8 @@ def phase_gat_main():
     per_step, per_rescue = gat_edge_per_step()
     want_l["pubmed"] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0} | {
         k: n * s + per_rescue[k] * rescues["pubmed"] for k, n in per_step.items()}
-    # K2 runs over the dst CSR, which has no long row
-    want_c["pubmed"] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0,
-                        "seg_sum": want_l["pubmed"]["seg_sum"] * int(pub.split.num_long > 0)}
+    # K2 folds any long rows inside its launch: no combine launch
+    want_c["pubmed"] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0, "seg_sum": 0}
     gathers = graph_gather_checks(pub, torch.Generator(device="cuda").manual_seed(4))
     del graphs, pub
     if launches != want_l:
@@ -2709,14 +2752,15 @@ def gc_kernel_checks(gen):
         rows = csr_rows(indptr, m.shape[0])
         n_rows = indptr.numel() - 1
         bound, by = k2_bound(n_rows, m.shape[0], 256)
+        kern = lambda: seg_sum(indptr, m, split=split)  # noqa: E731
+        lib = lambda: torch.zeros(n_rows, 256, device=ip.device).index_add_(0, rows, m)  # noqa: E731
         times[name] = {
             "rows": n_rows, "edges": m.shape[0],
-            "ms": median_ms(lambda: seg_sum(indptr, m, split=split), reps=30, warmup=3),
+            "ms": median_ms(kern, reps=30, warmup=3),
             "plain_ms": median_ms(lambda: seg_sum_plain(indptr, m), reps=30, warmup=3),
-            "index_add_ms": median_ms(
-                lambda: torch.zeros(n_rows, 256, device=ip.device).index_add_(0, rows, m),
-                reps=30, warmup=3),
-            "bound_ms": bound, "bound_by": by}
+            "index_add_ms": median_ms(lib, reps=30, warmup=3),
+            "bound_ms": bound, "bound_by": by,
+            "host_device": host_and_device(kern), "index_add_host_device": host_and_device(lib)}
     enz = _gc_batch("ENZYMES", False).graph
     k1 = {"molhiv": {256: {"fwd": k1_width("molhiv batch fwd", g, 256, False, gen, plain=True,
                                            diagnose=True),
@@ -3135,19 +3179,16 @@ def gcmc_per_iter(enc, dec, train=True, num_basis=GCMC_BASES):
     gradient, one K1 over its reverse CSR backward; each decoder basis is one
     u_dot_v, two P1 gathers (gather_src_rows over the reverse CSR,
     gather_dst over the dst CSR) whose adjoints are one K1 over the reverse
-    CSR by eid and one K2 over the dst CSR. A K2 launch over a CSR with long
-    rows combines once; K1 folds its long rows inside its launch. An
+    CSR by eid and one K2 over the dst CSR. K1 and K2 fold their long rows
+    inside their launch, so no launch combines. An
     evaluation runs the forwards only. Returns (launches, combines)."""
     launches = {"csr_spmm": 0, "seg_sum": 0, "row_gather_by_source": 2 * num_basis}
-    combines = {"seg_sum": 0}
-    long = lambda gg: int(gg.split.num_long > 0)  # noqa: E731
     for _ in enc.relations.values():
         launches["csr_spmm"] += 1 + train
     if train:
         launches["csr_spmm"] += num_basis
         launches["seg_sum"] = num_basis
-        combines["seg_sum"] = num_basis * long(dec)
-    return launches, combines
+    return launches, {"seg_sum": 0}
 
 
 def k1_exact(name, gg, d, gen, by_eid=False):
@@ -3169,7 +3210,8 @@ def p1_stream(name, x, indptr, pos, split, idx, gen):
     from dgl_tpu_torch.kernels.row_gather import row_gather_by_source, row_gather_by_source_plain
 
     kern = lambda: row_gather_by_source(x, indptr, pos, split)  # noqa: E731
-    got, want = kern(), x.index_select(0, idx)
+    lib = lambda: x.index_select(0, idx)  # noqa: E731
+    got, want = kern(), lib()
     if not (torch.equal(got, want) and torch.equal(got, kern())
             and torch.equal(row_gather_by_source_plain(x, indptr, pos), want)):
         raise AssertionError(f"gcmc {name}: P1 in source order differs from x[idx]")
@@ -3178,8 +3220,9 @@ def p1_stream(name, x, indptr, pos, split, idx, gen):
             "ms": median_ms(kern, reps=30, warmup=3),
             "plain_ms": median_ms(lambda: row_gather_by_source_plain(x, indptr, pos), reps=10,
                                   warmup=2),
-            "library_ms": median_ms(lambda: x.index_select(0, idx), reps=30, warmup=3),
-            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0}
+            "library_ms": median_ms(lib, reps=30, warmup=3),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
+            "host_device": host_and_device(kern), "library_host_device": host_and_device(lib)}
 
 
 def gcmc_kernel_checks(data, gen):
@@ -3226,15 +3269,17 @@ def gcmc_kernel_checks(data, gen):
     check_k2("gcmc decoder", dec.indptr, msg, ints, acc, dec.split)
     rows, offsets = csr_rows(dec.indptr, e), dec.indptr.long()
     bound, by = k2_bound(n, e, w)
+    kern = lambda: seg_sum(dec.indptr, msg, split=dec.split)  # noqa: E731
+    index_add = lambda: torch.zeros(n, w, device=dev).index_add_(0, rows, msg)  # noqa: E731
     k2 = {"rows": n, "edges": e, "w": w, "long_rows": dec.split.num_long,
-          "ms": median_ms(lambda: seg_sum(dec.indptr, msg, split=dec.split), reps=30, warmup=3),
+          "ms": median_ms(kern, reps=30, warmup=3),
           "plain_ms": median_ms(lambda: seg_sum_plain(dec.indptr, msg), reps=10, warmup=2),
           "library_ms": median_ms(lambda: torch.segment_reduce(msg, "sum", offsets=offsets),
                                   reps=30, warmup=3),
-          "index_add_ms": median_ms(lambda: torch.zeros(n, w, device=dev).index_add_(0, rows, msg),
-                                    reps=30, warmup=3),
+          "index_add_ms": median_ms(index_add, reps=30, warmup=3),
           "bound_ms": bound, "bound_by": by, "max_abs_err": acc[0], "max_abs_err_f64": acc[1],
-          "max_bound_used": acc[2]}
+          "max_bound_used": acc[2],
+          "host_device": host_and_device(kern), "index_add_host_device": host_and_device(index_add)}
     return k1, p1, k2
 
 
@@ -3378,6 +3423,59 @@ def phase_gcmc_main():
     return {"launches": launches, "combines": combines, "k1": k1, "p1": p1, "k2": k2}
 
 
+def k2_p1_splits(out_path="k2p1_splits.json"):
+    """K2 and P1 at the shapes their main paths give them, each call's event
+    pair, host and device time beside the library call's, without the
+    drivers: gc_kernel_checks (molhiv's readout and copy_e), gcmc_kernel_checks
+    (the decoder's K2 and both gathers), k2_reddit (K2 f32 and bf16),
+    phase_row_gather (its streams and the probe), ns_step_gather and
+    cluster_batch_checks (after the products partition), one after another;
+    written to out_path after each. Run it after phase_device() and
+    phase_build(): about 4 minutes on the card."""
+    from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch.data import data_root, load_node_dataset
+    from dgl_tpu_torch.data.movielens import load_movielens
+    from dgl_tpu_torch.sampling import CSRGraph, DeviceNeighborSampler
+    from dgl_tpu_torch.sampling.cluster import ClusterIter
+
+    dev, out = torch.device("cuda"), {}
+
+    def dump():
+        with open(out_path, "w") as f:
+            json.dump(out, f, default=str)
+
+    out["gc_k2"], _ = gc_kernel_checks(torch.Generator(device=dev).manual_seed(8))
+    data = load_movielens("ml-100k", seed=GCMC_SEED, device=dev)
+    _, out["gcmc_p1"], out["gcmc_k2"] = gcmc_kernel_checks(
+        data, torch.Generator(device=dev).manual_seed(11))
+    dump()
+    gat_graph, res = _gat_graph("reddit", dev), {}
+    k2_reddit(gat_graph, torch.Generator(device=dev).manual_seed(2), res)
+    out["k2_reddit"] = res
+    rd = load_node_dataset("reddit")
+    red_graph = from_edges(rd.src, rd.dst, rd.num_nodes, device=dev)
+    kernel_ms = {"fwd": {"kernel_ms": None}, "bwd": {"kernel_ms": None}}  # K1's: not timed here
+    k3_ms = {"gat_attention_fwd": {"ms": None}, "gat_attention_bwd": {"ms": None}}
+    out["row_gather"], _ = phase_row_gather(kernel_ms, red_graph, k3_ms, gat_graph)
+    del red_graph, gat_graph
+    dump()
+    x = torch.from_numpy(np.asarray(rd.features, np.float32)).to(dev)
+    csr = CSRGraph.from_edges(rd.src, rd.dst, rd.num_nodes, device=dev)
+    out["ns_p1"] = ns_step_gather(rd, x, DeviceNeighborSampler(csr, NS_FANOUTS, device=dev))
+    del x, csr
+    torch.cuda.empty_cache()
+    dump()
+    out["partition"] = partition_checks()
+    pd = load_node_dataset("ogbn-products")
+    it = ClusterIter(PRODUCTS_KEY, pd.src, pd.dst, pd.num_nodes, pd.features, pd.labels,
+                     pd.train_mask, CLUSTER_PSIZE, 32, method="metis", cache_dir=data_root(),
+                     device=dev)
+    out["cluster_p1"] = cluster_batch_checks(it.first(), it.features,
+                                             torch.Generator(device=dev).manual_seed(12))["p1"]
+    dump()
+    return out
+
+
 # -- the SpMM / SDDMM kernel sweep (the suite's L0 tier) --------------------
 
 def gather_orders(g, gen):
@@ -3510,6 +3608,34 @@ def ns_step_no_host_sync(kind, csr, x, y):
         raise AssertionError(f"the {kind} step under the sync check gave a non-finite loss")
 
 
+def ns_step_gather(data, x, sampler):
+    """P1 in index order on one real step's indices (the device sampler's
+    first batch of a shuffled epoch): bit for bit against x[idx], two runs
+    equal, CUDA-event medians beside the plain version, index_select and the
+    bound of its distinct rows, and each call's host and device time."""
+    from dgl_tpu_torch.kernels.row_gather import row_gather_async, row_gather_plain
+
+    dev = x.device
+    perm = np.random.default_rng(0).permutation(np.flatnonzero(data.train_mask))
+    idx = next(sampler.batches(perm, NS_BATCH, torch.Generator(device=dev).manual_seed(5))).input_nodes
+    got = row_gather_async(x, idx)
+    if not (torch.equal(got, x[idx.long()]) and torch.equal(got, row_gather_async(x, idx))):
+        raise AssertionError("P1 on a step's input_nodes differs from x[idx] or between runs")
+    bound, by, bound_rows = gather_bound(idx, 4 * x.shape[1])
+    kern = lambda: row_gather_async(x, idx)  # noqa: E731
+    lib = lambda: x.index_select(0, idx)  # noqa: E731
+    p1 = {"rows": idx.numel(), "distinct_rows": torch.unique(idx).numel(), "d": x.shape[1],
+          "max_abs_err": (got - x[idx.long()]).abs().max().item(),
+          "ms": median_ms(kern, reps=30, warmup=3),
+          "ms_tile128": median_ms(lambda: row_gather_async(x, idx, tile=128), reps=30, warmup=3),
+          "plain_ms": median_ms(lambda: row_gather_plain(x, idx), reps=30, warmup=3),
+          "library_ms": median_ms(lib, reps=30, warmup=3),
+          "bound_ms": bound, "bound_by": by, "bound_ms_e_rows": bound_rows,
+          "host_device": host_and_device(kern), "library_host_device": host_and_device(lib)}
+    del got
+    return p1
+
+
 def phase_ns_main():
     """ns_sage and ns_gat on the full reddit graph (NS_RUNS), each run with
     every launch and combine counter set to 0 just before it and read just
@@ -3529,8 +3655,7 @@ def phase_ns_main():
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
     from dgl_tpu_torch.kernels.gat_attention import (
         gat_attention_bwd, gat_attention_fwd, gat_attention_fwd_plain)
-    from dgl_tpu_torch.kernels.row_gather import (
-        row_gather_async, row_gather_by_source, row_gather_plain)
+    from dgl_tpu_torch.kernels.row_gather import row_gather_async, row_gather_by_source
     from dgl_tpu_torch.kernels.seg_sum import seg_sum
     from dgl_tpu_torch.sampling import CSRGraph, DeviceNeighborSampler
 
@@ -3592,21 +3717,7 @@ def phase_ns_main():
     for kind in ("sage", "gat"):
         ns_step_no_host_sync(kind, csr, x, y)
 
-    # P1 on one real step's indices: the device sampler's first batch of a shuffled epoch
-    perm = np.random.default_rng(0).permutation(np.flatnonzero(data.train_mask))
-    idx = next(sampler.batches(perm, NS_BATCH, torch.Generator(device=dev).manual_seed(5))).input_nodes
-    got = row_gather_async(x, idx)
-    if not (torch.equal(got, x[idx.long()]) and torch.equal(got, row_gather_async(x, idx))):
-        raise AssertionError("P1 on a step's input_nodes differs from x[idx] or between runs")
-    bound, by, bound_rows = gather_bound(idx, 4 * x.shape[1])
-    p1 = {"rows": idx.numel(), "distinct_rows": torch.unique(idx).numel(), "d": x.shape[1],
-          "max_abs_err": (got - x[idx.long()]).abs().max().item(),
-          "ms": median_ms(lambda: row_gather_async(x, idx), reps=30, warmup=3),
-          "ms_tile128": median_ms(lambda: row_gather_async(x, idx, tile=128), reps=30, warmup=3),
-          "plain_ms": median_ms(lambda: row_gather_plain(x, idx), reps=30, warmup=3),
-          "library_ms": median_ms(lambda: x.index_select(0, idx), reps=30, warmup=3),
-          "bound_ms": bound, "bound_by": by, "bound_ms_e_rows": bound_rows}
-    del got
+    p1 = ns_step_gather(data, x, sampler)
 
     # K3 forward at both of the evaluation's layers on reddit as given:
     # H = 8, D = 16, then H = 1, D = 41
@@ -3881,11 +3992,14 @@ def cluster_batch_checks(batch, x_full, gen):
     if not (torch.equal(got, x_full[idx]) and torch.equal(got, batch.x)):
         raise AssertionError("P1 on a cluster batch's nodes differs from x[idx]")
     bound, by, _ = gather_bound(idx, 4 * x_full.shape[1])
+    kern = lambda: row_gather_async(x_full, idx)  # noqa: E731
+    lib = lambda: x_full.index_select(0, idx)  # noqa: E731
     out["p1"] = {"rows": idx.numel(), "d": x_full.shape[1], "max_abs_err": 0.0,
-                 "ms": median_ms(lambda: row_gather_async(x_full, idx), reps=30, warmup=3),
+                 "ms": median_ms(kern, reps=30, warmup=3),
                  "plain_ms": median_ms(lambda: row_gather_plain(x_full, idx), reps=30, warmup=3),
-                 "library_ms": median_ms(lambda: x_full.index_select(0, idx), reps=30, warmup=3),
-                 "bound_ms": bound, "bound_by": by}
+                 "library_ms": median_ms(lib, reps=30, warmup=3),
+                 "bound_ms": bound, "bound_by": by,
+                 "host_device": host_and_device(kern), "library_host_device": host_and_device(lib)}
     return out
 
 
@@ -4898,6 +5012,17 @@ def phase_suite(device="cuda"):
     return rows, full
 
 
+def _host_device_fields(suffix, r, lib_key="library_host_device"):
+    """A timed shape's host and device ms a call (host_and_device), the
+    kernel's and its library call's, as kernels-line fields."""
+    out = {f"host_ms_{suffix}": r["host_device"]["host_ms_a_call"],
+           f"device_ms_{suffix}": r["host_device"]["device_ms_a_call"]}
+    if r.get(lib_key):
+        out |= {f"library_host_ms_{suffix}": r[lib_key]["host_ms_a_call"],
+                f"library_device_ms_{suffix}": r[lib_key]["device_ms_a_call"]}
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, r, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -4956,7 +5081,8 @@ def main():
     rows["row_gather_async"].update(
         **{f"launches_ns_{k}": nlaunch[k]["row_gather_async"] for k in nlaunch},
         **{f"{f}_ns_step": ns_p1[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                "max_abs_err", "rows", "distinct_rows")})
+                                                "max_abs_err", "rows", "distinct_rows")},
+        **_host_device_fields("ns_step", ns_p1), **_host_device_fields("cluster_batch", cl_batch["p1"]))
     # GCMC: K1 at D = 100 on the training relation with the most ratings,
     # each way, and the decoder's gather_src_rows adjoint at D = 75; P1 in
     # source order on the decoder's two gathers; K2 at W = 75
@@ -4971,7 +5097,9 @@ def main():
     rows["row_gather_by_source"].update(
         launches_gcmc=gcmc["launches"]["row_gather_by_source"],
         **{f"{k}_gcmc_{side}": gcmc["p1"][side][k] for side in ("src", "dst")
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")})
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
+        **_host_device_fields("gcmc_src", gcmc["p1"]["src"]),
+        **_host_device_fields("gcmc_dst", gcmc["p1"]["dst"]))
     rows["row_gather_by_source"].update(
         launches_pubmed_gat=glaunch["pubmed"]["row_gather_by_source"],
         **{f"launches_gcn_{k}": v["row_gather_by_source"] for k, v in claunch.items()})
@@ -5149,6 +5277,11 @@ def main():
             "max_abs_err_f64_copy_e": readout["copy_e_max_abs_err_f64"],
             **{f"{k}_{shape}": t[k] for shape, t in readout["k2_times"].items()
                for k in ("ms", "plain_ms", "index_add_ms", "bound_ms")},
+            # each call's host and device time, the kernel's and the library call's
+            **{k: v for shape, t in readout["k2_times"].items()
+               for k, v in _host_device_fields(shape, t, "index_add_host_device").items()},
+            **_host_device_fields("gcmc_d75", gcmc["k2"], "index_add_host_device"),
+            **_host_device_fields("fwd", k2f), **_host_device_fields("rev", k2r),
         },
         # P1 in both orders at the probe's default shape, launches from the
         # probe's default run (in source order also its launches on the
@@ -5184,7 +5317,8 @@ def main():
             "dgl_tpu/kernels/piece_reduce.py:54", gatconv_bf16["edge"]["launches_bf16"]["seg_sum"],
             gred["seg_sum_bf16"], library_note=gred["seg_sum_bf16"]["library_note"],
             ms_f32_in_turns=gred["seg_sum_bf16"]["ms_f32_in_turns"],
-            gatconv_edge_out_rel_err=gatconv_bf16["edge"]["out_rel_err"]),
+            gatconv_edge_out_rel_err=gatconv_bf16["edge"]["out_rel_err"],
+            **_host_device_fields("fwd", gred["seg_sum_bf16"])),
         # K3's bfloat16 passes (v in bfloat16; b2's grad_v in bfloat16):
         # launches from the bf16 fused GATConv step on pubmed; times on
         # reddit with self-loops (H = 1, D = 16) and at arxiv's shapes

@@ -7,8 +7,8 @@ of more than 512 edges. So every row of more than ``T`` edges is cut into
 chunks of at most ``T`` edges, in ascending edge order; a kernel runs each
 chunk as one warp's work, into a partials buffer, and each long row's
 partials are added in ascending chunk order (no atomic decides an order of
-additions: two runs are bitwise equal): by a combine launch in K2 and K3,
-inside the launch in K1, whose last chunk warp of a row folds it, counted
+additions: two runs are bitwise equal): by a combine launch in K3, inside
+the launch in K1 and K2, whose last chunk warp of a row folds it, counted
 on the plan's ``counters``. Rows of at most ``T`` edges run on the per-row
 code as before.
 
@@ -21,6 +21,7 @@ rows and their chunks.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -41,9 +42,10 @@ class RowSplit:
     ``chunk_ptr`` (L + 1,) int64: long row ``i`` owns chunks
     ``chunk_ptr[i]:chunk_ptr[i + 1]``; ``chunks`` (C, 2) int64: each chunk's
     ``[begin, end)`` edge offsets, at most ``t`` edges, ascending;
-    ``counters`` (L,) int32 zeros: K1 counts each long row's chunk warps
-    there as they arrive, and the last sets its counter back to 0, so two K1
-    launches over one CSR must not run at once on two streams.
+    ``counters`` (L,) int32 zeros: K1 and K2, which fold the long rows in
+    their launch, count each long row's chunk warps there as they arrive,
+    and the last sets its counter back to 0, so two launches of either
+    kernel over one CSR must not run at once on two streams.
     ``num_rows`` and ``num_edges`` are the CSR's, to check a plan against the
     ``indptr`` it is used with.
     """
@@ -75,12 +77,23 @@ class RowSplit:
         rows, chunk_ptr, n_long, chunks, n_chunks, partials``), with the (C, D)
         float32 ``partials`` buffer the chunks are summed into; ``None`` (a
         null pointer, which no kernel reads) for a plan with no chunks.
-        ``counters``: K1's, which folds the long rows in its launch, take the
-        arrival counters after ``partials``."""
+        ``counters``: K1's and K2's, which fold the long rows in their
+        launch, take the arrival counters after ``partials``."""
         args = (self.t, self.rows.data_ptr(), self.chunk_ptr.data_ptr(), self.num_long,
                 self.chunks.data_ptr(), self.num_chunks,
                 None if partials is None else partials.data_ptr())
         return args + (self.counters.data_ptr(),) if counters else args
+
+    @functools.cached_property
+    def _device(self) -> Optional[torch.device]:
+        """The device every tensor of the plan lies on; None if they differ
+        (the tensors of a frozen plan do not change, so it is read once)."""
+        devs = {t.device for t in (self.rows, self.chunk_ptr, self.chunks, self.counters)}
+        return devs.pop() if len(devs) == 1 else None
+
+    @functools.cached_property
+    def _counters_ok(self) -> bool:
+        return self.counters.dtype == torch.int32 and self.counters.shape == self.rows.shape
 
     def check(self, indptr: torch.Tensor, num_edges: int, what: str) -> None:
         """Raise ``ValueError`` unless the plan has this CSR's row and edge
@@ -88,18 +101,17 @@ class RowSplit:
 
         The rows themselves are not compared, as that would read ``indptr``
         back: a plan of another CSR with the same counts passes, and the
-        kernels then write the rows it lists from its chunks; K2 and K3 leave
-        every long row it does not list unwritten, K1 sums such a row in its
-        run warps."""
-        if (self.num_rows, self.num_edges) != (indptr.numel() - 1, num_edges):
+        kernels then write the rows it lists from its chunks; K3 leaves every
+        long row it does not list unwritten, K1 and K2 sum such a row in
+        their run warps."""
+        if self.num_rows != indptr.numel() - 1 or self.num_edges != num_edges:
             raise ValueError(
                 f"{what}: the row split is for {self.num_rows} rows and {self.num_edges} edges, "
                 f"the CSR has {indptr.numel() - 1} rows and {num_edges} edges"
             )
-        if any(t.device != indptr.device
-               for t in (self.rows, self.chunk_ptr, self.chunks, self.counters)):
+        if self._device != indptr.device:
             raise ValueError(f"{what}: the row split lies on another device than indptr")
-        if self.counters.dtype != torch.int32 or self.counters.shape != self.rows.shape:
+        if not self._counters_ok:
             raise ValueError(f"{what}: the row split's counters are not one int32 a long row")
 
 

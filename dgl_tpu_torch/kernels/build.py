@@ -17,9 +17,12 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence
 
-__all__ = ["SOURCES", "DEFINES", "HEADERS", "BUILD_DIR", "build", "load", "nvcc_path"]
+import torch
+
+__all__ = ["SOURCES", "DEFINES", "HEADERS", "BUILD_DIR", "build", "load", "nvcc_path", "entry",
+           "launch"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -32,9 +35,11 @@ SOURCES: Dict[str, str] = {
 SOURCES["csr_spmm_bf16"] = SOURCES["csr_spmm"]
 DEFINES: Dict[str, List[str]] = {"csr_spmm_bf16": ["-DK1_ROWS_BF16"]}
 # headers the sources include (``#include "lanes.cuh"`` resolves beside the
-# source): the device helpers every source includes and K1's geometry; a
-# changed header rebuilds every library
-HEADERS = [os.path.join(_HERE, "csrc", name) for name in ("lanes.cuh", "k1_geometry.h")]
+# source): the device helpers every source includes, the asynchronous
+# copies of K1, K2 and P1, and their geometry; a changed header rebuilds
+# every library
+HEADERS = [os.path.join(_HERE, "csrc", name)
+           for name in ("lanes.cuh", "async_copy.cuh", "k1_geometry.h", "k2_p1_geometry.h")]
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -96,3 +101,27 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 def load(name: str) -> ctypes.CDLL:
     """The kernel's library, built if needed (one handle per process)."""
     return ctypes.CDLL(build([name])[name]["path"])
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry point ``fn_name`` of kernel library ``name``, its
+    ``argtypes`` (a tuple) set once and ``restype`` int (a CUDA error)."""
+    fn = getattr(load(name), fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn: ctypes._CFuncPtr, device: torch.device, *args) -> None:
+    """``fn(*args, stream)`` on ``device``'s current stream; raises if the
+    launch is refused. The card is made current only where it is not: the
+    host work of a launch is all that a small call costs."""
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed with CUDA error {err}")

@@ -77,6 +77,7 @@
 //     on two streams (the package runs on one stream);
 //   * blocks of 4 warps, so that the rings of 16 to 20 warps share an SM.
 
+#include "async_copy.cuh"
 #include "k1_geometry.h"
 #include "lanes.cuh"
 
@@ -84,15 +85,13 @@
 
 namespace {
 
+using namespace async_copy;
 using namespace warp_csr;
 
 using k1::kAccFloats;
 using k1::kBlocks;
 using k1::kStages;
 using k1::kWarps;
-constexpr int kFoldUnroll = 8;  // chunks in flight a lane group in the fold
-constexpr int64_t kNone = INT64_MAX;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const void* indptr;  // int32 or int64 (ip64)
@@ -115,167 +114,6 @@ __device__ __forceinline__ int64_t indptr_at(const Params& p, int64_t i) {
   return p.ip64 ? static_cast<const int64_t*>(p.indptr)[i]
                 : static_cast<int64_t>(static_cast<const int32_t*>(p.indptr)[i]);
 }
-
-__device__ __forceinline__ void cp_async16(void* dst, uint64_t src) {
-  const auto s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const auto s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the phase of the given parity to complete.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// TMA's 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned), global → shared, completing on `bar` with its byte count.
-__device__ __forceinline__ void bulk_copy(void* dst, uint64_t src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// V values of a staged float row at p (shared memory), as floats.
-template <int V>
-__device__ __forceinline__ void lds_vec(const float* p, float (&v)[V]) {
-  static_assert(V == 1 || V == 2 || V == 4, "1, 2 or 4 floats");
-  if constexpr (V == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (V == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-// V values of a staged bfloat16 row at p (shared memory), converted exactly.
-template <int V>
-__device__ __forceinline__ void lds_vec(const __nv_bfloat16* p, float (&v)[V]) {
-  static_assert(V == 1 || V == 2 || V == 4, "1, 2 or 4 bfloat16 values");
-  if constexpr (V == 1) {
-    v[0] = __bfloat162float(*p);
-  } else {
-    using W = typename Bf16Word<V>::type;
-    const W raw = *reinterpret_cast<const W*>(p);
-    const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < V / 2; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
-  }
-}
-
-// V floats of a partials row through L2 (written by other warps of this launch).
-template <int V>
-__device__ __forceinline__ void ldcg_vec(const float* p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (V == 2) {
-    const float2 t = __ldcg(reinterpret_cast<const float2*>(p));
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = __ldcg(p);
-  }
-}
-
-// The least i in [lo, hi] with key(i) >= target, for a non-decreasing key
-// with key(hi) >= target: each round the 32 lanes read 32 keys spread over
-// the range, which shrinks it 31-fold. The same for every lane.
-template <typename Key>
-__device__ __forceinline__ int64_t warp_search(int64_t lo, int64_t hi, int64_t target, Key key) {
-  const int lane = threadIdx.x % kWarp;
-  while (true) {
-    const int64_t step = (hi - lo + 30) / 31;
-    const int64_t p = min(lo + lane * step, hi);
-    const int first = __ffs(__ballot_sync(kFull, key(p) >= target)) - 1;  // lane 31 reads hi
-    if (first == 0) return lo;
-    const int64_t a = lo + (first - 1) * step + 1, b = min(lo + first * step, hi);
-    if (a == b) return a;
-    lo = a;
-    hi = b;
-  }
-}
-
-// indptr[base .. base + 31] across the lanes, for rows visited one by one in
-// ascending order; the next 31 rows' offsets are loaded a batch ahead.
-struct RowOffsets {
-  int64_t base, cur, next;
-
-  __device__ __forceinline__ int64_t load(const Params& p, int64_t b) const {
-    const int64_t i = b + threadIdx.x % kWarp;
-    return indptr_at(p, i < p.n_rows ? i : p.n_rows);
-  }
-
-  __device__ __forceinline__ void init(const Params& p, int64_t r0) {
-    base = r0;
-    cur = load(p, r0);
-    next = load(p, r0 + 31);
-  }
-
-  // first and end edge of row r (called for every row, r = base.. ascending)
-  __device__ __forceinline__ void row(const Params& p, int64_t r, int64_t& s, int64_t& e) {
-    if (r - base == 31) {
-      base += 31;
-      cur = next;
-      next = load(p, base + 31);
-    }
-    const int k = static_cast<int>(r - base);
-    s = __shfl_sync(kFull, cur, k);
-    e = __shfl_sync(kFull, cur, k + 1);
-  }
-};
 
 // A warp's shared memory (k1_geometry.h sizes it): its ring
 // of kStages stages of `slots` staged rows of slot_bytes each; one mbarrier
@@ -516,8 +354,9 @@ __device__ __forceinline__ void walk(const Params& p, const Ring& ring, int64_t 
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[t][v] = 0.f;
 
+  const auto indptr = [&p](int64_t i) { return indptr_at(p, i); };
   RowOffsets offs;
-  if (!chunks) offs.init(p, r0);
+  if (!chunks) offs.init(indptr, p.n_rows, r0);
   int64_t kc = k0;
   int64_t next_long = !chunks && kc < p.n_long ? p.rows[kc] : kNone;
   uint32_t stage = first;  // the stage being summed, once `started`
@@ -532,7 +371,7 @@ __device__ __forceinline__ void walk(const Params& p, const Ring& ring, int64_t 
       orow = p.partials + r * p.d + col0;
     } else {
       int64_t s0, e0;
-      offs.row(p, r, s0, e0);
+      offs.row(indptr, p.n_rows, r, s0, e0);
       if (r == next_long) {  // its chunks and the fold write it
         ++kc;
         next_long = kc < p.n_long ? p.rows[kc] : kNone;
@@ -618,57 +457,6 @@ __device__ __forceinline__ void walk(const Params& p, const Ring& ring, int64_t 
   ticket = issued;
 }
 
-// The last chunk warp of long row i: out[rows[i]] = scale · Σ_k partials[k]
-// over the row's chunks in ascending k, read through L2. The lane groups
-// load kFoldUnroll·groups chunks at once; every lane adds them in ascending
-// k through shuffles, so the order does not depend on the lane layout.
-template <int V>
-__device__ __forceinline__ void fold_row(const Params& p, int64_t i) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t k0 = p.chunk_ptr[i], k1 = p.chunk_ptr[i + 1];
-  float scale = 1.f;
-  if (p.mean) {  // the whole row's degree: its first chunk's begin to its last chunk's end
-    const int64_t deg = p.chunks[2 * (k1 - 1) + 1] - p.chunks[2 * k0];
-    scale = 1.f / static_cast<float>(deg > 1 ? deg : 1);
-  }
-  const int nvec = p.d / V;
-  int lanes = 1;
-  while (lanes < nvec && lanes < kWarp) lanes <<= 1;
-  const int groups = kWarp / lanes, g = lane / lanes, col = lane % lanes;
-  const int64_t step = static_cast<int64_t>(groups) * kFoldUnroll;
-  float* orow = p.out + p.rows[i] * p.d;
-  for (int c0 = 0; c0 < nvec; c0 += lanes) {
-    const int c = c0 + col;
-    float acc[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) acc[k] = 0.f;
-    for (int64_t kb = k0; kb < k1; kb += step) {
-      float v[kFoldUnroll][V];
-#pragma unroll
-      for (int u = 0; u < kFoldUnroll; ++u) {
-        const int64_t k = kb + static_cast<int64_t>(u) * groups + g;
-        if (k < k1 && c < nvec) {
-          ldcg_vec<V>(p.partials + k * p.d + static_cast<int64_t>(c) * V, v[u]);
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < V; ++kk) v[u][kk] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kFoldUnroll; ++u)
-        for (int gg = 0; gg < groups; ++gg)
-#pragma unroll
-          for (int kk = 0; kk < V; ++kk) acc[kk] += __shfl_sync(kFull, v[u][kk], gg * lanes + col);
-    }
-    if (g == 0 && c < nvec) {
-      float r[V];
-#pragma unroll
-      for (int k = 0; k < V; ++k) r[k] = acc[k] * scale;
-      store_vec<V>(orow + static_cast<int64_t>(c) * V, r);
-    }
-  }
-}
-
 // The first n_chunk_blocks blocks: one chunk a warp, then the fold; the
 // others: one run of rows a warp.
 template <int V, int kVecs, typename XT, bool kBulk>
@@ -681,7 +469,7 @@ csr_spmm_kernel(const __grid_constant__ Params p) {
   if constexpr (kBulk) {  // one arrival a lane a stage
     if (lane == 0)
       for (int b = 0; b < kStages; ++b) mbar_init(ring.bars + b, kWarp);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
     __syncwarp();
   }
   uint32_t ticket = 0;
@@ -695,25 +483,9 @@ csr_spmm_kernel(const __grid_constant__ Params p) {
     const int64_t k1 = min(k0 + p.chunk_group, p.n_chunks);
     for (int piece = 0; piece < pieces; ++piece)
       walk<V, kVecs, XT, kBulk>(p, ring, k0, k1, 0, true, piece, ticket);
-    // count the group's chunks on their rows' counters; the warp that brings
-    // a row's count to its chunks folds the row
-    __threadfence();
-    __syncwarp();
-    for (int64_t k = k0, i = chunk_owner(p.chunk_ptr, p.n_long, k0); k < k1; ++i) {
-      const int64_t mine = min(p.chunk_ptr[i + 1], k1) - k;
-      int last = 0;
-      if (lane == 0) {
-        const int n = static_cast<int>(p.chunk_ptr[i + 1] - p.chunk_ptr[i]);
-        __threadfence();
-        last = atomicAdd(p.counters + i, static_cast<int>(mine)) == n - mine;
-      }
-      if (__shfl_sync(kFull, last, 0)) {
-        __threadfence();
-        fold_row<V>(p, i);
-        if (lane == 0) p.counters[i] = 0;  // ready for the next launch
-      }
-      k += mine;
-    }
+    count_chunks<V>(Fold{p.partials, p.rows, p.chunk_ptr, p.chunks, p.counters, p.out, p.n_long,
+                         p.d, p.mean},
+                    k0, k1);
     return;
   }
   if (item >= p.n_runs) return;  // uniform across the warp

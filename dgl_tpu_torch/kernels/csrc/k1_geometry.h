@@ -44,6 +44,21 @@ struct Geometry {
 
 inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+// Runs of consecutive rows over a CSR of n_rows rows and n_edges edges (K1's
+// and K2's run warps): row r starts at unit r + indptr[r], and run warp i
+// takes the rows that start in [i, i + 1)·run_units (found on the card by a
+// search of indptr), so every warp walks about run_units rows plus edges and
+// every row belongs to exactly one run.
+// `least`: the fewest units a run takes (K1's kRunUnitsMin; K2 streams its
+// runs through shared memory and takes fewer, so small CSRs spread wider).
+inline void runs(int64_t n_rows, int64_t n_edges, int64_t least, int64_t& run_units,
+                 int64_t& n_runs) {
+  const int64_t units = n_rows + n_edges;
+  const int64_t u = ceil_div(units, kRunWarps);
+  run_units = u < least ? least : u > kRunUnitsMax ? kRunUnitsMax : u;
+  n_runs = ceil_div(units, run_units);
+}
+
 // The geometry of rows of d values of elem_bytes bytes at address x, over a
 // CSR of n_rows rows and n_edges edges whose row split has n_chunks chunks.
 // False for what the kernel does not take.
@@ -52,9 +67,7 @@ inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 // 16), so a row's offset in its 16-byte span is at most 16 - align and a
 // lane may read align bytes at once. Rows of more than 32·kAccFloats values
 // run in pieces of a multiple of 16 bytes, so each piece starts as its row
-// does. A row starts at unit r + indptr[r], and run warp i takes the rows
-// that start in [i, i + 1)·run_units (found on the card by a search of
-// indptr), so every warp walks about run_units rows plus edges. A chunk
+// does. The run warps as runs() sizes them. A chunk
 // warp walks two consecutive chunks where the plan has chunks enough to
 // fill the card, one where few chunk warps would each walk alone (the launch
 // lasts as long as its longest walk).
@@ -81,12 +94,7 @@ inline bool geometry(int d, int elem_bytes, uint64_t x, int64_t n_rows, int64_t 
                                                    kStages * 8 + kBlocks * 16 + kStages * 4 +
                                                    kBlocks * 32 * 8,
                                                16));
-  const int64_t units = n_rows + n_edges;
-  const int64_t run_units = ceil_div(units, kRunWarps);
-  g.run_units = run_units < kRunUnitsMin   ? kRunUnitsMin
-                : run_units > kRunUnitsMax ? kRunUnitsMax
-                                           : run_units;
-  g.n_runs = ceil_div(units, g.run_units);
+  runs(n_rows, n_edges, kRunUnitsMin, g.run_units, g.n_runs);
   g.chunk_group = n_chunks >= kChunkPairsMin ? 2 : 1;
   // the sums fit a lane's accumulators, the cp.async route (spans under
   // kBulkMinBytes) has instantiations for 1 or 2 vectors a lane, the block

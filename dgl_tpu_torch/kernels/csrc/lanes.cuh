@@ -1,5 +1,8 @@
 // Device helpers shared by the port's CUDA kernels (csr_spmm.cu, seg_sum.cu,
-// gat_attention.cu), which all walk a CSR with one warp per row.
+// gat_attention.cu, row_gather.cu), which walk a CSR with warps: K3 one
+// warp a row reading device memory, K1 and K2 runs of rows staged in
+// shared memory (the staged reads, the run search and the in-launch fold of
+// long rows below).
 //
 // The warp is cut into groups = 32 / L lane groups of L lanes. A group takes
 // one edge at a time and its lanes stride that edge's row of D values with
@@ -30,6 +33,8 @@ namespace warp_csr {
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kUnroll = 4;  // edges in flight per lane group
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int64_t kNone = INT64_MAX;
 
 // The CSR row of this warp; a whole warp leaves together when it is past the
 // last row.
@@ -114,6 +119,107 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* __restrict__ p, const f
   }
 }
 
+// V values of a staged float row at p (shared memory), as floats.
+template <int V>
+__device__ __forceinline__ void lds_vec(const float* p, float (&v)[V]) {
+  static_assert(V == 1 || V == 2 || V == 4, "1, 2 or 4 floats");
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// V values of a staged bfloat16 row at p (shared memory), converted exactly:
+// one read of 2·V bytes (V = 8: 16 bytes).
+template <int V>
+__device__ __forceinline__ void lds_vec(const __nv_bfloat16* p, float (&v)[V]) {
+  static_assert(V == 1 || V == 2 || V == 4 || V == 8, "1, 2, 4 or 8 bfloat16 values");
+  if constexpr (V == 1) {
+    v[0] = __bfloat162float(*p);
+  } else {
+    using W = typename Bf16Word<V>::type;
+    const W raw = *reinterpret_cast<const W*>(p);
+    const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < V / 2; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+}
+
+// V floats of a partials row through L2 (written by other warps of this launch).
+template <int V>
+__device__ __forceinline__ void ldcg_vec(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldcg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = __ldcg(p);
+  }
+}
+
+// The least i in [lo, hi] with key(i) >= target, for a non-decreasing key
+// with key(hi) >= target: each round the 32 lanes read 32 keys spread over
+// the range, which shrinks it 31-fold. The same for every lane.
+template <typename Key>
+__device__ __forceinline__ int64_t warp_search(int64_t lo, int64_t hi, int64_t target, Key key) {
+  const int lane = threadIdx.x % kWarp;
+  while (true) {
+    const int64_t step = (hi - lo + 30) / 31;
+    const int64_t p = min(lo + lane * step, hi);
+    const int first = __ffs(__ballot_sync(kFull, key(p) >= target)) - 1;  // lane 31 reads hi
+    if (first == 0) return lo;
+    const int64_t a = lo + (first - 1) * step + 1, b = min(lo + first * step, hi);
+    if (a == b) return a;
+    lo = a;
+    hi = b;
+  }
+}
+
+// indptr[base .. base + 31] across the lanes, for rows visited one by one in
+// ascending order; the next 31 rows' offsets are loaded a batch ahead.
+// `indptr(i)` reads offset i of a CSR of n_rows rows.
+struct RowOffsets {
+  int64_t base, cur, next;
+
+  template <typename Ip>
+  __device__ __forceinline__ int64_t load(Ip indptr, int64_t n_rows, int64_t b) const {
+    const int64_t i = b + threadIdx.x % kWarp;
+    return indptr(i < n_rows ? i : n_rows);
+  }
+
+  template <typename Ip>
+  __device__ __forceinline__ void init(Ip indptr, int64_t n_rows, int64_t r0) {
+    base = r0;
+    cur = load(indptr, n_rows, r0);
+    next = load(indptr, n_rows, r0 + 31);
+  }
+
+  // first and end edge of row r (called for every row, r = base.. ascending)
+  template <typename Ip>
+  __device__ __forceinline__ void row(Ip indptr, int64_t n_rows, int64_t r, int64_t& s,
+                                      int64_t& e) {
+    if (r - base == 31) {
+      base += 31;
+      cur = next;
+      next = load(indptr, n_rows, base + 31);
+    }
+    const int k = static_cast<int>(r - base);
+    s = __shfl_sync(kFull, cur, k);
+    e = __shfl_sync(kFull, cur, k + 1);
+  }
+};
+
 // Sum over the lane groups (the butterfly), the same order every run.
 __device__ __forceinline__ float group_sum(float x, int lanes) {
   for (int off = lanes; off < kWarp; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -178,9 +284,10 @@ inline dim3 block_dim() { return dim3(kWarp * kWarpsPerBlock); }
 // into row k of a partials buffer (C, D), float32, with the lane layout
 // above; its other blocks take the rows, and a warp whose row has more than T
 // edges leaves at once. The chunk blocks come first, so the longest work
-// starts first. combine_chunks_kernel then adds each long row's partials in
-// ascending chunk order, scales the sum and writes the row once. No atomics
-// decide an order: two runs are bitwise equal.
+// starts first. K3's b2 pass then launches combine_chunks_kernel, which adds
+// each long row's partials in ascending chunk order, scales the sum and
+// writes the row once; K1 and K2 fold the rows inside their launch
+// (count_chunks). No atomics decide an order: two runs are bitwise equal.
 
 inline int64_t chunk_blocks(int64_t n_chunks) {
   return (n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
@@ -210,6 +317,106 @@ __device__ __forceinline__ int64_t chunk_owner(const int64_t* __restrict__ chunk
     }
   }
   return lo;
+}
+
+// ---- Long rows folded inside the launch (K1, K2) ---------------------------
+//
+// A chunk warp sums its chunks into their partials rows, fences, and counts
+// them on their rows' arrival counters (count_chunks); the warp that brings
+// a row's count to its number of chunks adds the row's partials in ascending
+// chunk order (read through L2), applies mean's 1 / deg of the whole row,
+// writes the row once and sets the counter back to 0. The order of the
+// additions does not depend on which warp arrives last and no atomic decides
+// one, so two runs are bitwise equal. The counters belong to the plan, so
+// two launches over one CSR must not run at once on two streams.
+
+constexpr int kFoldUnroll = 8;  // chunks in flight a lane group in the fold
+
+struct Fold {
+  const float* partials;  // (n_chunks, d)
+  const int64_t* rows;
+  const int64_t* chunk_ptr;
+  const int64_t* chunks;
+  int32_t* counters;  // one a long row, 0 between launches
+  float* out;
+  int64_t n_long;
+  int d, mean;
+};
+
+// out[rows[i]] = scale · Σ_k partials[k] over long row i's chunks in
+// ascending k, read through L2. The lane groups load kFoldUnroll·groups
+// chunks at once; every lane adds them in ascending k through shuffles, so
+// the order does not depend on the lane layout.
+template <int V>
+__device__ __forceinline__ void fold_row(const Fold& f, int64_t i) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t k0 = f.chunk_ptr[i], k1 = f.chunk_ptr[i + 1];
+  float scale = 1.f;
+  if (f.mean) {  // the whole row's degree: its first chunk's begin to its last chunk's end
+    const int64_t deg = f.chunks[2 * (k1 - 1) + 1] - f.chunks[2 * k0];
+    scale = 1.f / static_cast<float>(deg > 1 ? deg : 1);
+  }
+  const int nvec = f.d / V;
+  int lanes = 1;
+  while (lanes < nvec && lanes < kWarp) lanes <<= 1;
+  const int groups = kWarp / lanes, g = lane / lanes, col = lane % lanes;
+  const int64_t step = static_cast<int64_t>(groups) * kFoldUnroll;
+  float* orow = f.out + f.rows[i] * f.d;
+  for (int c0 = 0; c0 < nvec; c0 += lanes) {
+    const int c = c0 + col;
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.f;
+    for (int64_t kb = k0; kb < k1; kb += step) {
+      float v[kFoldUnroll][V];
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u) {
+        const int64_t k = kb + static_cast<int64_t>(u) * groups + g;
+        if (k < k1 && c < nvec) {
+          ldcg_vec<V>(f.partials + k * f.d + static_cast<int64_t>(c) * V, v[u]);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < V; ++kk) v[u][kk] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u)
+        for (int gg = 0; gg < groups; ++gg)
+#pragma unroll
+          for (int kk = 0; kk < V; ++kk) acc[kk] += __shfl_sync(kFull, v[u][kk], gg * lanes + col);
+    }
+    if (g == 0 && c < nvec) {
+      float r[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) r[k] = acc[k] * scale;
+      store_vec<V>(orow + static_cast<int64_t>(c) * V, r);
+    }
+  }
+}
+
+// After this warp summed chunks [k0, k1) into their partials rows: count
+// them on their rows' counters; the warp that completes a row's count folds
+// the row (fold_row) and sets its counter back to 0.
+template <int V>
+__device__ __forceinline__ void count_chunks(const Fold& f, int64_t k0, int64_t k1) {
+  const int lane = threadIdx.x % kWarp;
+  __threadfence();
+  __syncwarp();
+  for (int64_t k = k0, i = chunk_owner(f.chunk_ptr, f.n_long, k0); k < k1; ++i) {
+    const int64_t mine = min(f.chunk_ptr[i + 1], k1) - k;
+    int last = 0;
+    if (lane == 0) {
+      const int n = static_cast<int>(f.chunk_ptr[i + 1] - f.chunk_ptr[i]);
+      __threadfence();
+      last = atomicAdd(f.counters + i, static_cast<int>(mine)) == n - mine;
+    }
+    if (__shfl_sync(kFull, last, 0)) {
+      __threadfence();
+      fold_row<V>(f, i);
+      if (lane == 0) f.counters[i] = 0;  // ready for the next launch
+    }
+    k += mine;
+  }
 }
 
 constexpr int kCombineUnroll = 8;  // chunks in flight per lane group

@@ -8,7 +8,10 @@ use ``row_gather_plain`` only for CPU tensors. ``row_gather_by_source`` (P1
 in source order) takes the plan of the indices, their CSR by source row
 (``gather_plan``), reads each row of x once and writes it to every position
 that asks for it; it uses ``row_gather_by_source_plain`` only for CPU
-tensors. Each wrapper's ``launches`` counts its kernel's launches.
+tensors. Each wrapper's ``launches`` counts its kernel's launches. P1 stages
+rows in shared memory by TMA bulk copies (``csrc/async_copy.cuh``) and
+writes 16-byte words, or bulk stores where out is aligned; the wrappers
+launch through ``build.launch``.
 
 Counterparts of ``tools/exp_dma_gather.py:dma_gather`` (one async copy per
 row into on-chip memory) and ``:vmem_gather`` (x wholly in on-chip memory).
@@ -28,13 +31,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..graph.split import SPLIT_T, RowSplit, row_split
-from .build import load
+from .build import entry, launch
 
 __all__ = ["row_gather_async", "row_gather_smem", "row_gather_plain", "SMEM_LIMIT_BYTES",
            "GatherPlan", "gather_plan", "row_gather_by_source", "row_gather_by_source_plain"]
 
 SMEM_LIMIT_BYTES = 232448  # 227 KB: the most shared memory one H100 block may have
-MAX_ASYNC_TILE = 8192  # P1 keeps a tile's row offsets in shared memory
+MAX_ASYNC_TILE = 8192  # the most output rows a block of P1 in index order takes
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -58,26 +61,20 @@ def _check(name, x, idx, tile, max_tile) -> None:
         raise ValueError(f"{name} takes 1 <= tile <= {max_tile}, got {tile}")
 
 
-def _kernel_fn(name):
-    fn = getattr(load("row_gather"), name)
-    if fn.argtypes is None:
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([p, p, i, p, ll, ll, i, p] if name == "row_gather_async"
-                       else [p, ll, p, i, p, ll, ll, i, p])
-        fn.restype = ctypes.c_int
-    return fn
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# x, n, idx, its int64 flag, out, e, row_bytes, tile, stream (P1 in index order and P2)
+_INDEX_ARGTYPES = (_P, _LL, _P, _I, _P, _LL, _LL, _I, _P)
+# x, indptr, its int64 flag, pos, its int64 flag, out, n, row_bytes, long_t,
+# rows, chunk_ptr, n_long, chunks, n_chunks, stream
+_SOURCE_ARGTYPES = (_P, _P, _I, _P, _I, _P, _LL, _LL, _LL, _P, _P, _LL, _P, _LL, _P)
 
 
-def _launch(name, out, x, idx, tile, *lead) -> None:
-    """Launch ``name`` on the current stream into ``out`` and raise on a
-    refused launch; ``lead`` are the entry point's arguments before idx."""
-    with torch.cuda.device(x.device):
-        err = _kernel_fn(name)(
-            *lead, idx.data_ptr(), int(idx.dtype == torch.int64), out.data_ptr(), idx.shape[0],
-            x.shape[1] * x.element_size(), tile, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+def _launch(name, out, x, idx, tile) -> None:
+    """Launch ``name`` (``row_gather_async`` or ``row_gather_smem``) on the
+    current stream into ``out``; raises on a refused launch."""
+    launch(entry("row_gather", name, _INDEX_ARGTYPES), x.device, x.data_ptr(), x.shape[0],
+           idx.data_ptr(), int(idx.dtype == torch.int64), out.data_ptr(), idx.shape[0],
+           x.shape[1] * x.element_size(), tile)
 
 
 def _empty_out(x, idx):
@@ -85,20 +82,21 @@ def _empty_out(x, idx):
 
 
 def row_gather_async(x: torch.Tensor, idx: torch.Tensor, tile: int = 256) -> torch.Tensor:
-    """P1: ``out[i] = x[idx[i]]``, one block per ``tile`` output rows, each
-    row copied asynchronously into shared memory, then written out.
+    """P1: ``out[i] = x[idx[i]]``, one block per ``tile`` output rows, a
+    warp's slice of them streamed through a ring of shared-memory stages
+    (rows in by TMA or cp.async, out by bulk stores or 16-byte words).
 
     ``x`` (n, d) float32 or bfloat16, ``idx`` (e,) int32 or int64, any e.
     Returns (e, d), bit for bit ``x[idx]``.
     """
     _check("row_gather_async", x, idx, tile, MAX_ASYNC_TILE)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return row_gather_plain(x, idx)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"row_gather_async runs on cuda or cpu tensors, got {x.device}")
     out = _empty_out(x, idx)
     if out.numel():
-        _launch("row_gather_async", out, x, idx, tile, x.data_ptr())
+        _launch("row_gather_async", out, x, idx, tile)
         row_gather_async.launches += 1
     return out
 
@@ -122,7 +120,7 @@ def row_gather_smem(x: torch.Tensor, idx: torch.Tensor, tile: int = 512) -> torc
         raise ValueError(f"row_gather_smem runs on cuda or cpu tensors, got {x.device}")
     out = _empty_out(x, idx)
     if out.numel():
-        _launch("row_gather_smem", out, x, idx, tile, x.data_ptr(), x.shape[0])
+        _launch("row_gather_smem", out, x, idx, tile)
         row_gather_smem.launches += 1
     return out
 
@@ -184,46 +182,48 @@ def row_gather_by_source_plain(x: torch.Tensor, indptr: torch.Tensor,
     return torch.empty_like(rows).index_copy_(0, pos.long(), rows)
 
 
+_IDX_DTYPES = (torch.int32, torch.int64)
+
+
 def _check_by_source(x, indptr, pos, split, num_out) -> int:
     """Check the operands; return the number of output rows."""
     if x.dim() != 2:
         raise ValueError(f"row_gather_by_source takes 2-D x (n, d), got shape {tuple(x.shape)}")
     if x.element_size() % 2:
         raise TypeError(f"row_gather_by_source moves values of an even byte size, got {x.dtype}")
-    if indptr.dtype not in (torch.int32, torch.int64) or indptr.dim() != 1:
+    if indptr.dtype not in _IDX_DTYPES or indptr.dim() != 1:
         raise TypeError(f"indptr must be 1-D int32/int64, got {indptr.dtype} {tuple(indptr.shape)}")
     if indptr.numel() != x.shape[0] + 1:
         raise ValueError(f"indptr has {indptr.numel()} offsets for {x.shape[0]} rows of x")
-    tensors = [x, indptr]
+    dev = x.device
     if pos is not None:
-        if pos.dtype not in (torch.int32, torch.int64) or pos.dim() != 1:
+        if pos.dtype not in _IDX_DTYPES or pos.dim() != 1:
             raise TypeError(f"pos must be 1-D int32/int64, got {pos.dtype} {tuple(pos.shape)}")
-        tensors.append(pos)
-    if any(t.device != x.device for t in tensors):
+        if pos.device != dev:
+            raise ValueError("row_gather_by_source operands lie on different devices")
+    if indptr.device != dev:
         raise ValueError("row_gather_by_source operands lie on different devices")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (x.is_contiguous() and indptr.is_contiguous()
+            and (pos is None or pos.is_contiguous())):
         raise ValueError("row_gather_by_source operands must be contiguous")
-    counts = {n for n in (None if pos is None else pos.numel(),
-                          None if split is None else split.num_edges, num_out) if n is not None}
-    if len(counts) > 1:
-        raise ValueError(f"row_gather_by_source: pos, the split and num_out disagree on the "
-                         f"number of slots: {sorted(counts)}")
-    if not counts:
+    e = None
+    for n in (None if pos is None else pos.numel(), None if split is None else split.num_edges,
+              num_out):
+        if n is None or n == e:
+            continue
+        if e is not None:
+            counts = {c for c in (None if pos is None else pos.numel(),
+                                  None if split is None else split.num_edges, num_out)
+                      if c is not None}
+            raise ValueError(f"row_gather_by_source: pos, the split and num_out disagree on the "
+                             f"number of slots: {sorted(counts)}")
+        e = n
+    if e is None:
         raise ValueError("row_gather_by_source needs pos, a split or num_out for the number "
                          "of output rows (it never reads indptr back)")
-    e = counts.pop()
     if split is not None:
         split.check(indptr, e, "row_gather_by_source")
     return e
-
-
-def _by_source_fn():
-    fn = load("row_gather").row_gather_by_source
-    if fn.argtypes is None:
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, p, i, p, i, p, ll, ll, ll, p, p, ll, p, ll, p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def row_gather_by_source(x: torch.Tensor, indptr: torch.Tensor,
@@ -252,29 +252,21 @@ def row_gather_by_source(x: torch.Tensor, indptr: torch.Tensor,
     ``row_gather_async`` suits it better. The graph gathers have e >= n.
     """
     e = _check_by_source(x, indptr, pos, split, num_out)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         out = row_gather_by_source_plain(x, indptr, pos)
         if out.shape[0] != e:
             raise ValueError(f"row_gather_by_source: indptr holds {out.shape[0]} slots, not {e}")
         return out
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"row_gather_by_source runs on cuda or cpu tensors, got {x.device}")
     out = torch.empty((e, x.shape[1]), dtype=x.dtype, device=x.device)
     if not out.numel():
         return out
-    if split is None:
-        plan = (_NO_SPLIT_T, None, None, 0, None, 0)
-    else:
-        plan = split.kernel_args(None)[:-1]
-    with torch.cuda.device(x.device):
-        err = _by_source_fn()(
-            x.data_ptr(), indptr.data_ptr(), int(indptr.dtype == torch.int64),
-            None if pos is None else pos.data_ptr(), int(pos is not None and pos.dtype == torch.int64),
-            out.data_ptr(), x.shape[0], x.shape[1] * x.element_size(), *plan,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"row_gather_by_source kernel launch failed with CUDA error {err}")
+    plan = (_NO_SPLIT_T, None, None, 0, None, 0) if split is None else split.kernel_args(None)[:-1]
+    launch(entry("row_gather", "row_gather_by_source", _SOURCE_ARGTYPES), x.device,
+           x.data_ptr(), indptr.data_ptr(), int(indptr.dtype == torch.int64),
+           None if pos is None else pos.data_ptr(), int(pos is not None and pos.dtype == torch.int64),
+           out.data_ptr(), x.shape[0], x.shape[1] * x.element_size(), *plan)
     row_gather_by_source.launches += 1
     return out
 

@@ -4,16 +4,19 @@ denominators and the backward of ``spread_dst``.
 
 ``seg_sum`` launches the hand-written CUDA kernel in ``csrc/seg_sum.cu`` for
 CUDA tensors and uses ``seg_sum_plain`` only for CPU tensors.
-``seg_sum.launches`` counts the calls that launch the kernel and
-``seg_sum.combines`` the combine launches among them (the row split).
+``seg_sum.launches`` counts the calls that launch the kernel, one a call.
+``seg_sum.combines`` stays 0: the kernel folds its long rows inside its
+launch (it is kept so that the paths' checks of combine launches read it).
 
-Long rows are split as in K1 (``kernels/csr_spmm.py``): every row of more
-than ``T`` edges (the plan's ``t``; ``graph/split.py:SPLIT_T`` = 512 for a
-graph's CSRs) is cut into chunks of at most ``T`` edges, each summed by one warp of
-the same launch; a second, small launch adds each long row's chunks in
-ascending chunk order and writes the row once. No atomics decide the order,
-so two runs are bitwise equal and small-integer sums exact. Each warp of the
-rest takes two consecutive rows (``kRowsPerWarp`` in the source).
+The kernel streams each run of consecutive rows' messages, one contiguous
+span, through shared memory by TMA bulk copies (``csrc/seg_sum.cu``). Long
+rows are split as in K1 (``kernels/csr_spmm.py``): every row of more than
+``T`` edges (the plan's ``t``; ``graph/split.py:SPLIT_T`` = 512 for a
+graph's CSRs) is cut into chunks of at most ``T`` edges, each summed by one
+warp of the same launch; the warp that finishes a row's last chunk, counted
+on the plan's ``counters``, adds the row's chunks in ascending chunk order
+and writes the row once. No atomics decide the order, so two runs are
+bitwise equal and small-integer sums exact.
 
 ``msg`` is float32 or bfloat16; the sums and the output are float32 either
 way, as the JAX package's ``_seg_sum_by_dst`` promotes bf16 messages
@@ -34,7 +37,7 @@ from typing import Optional
 import torch
 
 from ..graph.split import RowSplit, row_split
-from .build import load
+from .build import entry, launch
 
 __all__ = ["seg_sum", "seg_sum_plain", "csr_rows", "ROW_DTYPES", "sum_dtype"]
 
@@ -79,14 +82,10 @@ def _check(indptr, msg) -> None:
         raise ValueError("seg_sum operands must be contiguous")
 
 
-def _kernel_fn(dtype: torch.dtype):
-    fn = getattr(load("seg_sum"), "seg_sum_bf16" if dtype == torch.bfloat16 else "seg_sum_f32")
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        ll = ctypes.c_longlong
-        fn.argtypes = [p, ctypes.c_int, p, p, ll, ctypes.c_int, ll, p, p, ll, p, ll, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# indptr, its int64 flag, msg, out, n_rows, w, n_edges, rows, chunk_ptr,
+# n_long, chunks, n_chunks, partials, counters, stream
+_ARGTYPES = (_P, _I, _P, _P, _LL, _I, _LL, _P, _P, _LL, _P, _LL, _P, _P, _P)
 
 
 def seg_sum(indptr: torch.Tensor, msg: torch.Tensor,
@@ -100,37 +99,34 @@ def seg_sum(indptr: torch.Tensor, msg: torch.Tensor,
     ``split``: the CSR's row split (``graph.split`` / ``graph.reverse.split``
     for a graph's CSRs), on the device of ``indptr``. One whose row or edge
     count differs raises ``ValueError`` before any launch; one of another CSR
-    with the same counts is not caught, and leaves the rows of more than
-    ``split.t`` edges that it does not list undefined. Without one, a launch
+    with the same counts is not caught: the rows it lists get the sums of its
+    chunks, the others are summed as usual. Without one, a launch
     on the card builds it from ``indptr``: a copy of ``indptr`` to the host,
     which waits for the card. The package's ops always pass the graph's plan.
     """
     _check(indptr, msg)
+    e = msg.shape[0]
     if split is not None:
-        split.check(indptr, msg.shape[0], "seg_sum")
-    if msg.device.type == "cpu":
+        split.check(indptr, e, "seg_sum")
+    if msg.is_cpu:
         return seg_sum_plain(indptr, msg)
-    if msg.device.type != "cuda":
+    if not msg.is_cuda:
         raise ValueError(f"seg_sum runs on cuda or cpu tensors, got {msg.device}")
     n_rows, w = indptr.numel() - 1, msg.shape[1]
-    out = torch.empty((n_rows, w), dtype=torch.float32, device=msg.device)
+    dev = msg.device
+    out = torch.empty((n_rows, w), dtype=torch.float32, device=dev)
     if n_rows == 0 or w == 0:
         return out.zero_()
     if split is None:
         split = row_split(indptr)
-    partials = torch.empty((split.num_chunks, w), dtype=torch.float32, device=msg.device)
-    fn = _kernel_fn(msg.dtype)
-    with torch.cuda.device(msg.device):
-        err = fn(
-            indptr.data_ptr(), int(indptr.dtype == torch.int64), msg.data_ptr(), out.data_ptr(),
-            n_rows, w, *split.kernel_args(partials),
-            torch.cuda.current_stream(msg.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"seg_sum kernel launch failed with CUDA error {err}")
+    bf16 = msg.dtype == torch.bfloat16
+    partials = (torch.empty((split.num_chunks, w), dtype=torch.float32, device=dev)
+                if split.num_chunks else None)
+    launch(entry("seg_sum", "seg_sum_bf16" if bf16 else "seg_sum_f32", _ARGTYPES), dev,
+           indptr.data_ptr(), int(indptr.dtype == torch.int64), msg.data_ptr(), out.data_ptr(),
+           n_rows, w, e, *split.kernel_args(partials, counters=True)[1:])
     seg_sum.launches += 1
-    seg_sum.launches_bf16 += int(msg.dtype == torch.bfloat16)
-    seg_sum.combines += int(split.num_long > 0)
+    seg_sum.launches_bf16 += int(bf16)
     return out
 
 

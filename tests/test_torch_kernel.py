@@ -287,7 +287,9 @@ def test_split_k2_matches_plain_and_exact_sums_on_card():
             msg = torch.from_numpy(rng.normal(1.0, 1.0, (e, w)).astype(np.float32)).to(dev)
             before, combines = seg_sum.launches, seg_sum.combines
             got = seg_sum(ip, msg, split=plan)
-            assert (seg_sum.launches, seg_sum.combines) == (before + 1, combines + 1)
+            # one launch: the long rows fold inside it, no combine launch
+            assert (seg_sum.launches, seg_sum.combines) == (before + 1, combines)
+            assert not plan.counters.any()
             want = seg_sum_plain(ip, msg)
             torch.testing.assert_close(got[short], want[short], rtol=1e-4, atol=1e-3)
             torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-1)
@@ -295,6 +297,66 @@ def test_split_k2_matches_plain_and_exact_sums_on_card():
             ints = torch.from_numpy(rng.integers(-4, 5, (e, w)).astype(np.float32)).to(dev)
             assert torch.equal(seg_sum(ip, ints, split=plan),
                                seg_sum_plain(ip, ints.double()).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_folds_long_rows_in_one_launch_on_card(dtype):
+    """K2 on a CSR whose rows straddle the split, one launch a call and no
+    combine launch, the plan's counters back at 0: messages at a base off
+    16 bytes and ending off 16 bytes (a view one row in), widths of every
+    lane layout, against the plain version, integers exact, two runs equal."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    indptr, _, plan = _split_csr(rng, 1)
+    plan = plan.to(dev)
+    e = int(indptr[-1])
+    ip = torch.from_numpy(indptr).to(dev)
+    short = torch.from_numpy(np.diff(indptr) <= 1000).to(dev)
+    for w in (1, 8, 16, 75, 256, 602):
+        base = torch.from_numpy(rng.normal(1.0, 1.0, (e + 1, w)).astype(np.float32)).to(dev)
+        msg = base.to(dtype)[1:]
+        before, combines = seg_sum.launches, seg_sum.combines
+        got = seg_sum(ip, msg, split=plan)
+        assert (seg_sum.launches, seg_sum.combines) == (before + 1, combines)
+        assert not plan.counters.any()
+        want = seg_sum_plain(ip, msg)
+        torch.testing.assert_close(got[short], want[short], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-1)
+        assert torch.equal(got, seg_sum(ip, msg, split=plan))
+        ints = torch.from_numpy(rng.integers(-4, 5, (e + 1, w)).astype(np.float32)).to(dev)
+        assert torch.equal(seg_sum(ip, ints.to(dtype)[1:], split=plan),
+                           seg_sum_plain(ip, ints[1:].double()).float())
+
+
+@pytest.mark.cuda
+def test_p1_at_300_byte_rows_with_and_without_positions_on_card():
+    """P1 at GCMC's decoder width (75 float32 values, 300 B: 16-byte words
+    that cut every row), bit for bit: in source order with positions, with
+    pos=None (a dst CSR's contiguous slots, long enough for bulk stores,
+    with a row over T, with and without the split) and in index order; x
+    at a base off 16 bytes too."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n, d, e = 1682, 75, 85_000
+    for shift in (0, 1):
+        base = torch.randn(n * d + shift, device=dev, generator=gen)
+        x = base[shift:].view(n, d)
+        idx = torch.randint(0, n, (e,), device=dev, generator=gen)
+        idx[:700] = 5  # a row over T = 512
+        plan = gather_plan(idx, n)
+        assert plan.split.num_long >= 1
+        for ii in (idx, idx.int()):
+            assert torch.equal(row_gather_async(x, ii), x[idx])
+        got = row_gather_by_source(x, *plan)
+        assert torch.equal(got, x[idx]) and torch.equal(got, row_gather_by_source(x, *plan))
+        assert torch.equal(row_gather_by_source(x, plan.indptr, plan.pos.long(), plan.split),
+                           x[idx])
+        # pos=None: out[k] = x[r] over the plan's row offsets
+        want = row_gather_by_source_plain(x, plan.indptr)
+        for split in (plan.split, None):
+            got = row_gather_by_source(x, plan.indptr, None, split, num_out=e)
+            assert torch.equal(got, want), (shift, split is None)
 
 
 @pytest.mark.cuda
