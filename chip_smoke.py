@@ -7,8 +7,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   1. device: requires CUDA, prints the card's name and power limit, turns
      TF32 off for float32 matmuls and convolutions;
   2. build: builds every kernel from the sources in dgl_tpu_torch/kernels/csrc
-     (and, beside them, K3 with the per-edge dropout key, timed in
-     gat_reddit) and prints ptxas' registers and spills of every variant;
+     and prints ptxas' registers and spills of every variant; no variant of
+     K3 may spill;
   3. random: K1 (csr_spmm) on random CSRs with empty rows and hub rows of
      10^5 edges, D in {1, 16, 41, 602}, sum and mean, with and without edge
      weights, forward and backward through gspmm's autograd, on inputs
@@ -51,8 +51,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      backward launch), and both modes must agree on the first step's loss;
   6. gat_random: K3 (gat_attention_fwd, gat_attention_bwd, each with the
      row split of the CSR it walks) and K2 (seg_sum) on random CSRs with
-     empty rows and 10^5-edge hub rows in both directions, H in {1, 4, 8},
-     D in {8, 16, 41}, keep in {1.0, 0.82}, on v and g around 1. Every
+     empty rows and 10^5-edge hub rows in both directions, H in {1, 2, 4,
+     8}, D in {8, 16, 40, 41, 64}, keep in {1.0, 0.82}, on v and g around 1,
+     each K3 launch with no combine launch and the plan's counters back at
+     0 after it. Every
      output row is held to a float64 run of the
      plain version within the bound (2n + 8 + 4A)·u·Σ|term| (n terms,
      A = |a_src| + |a_dst| + |shift|, which the rounding of each term's
@@ -69,20 +71,20 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      to float64 and the plain version as above, b2's bfloat16 grad_v equal
      bit for bit to its float32 grad_v rounded once (w2 and w3 equal), within
      one bfloat16 ulp of the plain version, and the integer cases exact;
+     both K3 passes with v (b2: g) at bases 4 and 8 bytes off 16-byte
+     alignment (bfloat16 v also 2), the storage ending with the array, H in
+     {1, 4}, D in {16, 41, 64}, over a graph whose edges read the first and
+     last rows often (check_k3_misaligned): the same checks;
   7. gat_reddit: K3 forward and b2 on reddit with self-loops (H = 1,
      D = 16, reddit's attention dropout) and K2 at (E, 16) over the dst and
      the reverse CSR: the same checks, CUDA-event medians of the kernel, the
      plain version and, for K2, torch.segment_reduce and index_add_ (its
      row ids made outside the timed calls; K3 has no single PyTorch call to
-     compare with), the combine launches of the timed K3 calls counted, the
+     compare with), no combine launch in the timed K3 calls, the
      T sweep (256, 512, 1024) of K2 and of each K3 pass whose CSR has a row
      over 256 edges, and the bytes bounds; K3's checks and times also at
      arxiv's shapes (bidirected with self-loops, H = 4, D = 16 and the last
-     layer's D = 40, long rows in both CSRs); both K3 passes with dropout
-     on arxiv (H = 4, D = 16) and reddit timed with the package's
-     per-(edge, head) dropout key and with the per-edge key of before (a
-     second build of gat_attention.cu, -DK3_DROP_KEY_PER_EDGE), in turns,
-     the two builds equal at H = 1; a fused GATConv's forward and
+     layer's D = 40, long rows in both CSRs); a fused GATConv's forward and
      backward, and seg_sum_dst's, under set_sync_debug_mode("error");
      gather_src_rows' adjoint timed as
      one K1 launch and as index_select + K2 (reddit at W = 16, pubmed at
@@ -116,8 +118,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      form, heads (1, 1, 1) and (4, 4, 4)) then pubmed (edge form), each run
      with every launch and combine counter set to 0 before it and read
      after it. reddit and arxiv: K3 forward and b2 exactly 3 per step each,
-     K2 and K1 none, K3's combines their graphs' plans give (see
-     phase_gat_main); reddit's training peak device memory above the graph
+     K2 and K1 none, no combine launch (K3 folds its long rows inside its
+     launch); both runs' Training time/epoch; reddit's training peak device memory above the graph
      and data held below one (E, 16) float32 buffer, arxiv's below
      fused_gat_memory_bound (derived from the shapes); pubmed: K3 none, K2
      exactly 12 per step plus one per edge-softmax rescue, K1 3 per step,
@@ -286,7 +288,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      device profile names the kernels its path must launch;
   19. kernels: one line listing every ported kernel with its numbers, K1's,
      K2's and K3's with T, long rows, chunks and K2's and K3's combine
-     launches (K1 has none and K2's are 0: their launches fold them), K3's at
+     launches (0: their launches fold them; K1 counts none), K3's at
      arxiv's shapes (D = 16 and 40) beside reddit's and b2's gather floor,
      K1's at the SAGE widths and K1's and K2's launches on the new paths,
      P1 in source order beside P1 in index order with its plan's build
@@ -298,8 +300,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
      shapes (*_cluster_*) and K3 forward on the whole products graph
      (*_products_h4_d64); the GCMC run's launches of K1, K2 and P1 in
      source order (launches_gcmc; K2's combines_gcmc) and their times at its
-     shapes (*_gcmc_*); both K3 passes' times with each dropout key
-     (ms_edge_head_key_*, ms_edge_key_*); the distributed phase's
+     shapes (*_gcmc_*); the distributed phase's
      launches on rank 0 (launches_halo_sage, launches_halo_rgcn,
      launches_spmd, launches_send_adjoint; launches_halo_gat;
      launches_halo_payload); the bfloat16 instantiations (csr_spmm_bf16,
@@ -480,46 +481,25 @@ def _ptxas_lines(log):
     return lines
 
 
-K3_EDGE_KEY = {}  # "lib": K3 built with the per-edge dropout key (phase_build)
-
-
-def _start_k3_edge_key_build():
-    """nvcc on gat_attention.cu with -DK3_DROP_KEY_PER_EDGE: the dropout key
-    before the per-(edge, head) key, one mask an edge for every head; built
-    only to time the two keys side by side (k3_key_times). Returns the
-    process, the library's path and its temporary path."""
-    from dgl_tpu_torch.kernels import build as kb
-
-    path = kb._lib_path("gat_attention").replace("libgat_attention_",
-                                                 "libgat_attention_edge_key_")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    os.makedirs(kb.BUILD_DIR, exist_ok=True)
-    proc = subprocess.Popen([kb.nvcc_path(), *kb._FLAGS, "-DK3_DROP_KEY_PER_EDGE", "-o", tmp,
-                             kb.SOURCES["gat_attention"]],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, path, tmp
-
-
 def phase_build():
-    """Every kernel of the package (build: one nvcc a source, all at once),
-    and beside them K3 with the per-edge dropout key."""
-    import ctypes
-
+    """Every kernel of the package (build: one nvcc a source, all at once);
+    no variant of K3 (both libraries) may spill. A library already in
+    kernels/_build (a second call in one checkout) prints no ptxas lines:
+    the check reads the K3 libraries compiled in this call, which on a
+    fresh checkout are both."""
     from dgl_tpu_torch.kernels.build import build
 
     t0 = time.perf_counter()
-    edge_key = _start_k3_edge_key_build()
     info = build()
-    proc, path, tmp = edge_key
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for gat_attention with the per-edge key:\n{log}")
-    os.replace(tmp, path)
-    K3_EDGE_KEY["lib"] = ctypes.CDLL(path)
     ptxas = {name: _ptxas_lines(b["log"]) for name, b in info.items()}
+    fresh = [name for name in ("gat_attention", "gat_attention_bf16") if info[name]["seconds"]]
+    k3 = [ln for name in fresh for ln in ptxas[name] if "spill" in ln]
+    if fresh and (not k3 or any(" 0 bytes spill stores, 0 bytes spill loads" not in ln
+                                for ln in k3)):
+        raise AssertionError(f"a K3 variant spills (or ptxas printed no spill line): {k3}")
     emit("build", seconds=time.perf_counter() - t0,
          kernels={name: b["seconds"] for name, b in info.items()}, ptxas=ptxas,
-         k3_edge_key_ptxas=_ptxas_lines(log))
+         k3_built=fresh, k3_variants=len(k3), k3_spills=0 if fresh else None)
 
 
 def _random_graph(rng, n, hub_edges):
@@ -1104,12 +1084,26 @@ def _merge(acc, errs):
         acc[0], acc[1], acc[2] = max(acc[0], e[0]), max(acc[1], e[1]), max(acc[2], e[2])
 
 
+def k3_folded(what, fn, plan, before):
+    """``fn`` launched (one launch a call since ``before``, its launch and
+    combine counts) with no combine launch, and ``plan``'s counters back at
+    0: the long rows folded inside the launch."""
+    torch.cuda.synchronize()
+    if fn.combines != before[1]:
+        raise AssertionError(f"{what}: {fn.__name__} made a combine launch")
+    if plan.counters.any():
+        raise AssertionError(f"{what}: {fn.__name__}'s fold left a counter above 0")
+
+
 def check_k3_fwd(what, g, v, a_s, a_d, kw, acc):
     """One K3 forward launch against its plain version in float32 and
-    float64; returns the kernel's outputs."""
+    float64 (no combine launch, the plan's counters back at 0); returns the
+    kernel's outputs."""
     from dgl_tpu_torch.kernels.gat_attention import gat_attention_fwd, gat_attention_fwd_plain
 
+    before = gat_attention_fwd.launches, gat_attention_fwd.combines
     got = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
+    k3_folded(what, gat_attention_fwd, g.split, before)
     again = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"{what}: two K3 forward runs differ")
@@ -1126,12 +1120,15 @@ def check_k3_fwd(what, g, v, a_s, a_d, kw, acc):
 
 
 def check_k3_bwd(what, g, g_out, node, a_s, kw, acc):
-    """One K3 b2 launch against its plain version in float32 and float64."""
+    """One K3 b2 launch against its plain version in float32 and float64
+    (no combine launch, the plan's counters back at 0)."""
     from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_bwd_plain
 
     rev = g.reverse
     args = (rev.indptr, rev.src, rev.eid)
+    before = gat_attention_bwd.launches, gat_attention_bwd.combines
     got = gat_attention_bwd(*args, g_out, node, a_s, split=rev.split, **kw)
+    k3_folded(what, gat_attention_bwd, rev.split, before)
     again = gat_attention_bwd(*args, g_out, node, a_s, split=rev.split, **kw)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"{what}: two K3 b2 runs differ")
@@ -1321,6 +1318,48 @@ def check_split_k2(rng, dev, acc):
     return cases
 
 
+K3_H = (1, 2, 4, 8)  # heads: one lane a head up to eight heads a lane group
+K3_D = (8, 16, 40, 41, 64)  # every vector width, an odd width, two vectors a lane
+
+
+def check_k3_misaligned(rng, dev, acc):
+    """Both K3 passes with v (the forward's gathered rows; float32 and
+    bfloat16) and g (b2's; float32) at bases 4 and 8 bytes off 16-byte
+    alignment (bfloat16 v also 2), the storage ending with the array
+    (_x_view), H in {1, 4}, D in {16, 41, 64}, keep 0.82, over a graph
+    whose edges read the first and last rows often and whose two CSRs both
+    have a row over T: float64 bounds, the plain version, two runs bitwise
+    equal, no combine launch and the counters back at 0. Returns the number
+    of cases."""
+    from dgl_tpu_torch import from_edges
+
+    n, e, hub = 700, 30_000, 1500
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    for a in (src, dst):  # a quarter read row 0 or n - 1
+        ends = rng.random(e) < 0.25
+        a[ends] = np.where(rng.random(int(ends.sum())) < 0.5, 0, n - 1)
+    src[:hub], dst[hub:2 * hub] = 3, 5  # a long row in the reverse CSR and in the dst CSR
+    g = from_edges(src, dst, n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    kw = dict(negative_slope=0.2, keep=0.82, seed=seed)
+    cases = 0
+    for h in (1, 4):
+        for d in (16, 41, 64):
+            a_s, a_d = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
+            for dtype in (torch.float32, BF16):
+                for shift in ((4, 8) if dtype == torch.float32 else (2, 4, 8)):
+                    what = f"misaligned {dtype} +{shift} B H={h} D={d}"
+                    v = _x_view(rng, "normal", n, h * d, dtype, shift, dev).view(n, h, d)
+                    out, _, inv_s, _, sh = check_k3_fwd(what, g, v, a_s, a_d, kw, acc["fwd"])
+                    if dtype == torch.float32:
+                        g_out = _x_view(rng, "normal", n, h * d, dtype, shift, dev).view(n, h, d)
+                        node = torch.stack([a_d, sh, inv_s, (g_out * out).sum(-1)], -1)
+                        check_k3_bwd(what, g, g_out, node, a_s, kw, acc["bwd"])
+                    cases += 1
+    return cases
+
+
 def phase_gat_random():
     from dgl_tpu_torch import from_edges
 
@@ -1333,8 +1372,8 @@ def phase_gat_random():
     k3 = {"fwd": [0.0, 0.0, 0.0], "bwd": [0.0, 0.0, 0.0]}
     k2 = [0.0, 0.0, 0.0]
     cases = 0
-    for h in (1, 4, 8):
-        for d in (8, 16, 41):
+    for h in K3_H:
+        for d in K3_D:
             # v and g around 1 (see _inputs): a hub row's sums stay far from 0
             v, g_out = (1.0 + torch.randn(n, h, d, device=dev, generator=gen) for _ in range(2))
             a_s, a_d = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
@@ -1356,6 +1395,7 @@ def phase_gat_random():
                 check_k2(f"{what} {side}", gg.indptr, msg, ints, k2, gg.split)
     split_cases = check_split_k2(np.random.default_rng(4), dev, k2)
     k3_split_cases = check_split_k3(np.random.default_rng(6), dev, k3)
+    k3_misaligned_cases = check_k3_misaligned(np.random.default_rng(7), dev, k3)
     # bfloat16 v: both K3 passes' bfloat16 instantiations
     t_bf16 = time.perf_counter()
     k3_bf16 = {"fwd": [0.0, 0.0, 0.0], "bwd": [0.0, 0.0, 0.0]}
@@ -1382,7 +1422,8 @@ def phase_gat_random():
          k3_fwd_max_bound_used=k3["fwd"][2], k3_bwd_max_abs_err=k3["bwd"][0],
          k3_bwd_max_abs_err_f64=k3["bwd"][1], k3_bwd_max_bound_used=k3["bwd"][2],
          k2_max_abs_err=k2[0], k2_max_abs_err_f64=k2[1], k2_max_bound_used=k2[2],
-         k2_split_cases=split_cases, k3_split_cases=k3_split_cases, rtol=RTOL, atol=ATOL,
+         k2_split_cases=split_cases, k3_split_cases=k3_split_cases,
+         k3_misaligned_cases=k3_misaligned_cases, k3_heads=K3_H, k3_d=K3_D, rtol=RTOL, atol=ATOL,
          hub_deg=HUB_DEG, deterministic=True, **_split_fields(g),
          bf16_cases=bf16_cases, bf16_seconds=bf16_s,
          k3_fwd_bf16_max_abs_err=k3_bf16["fwd"][0], k3_fwd_bf16_max_abs_err_f64=k3_bf16["fwd"][1],
@@ -1437,10 +1478,10 @@ def timed_combines(wrapper, call, per_call, reps, warmup):
 def k3_shape(name, g, h, d, gen, keep):
     """Both K3 passes on graph ``g`` at H = h, D = d: check_k3_exact, the
     float64 checks, CUDA-event medians of each pass with its combines
-    counted, the plain versions' times and the bytes bounds; b2's T sweep."""
+    counted (none), the plain versions' times and the bytes bounds; b2's T
+    sweep."""
     from dgl_tpu_torch.kernels.gat_attention import (
-        B2_COMBINES, gat_attention_bwd, gat_attention_bwd_plain, gat_attention_fwd,
-        gat_attention_fwd_plain)
+        gat_attention_bwd, gat_attention_bwd_plain, gat_attention_fwd, gat_attention_fwd_plain)
 
     dev = g.indptr.device
     rev = g.reverse
@@ -1457,8 +1498,8 @@ def k3_shape(name, g, h, d, gen, keep):
     fwd_args = (g.indptr, g.src, v, a_s, a_d)
     bound, by = k3_fwd_bound(n, n, e, h, d)
     ms, combines = timed_combines(
-        gat_attention_fwd, lambda: gat_attention_fwd(*fwd_args, split=g.split, **kw),
-        int(g.split.num_long > 0), reps=30, warmup=3)
+        gat_attention_fwd, lambda: gat_attention_fwd(*fwd_args, split=g.split, **kw), 0,
+        reps=30, warmup=3)
     res["gat_attention_fwd"] = {
         "ms": ms, "combines_timed": combines,
         "plain_ms": median_ms(lambda: gat_attention_fwd_plain(*fwd_args, **kw), reps=5, warmup=1),
@@ -1475,8 +1516,8 @@ def k3_shape(name, g, h, d, gen, keep):
     bwd_args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
     bound, by = k3_bwd_bound(n, n, e, h, d, dropout=keep < 1.0)
     ms, combines = timed_combines(
-        gat_attention_bwd, lambda: gat_attention_bwd(*bwd_args, split=rev.split, **kw),
-        B2_COMBINES * int(rev.split.num_long > 0), reps=20, warmup=2)
+        gat_attention_bwd, lambda: gat_attention_bwd(*bwd_args, split=rev.split, **kw), 0,
+        reps=20, warmup=2)
     res["gat_attention_bwd"] = {
         "ms": ms, "combines_timed": combines,
         "plain_ms": median_ms(lambda: gat_attention_bwd_plain(*bwd_args, **kw), reps=5, warmup=1),
@@ -1530,53 +1571,6 @@ def k3_bf16_times(name, g, v, g_out, a_s, a_d, kw, keep):
         "library_ms": None, "bound_ms": bound, "bound_by": by, "max_abs_err": b2_err,
         "max_abs_err_f64": None, "max_bound_used": acc["bwd"][2],
         "f32_pass_max_abs_err_f64": acc["bwd"][1]}
-    return res
-
-
-def k3_key_times(g, h, d, gen, keep):
-    """Both K3 passes on ``g`` at H = h, D = d with dropout, timed with the
-    package's per-(edge, head) dropout key and with the per-edge key of the
-    K3_DROP_KEY_PER_EDGE build (phase_build), in turns (package, edge key,
-    edge key, package): each key's time is the mean of its two CUDA-event
-    medians of 20 calls. The two builds' forwards must agree bit for bit at
-    H = 1, where the keys are equal, and differ at H > 1."""
-    from unittest import mock
-
-    from dgl_tpu_torch.kernels import gat_attention as ga
-
-    dev, rev, n = g.indptr.device, g.reverse, g.num_dst_nodes
-    v, g_out = (1.0 + torch.randn(n, h, d, device=dev, generator=gen) for _ in range(2))
-    a_s, a_d = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
-    kw = dict(negative_slope=0.2, keep=keep, seed=torch.tensor([20260], dtype=torch.int32,
-                                                                device=dev))
-
-    def edge_key():
-        return mock.patch.object(ga, "load", lambda name: K3_EDGE_KEY["lib"])
-
-    def fwd(v, a_s, a_d):
-        return ga.gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
-
-    out, _, inv_s, _, shift = fwd(v, a_s, a_d)
-    node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
-    with edge_key():
-        out_edge = fwd(v, a_s, a_d)[0]
-    one = [t[:, :1].contiguous() for t in (v, a_s, a_d)]
-    with edge_key():
-        out_edge_h1 = fwd(*one)[0]
-    if not torch.equal(fwd(*one)[0], out_edge_h1) or (h > 1 and torch.equal(out, out_edge)):
-        raise AssertionError("K3's two dropout keys: equal outputs where they should differ, "
-                             "or different ones at H = 1")
-    calls = {"gat_attention_fwd": lambda: fwd(v, a_s, a_d),
-             "gat_attention_bwd": lambda: ga.gat_attention_bwd(
-                 rev.indptr, rev.src, rev.eid, g_out, node, a_s, split=rev.split, **kw)}
-    res = {}
-    for name, call in calls.items():
-        t = {"edge_head_key": [], "edge_key": []}
-        for key in ("edge_head_key", "edge_key", "edge_key", "edge_head_key"):
-            with edge_key() if key == "edge_key" else contextlib.nullcontext():
-                t[key].append(median_ms(call, reps=20, warmup=2))
-        res[name] = {f"ms_{k}": statistics.mean(v) for k, v in t.items()}
-        res[name]["edge_head_over_edge"] = res[name]["ms_edge_head_key"] / res[name]["ms_edge_key"]
     return res
 
 
@@ -1820,8 +1814,6 @@ def phase_gat_reddit():
     arxiv = _gat_graph("ogbn-arxiv", dev)
     res_arxiv = k3_shape("ogbn-arxiv", arxiv, 4, 16, gen, REDDIT_KEEP)
     res_arxiv40 = k3_shape("ogbn-arxiv D=40", arxiv, 4, 40, gen, REDDIT_KEEP)
-    key_times = {"arxiv": k3_key_times(arxiv, 4, 16, gen, REDDIT_KEEP),
-                 "reddit": k3_key_times(g, h, d, gen, REDDIT_KEEP)}
     arxiv_fields = {"nodes": arxiv.num_dst_nodes, "edges": arxiv.num_edges, "heads": 4,
                     "d": [16, 40], **_split_fields(arxiv)}
     del arxiv
@@ -1853,8 +1845,8 @@ def phase_gat_reddit():
          k3_b2_t_sweep=res["gat_attention_bwd"]["t_sweep"],
          k3_fwd_t_sweep_arxiv=res_arxiv["gat_attention_fwd"]["t_sweep"],
          arxiv=arxiv_fields, detail=res, detail_arxiv=res_arxiv, detail_arxiv_d40=res_arxiv40,
-         k3_key_times=key_times, gatconv_bf16_pubmed=gatconv_bf16)
-    return res, res_arxiv, res_arxiv40, key_times, g, gatconv_bf16
+         gatconv_bf16_pubmed=gatconv_bf16)
+    return res, res_arxiv, res_arxiv40, g, gatconv_bf16
 
 
 # -- P1 and P2: the row gather ----------------------------------------------
@@ -2280,9 +2272,8 @@ def phase_gat_main():
     before it and read just after it.
 
     reddit and ogbn-arxiv run the fused form: one K3 forward and one b2 call
-    a layer and step, no K1 or K2. A forward call combines once when the dst
-    CSR has long rows (arxiv's), a b2 call B2_COMBINES times when the
-    reverse CSR has (both graphs').
+    a layer and step, no K1 or K2, and no combine launch: K3 folds the long
+    rows of both graphs' CSRs inside its launch.
 
     pubmed runs the edge form: its launches per step are gat_edge_per_step's,
     12 K2, 3 K1 and 18 P1 in source order, and each edge-softmax rescue
@@ -2298,7 +2289,7 @@ def phase_gat_main():
     from dgl_tpu_torch.benchmarks.node_classification import main_gat
     from dgl_tpu_torch.data import NODE_DATASET_STATS
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
-    from dgl_tpu_torch.kernels.gat_attention import B2_COMBINES, gat_attention_bwd, gat_attention_fwd
+    from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
     from dgl_tpu_torch.kernels.row_gather import row_gather_by_source
     from dgl_tpu_torch.kernels.seg_sum import seg_sum
     from dgl_tpu_torch.ops.softmax import edge_softmax
@@ -2333,9 +2324,9 @@ def phase_gat_main():
         s, gg = steps[ds], graphs[ds]
         want_l[ds] = {"csr_spmm": 0, "gat_attention_fwd": 3 * s, "gat_attention_bwd": 3 * s,
                       "seg_sum": 0, "row_gather_by_source": 0}
-        want_c[ds] = {"gat_attention_fwd": 3 * s * int(gg.split.num_long > 0),
-                      "gat_attention_bwd": B2_COMBINES * 3 * s * int(gg.reverse.split.num_long > 0),
-                      "seg_sum": 0}
+        want_c[ds] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0, "seg_sum": 0}
+        if not (gg.split.num_long or gg.reverse.split.num_long):
+            raise AssertionError(f"{ds}: no long row in either CSR, so no fold is counted")
     s, pub = steps["pubmed"], graphs["pubmed"]
     per_step, per_rescue = gat_edge_per_step()
     want_l["pubmed"] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0} | {
@@ -3476,6 +3467,114 @@ def k2_p1_splits(out_path="k2p1_splits.json"):
     return out
 
 
+# K3's shapes on the main paths, timed against another checkout in turns:
+# name: (graph, heads, d, keep, passes, dtypes)
+K3_TURN_SHAPES = {
+    "reddit_h1_d16": ("reddit", 1, 16, REDDIT_KEEP, ("fwd", "b2"), ("f32", "bf16")),
+    "arxiv_h4_d16": ("ogbn-arxiv", 4, 16, REDDIT_KEEP, ("fwd", "b2"), ("f32", "bf16")),
+    "arxiv_h4_d40": ("ogbn-arxiv", 4, 40, REDDIT_KEEP, ("fwd", "b2"), ("f32", "bf16")),
+    "reddit_raw_h8_d16": ("reddit_raw", 8, 16, 1.0, ("fwd",), ("f32",)),
+    "reddit_raw_h1_d41": ("reddit_raw", 1, 41, 1.0, ("fwd",), ("f32",)),
+    "cluster_h4_d64": ("cluster", 4, 64, 0.5, ("fwd", "b2"), ("f32",)),
+    "cluster_h1_d47": ("cluster", 1, 47, 0.5, ("fwd", "b2"), ("f32",)),
+    "products_h4_d64": ("products", 4, 64, 1.0, ("fwd",), ("f32",)),
+}
+
+
+def k3_parent_turns(parent, card, out_path="k3_turns.jsonl", only=None):
+    """K3's two passes from this checkout and from ``parent`` (another
+    checkout, e.g. ``git archive`` of the parent commit, whose
+    ``dgl_tpu_torch`` is imported as ``parent_dgl_tpu_torch`` and builds its
+    own kernels) at the main paths' shapes (K3_TURN_SHAPES: gat_reddit's
+    reddit and arxiv, ns_gat's evaluation on reddit as given, a products
+    cluster batch, the whole products graph), on the same seeded inputs:
+    the outputs' largest difference, each tree's launches and combine
+    launches a call, and each tree's CUDA-event time in turns (in_turns:
+    parent, this, this, parent). One JSON line a shape and pass, written to
+    out_path after each, the card's line (phase_device's) first. Run it
+    after phase_device() and phase_build(); the cluster batch partitions products on the host unless the data directory
+    holds the partition (cluster_main writes it)."""
+    import importlib
+    import importlib.util
+
+    from dgl_tpu_torch import from_edges
+    from dgl_tpu_torch.data import data_root, load_node_dataset
+    from dgl_tpu_torch.kernels import gat_attention as new_k3
+    from dgl_tpu_torch.sampling.cluster import ClusterIter
+
+    name = "parent_dgl_tpu_torch"
+    pkg = os.path.join(os.path.abspath(parent), "dgl_tpu_torch")
+    spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
+    old_k3 = importlib.import_module(f"{name}.kernels.gat_attention")
+    trees = (("parent", old_k3), ("new", new_k3))
+    dev, lines = torch.device("cuda"), [{"card": card, "parent": os.path.abspath(parent)}]
+
+    def graph_of(kind):
+        if kind in ("reddit", "ogbn-arxiv"):
+            return _gat_graph(kind, dev)
+        data = load_node_dataset("reddit" if kind == "reddit_raw" else "ogbn-products")
+        if kind != "cluster":
+            return from_edges(data.src, data.dst, data.num_nodes, device=dev)
+        return ClusterIter(PRODUCTS_KEY, data.src, data.dst, data.num_nodes, data.features,
+                           data.labels, data.train_mask, CLUSTER_PSIZE, 32, method="metis",
+                           cache_dir=data_root(), device=dev).first().graph
+
+    kind_now, g = None, None
+    for shape in only or K3_TURN_SHAPES:
+        kind, h, d, keep, passes, dtypes = K3_TURN_SHAPES[shape]
+        if kind != kind_now:
+            g = None
+            torch.cuda.empty_cache()
+            kind_now, g = kind, graph_of(kind)
+        gen = torch.Generator(device=dev).manual_seed(18)
+        n_src, n_dst, rev = g.num_src_nodes, g.num_dst_nodes, g.reverse
+        v = 1.0 + torch.randn(n_src, h, d, device=dev, generator=gen)
+        g_out = 1.0 + torch.randn(n_dst, h, d, device=dev, generator=gen)
+        a_s = torch.randn(n_src, h, device=dev, generator=gen)
+        a_d = torch.randn(n_dst, h, device=dev, generator=gen)
+        kw = dict(negative_slope=0.2, keep=keep,
+                  seed=torch.tensor([20260], dtype=torch.int32, device=dev))
+        for dt in dtypes:
+            vv = v.to(BF16) if dt == "bf16" else v
+            out = new_k3.gat_attention_fwd(g.indptr, g.src, vv, a_s, a_d, split=g.split, **kw)
+            node = torch.stack([a_d, out[4], out[2], (g_out * out[0]).sum(-1)], -1)
+            calls = {
+                "fwd": {t: (lambda m=m: m.gat_attention_fwd(g.indptr, g.src, vv, a_s, a_d,
+                                                             split=g.split, **kw))
+                        for t, m in trees},
+                "b2": {t: (lambda m=m: m.gat_attention_bwd(rev.indptr, rev.src, rev.eid, g_out,
+                                                           node, a_s, split=rev.split,
+                                                           v_dtype=vv.dtype, **kw))
+                       for t, m in trees}}
+            for p in passes:
+                got = {t: f() for t, f in calls[p].items()}
+                diff = max(float((x.float() - y.float()).abs().max())
+                           for x, y in zip(got["parent"], got["new"]))
+                fns = {t: m.gat_attention_fwd if p == "fwd" else m.gat_attention_bwd
+                       for t, m in trees}
+                before = {t: (f.launches, f.combines) for t, f in fns.items()}
+                parent_ms, new_ms = in_turns(calls[p]["parent"], calls[p]["new"])
+                made = 2 * (20 + 3)  # in_turns' calls of each: two medians of 20, 3 warm-up
+                row = {"shape": shape, "pass": p, "dtype": dt, "heads": h, "d": d, "keep": keep,
+                       "nodes": n_dst, "edges": g.num_edges, "parent_ms": parent_ms,
+                       "new_ms": new_ms, "new_over_parent": new_ms / parent_ms,
+                       "max_abs_diff": diff,
+                       "long_rows": (g.split if p == "fwd" else rev.split).num_long}
+                for t, f in fns.items():
+                    row[f"{t}_launches_a_call"] = (f.launches - before[t][0]) / made
+                    row[f"{t}_combines_a_call"] = (f.combines - before[t][1]) / made
+                print(json.dumps(row), flush=True)
+                lines.append(row)
+                with open(out_path, "w") as f:
+                    f.writelines(json.dumps(r) + "\n" for r in lines)
+            del out, node, calls, got
+        del v, g_out, a_s, a_d
+    return lines
+
+
 # -- the SpMM / SDDMM kernel sweep (the suite's L0 tier) --------------------
 
 def gather_orders(g, gen):
@@ -3694,8 +3793,8 @@ def phase_ns_main():
         kind = "gat" if NS_RUNS[key][0] == "ns_gat" else "sage"
         steps = r["steps"] + (NS_PROFILE_STEPS if r["profile"] else 0)
         want_l[key] = ns_launches(kind, 2, steps, len(r["eval_epochs"]))
-        want_c[key] = {k: n * int(g.split.num_long > 0) if k == "gat_attention_fwd"
-                       else 0 for k, n in want_l[key].items() if k in combines[key]}
+        # K1, K2 and K3 fold long rows in their launch: no combine launch
+        want_c[key] = {k: 0 for k in want_l[key] if k in combines[key]}
         losses = r["losses"]
         if not (all(math.isfinite(v) for v in losses)
                 and statistics.mean(losses[-10:]) < statistics.mean(losses[:10])):
@@ -5044,7 +5143,7 @@ def main():
     red, red_graph = phase_reddit()
     launches = phase_main()
     phase_gat_random()
-    gred, gred_arxiv, gred_arxiv40, key_times, gat_graph, gatconv_bf16 = phase_gat_reddit()
+    gred, gred_arxiv, gred_arxiv40, gat_graph, gatconv_bf16 = phase_gat_reddit()
     floors, rows = phase_row_gather(red, red_graph, gred, gat_graph)
     del gat_graph
     glaunch, gcombines = phase_gat_main()
@@ -5205,10 +5304,7 @@ def main():
                         plain_ms_arxiv_d40=gred_arxiv40[name]["plain_ms"],
                         bound_ms_arxiv_d40=gred_arxiv40[name]["bound_ms"],
                         max_abs_err_arxiv_d40=gred_arxiv40[name]["max_abs_err"],
-                        # both passes with dropout, the per-(edge, head) key
-                        # against the per-edge key of before, in one run
-                        **{f"{k}_{ds}": key_times[ds][name][k] for ds in key_times
-                           for k in ("ms_edge_head_key", "ms_edge_key")}, **extra)
+                        **extra)
           for name, p, extra in (
               # the NS runs (ns_gat's evaluations: H = 8, D = 16, then
               # H = 1, D = 41) and the forward at both shapes on reddit as given

@@ -1,16 +1,15 @@
 """The row split of a CSR: its long rows cut into chunks of at most T edges.
 
-The CSR kernels give one warp to each row (``kernels/csrc/lanes.cuh``), and
-a launch lasts as long as its longest row. On the synthetic reddit graph the
+The CSR kernels walk a CSR's rows with warps (``kernels/csrc/lanes.cuh``),
+and a launch lasts as long as its longest row. On the synthetic reddit graph the
 reverse CSR has a row of 212,102 edges, a second of 121,314, and 1,852 rows
 of more than 512 edges. So every row of more than ``T`` edges is cut into
 chunks of at most ``T`` edges, in ascending edge order; a kernel runs each
 chunk as one warp's work, into a partials buffer, and each long row's
 partials are added in ascending chunk order (no atomic decides an order of
-additions: two runs are bitwise equal): by a combine launch in K3, inside
-the launch in K1 and K2, whose last chunk warp of a row folds it, counted
-on the plan's ``counters``. Rows of at most ``T`` edges run on the per-row
-code as before.
+additions: two runs are bitwise equal) inside the launch of K1, K2 and K3,
+whose last chunk warp of a row folds it, counted on the plan's
+``counters``. Rows of at most ``T`` edges run on the run warps' code.
 
 The plan is built once on the host, with the graph (``from_edges``), from
 the CSR's ``indptr`` in numpy, so the ops never read ``indptr`` back from
@@ -42,10 +41,10 @@ class RowSplit:
     ``chunk_ptr`` (L + 1,) int64: long row ``i`` owns chunks
     ``chunk_ptr[i]:chunk_ptr[i + 1]``; ``chunks`` (C, 2) int64: each chunk's
     ``[begin, end)`` edge offsets, at most ``t`` edges, ascending;
-    ``counters`` (L,) int32 zeros: K1 and K2, which fold the long rows in
-    their launch, count each long row's chunk warps there as they arrive,
-    and the last sets its counter back to 0, so two launches of either
-    kernel over one CSR must not run at once on two streams.
+    ``counters`` (L,) int32 zeros: K1, K2 and K3, which fold the long rows
+    in their launch, count each long row's chunk warps there as they
+    arrive, and the last sets its counter back to 0, so two launches over
+    one CSR must not run at once on two streams.
     ``num_rows`` and ``num_edges`` are the CSR's, to check a plan against the
     ``indptr`` it is used with.
     """
@@ -77,7 +76,7 @@ class RowSplit:
         rows, chunk_ptr, n_long, chunks, n_chunks, partials``), with the (C, D)
         float32 ``partials`` buffer the chunks are summed into; ``None`` (a
         null pointer, which no kernel reads) for a plan with no chunks.
-        ``counters``: K1's and K2's, which fold the long rows in their
+        ``counters``: K1's, K2's and K3's, which fold the long rows in their
         launch, take the arrival counters after ``partials``."""
         args = (self.t, self.rows.data_ptr(), self.chunk_ptr.data_ptr(), self.num_long,
                 self.chunks.data_ptr(), self.num_chunks,
@@ -101,9 +100,8 @@ class RowSplit:
 
         The rows themselves are not compared, as that would read ``indptr``
         back: a plan of another CSR with the same counts passes, and the
-        kernels then write the rows it lists from its chunks; K3 leaves every
-        long row it does not list unwritten, K1 and K2 sum such a row in
-        their run warps."""
+        kernels then write the rows it lists from its chunks and sum every
+        other row in their run warps."""
         if self.num_rows != indptr.numel() - 1 or self.num_edges != num_edges:
             raise ValueError(
                 f"{what}: the row split is for {self.num_rows} rows and {self.num_edges} edges, "

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use.
 
 Each source under ``csrc/`` becomes one shared library with a plain C
-interface, loaded with ``ctypes`` (``csr_spmm.cu`` two: its float32 entry
-point and, built with ``DEFINES``, its bfloat16 one). Libraries go to ``kernels/_build/``
+interface, loaded with ``ctypes`` (``csr_spmm.cu`` and ``gat_attention.cu``
+two each: their float32 entry points and, built with ``DEFINES``, their
+bfloat16 ones). Libraries go to ``kernels/_build/``
 (listed in ``.gitignore``), named by a hash of the source and the flags: a
 changed source is rebuilt, an unchanged one is reused. ``build`` starts one
 ``nvcc`` per missing library, all at once, and waits for them all.
@@ -30,16 +31,20 @@ SOURCES: Dict[str, str] = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
     for name in ("csr_spmm", "seg_sum", "gat_attention", "row_gather")
 }
-# K1's bfloat16 entry point: csr_spmm.cu again, with K1_ROWS_BF16, so that
-# its instantiations build beside the float32 ones, in parallel
+# K1's and K3's bfloat16 entry points: csr_spmm.cu and gat_attention.cu
+# again, with K1_ROWS_BF16 and K3_BF16, so that their instantiations build
+# beside the float32 ones, in parallel
 SOURCES["csr_spmm_bf16"] = SOURCES["csr_spmm"]
-DEFINES: Dict[str, List[str]] = {"csr_spmm_bf16": ["-DK1_ROWS_BF16"]}
+SOURCES["gat_attention_bf16"] = SOURCES["gat_attention"]
+DEFINES: Dict[str, List[str]] = {"csr_spmm_bf16": ["-DK1_ROWS_BF16"],
+                                 "gat_attention_bf16": ["-DK3_BF16"]}
 # headers the sources include (``#include "lanes.cuh"`` resolves beside the
 # source): the device helpers every source includes, the asynchronous
-# copies of K1, K2 and P1, and their geometry; a changed header rebuilds
-# every library
+# copies of K1, K2, K3 and P1, and their geometry; a changed header
+# rebuilds every library
 HEADERS = [os.path.join(_HERE, "csrc", name)
-           for name in ("lanes.cuh", "async_copy.cuh", "k1_geometry.h", "k2_p1_geometry.h")]
+           for name in ("lanes.cuh", "async_copy.cuh", "k1_geometry.h", "k2_p1_geometry.h",
+                        "k3_geometry.h")]
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

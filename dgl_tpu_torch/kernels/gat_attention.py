@@ -13,22 +13,40 @@ N-wide closed forms of ``_lane_gat_bwd``::
     grad_a_src = Σ_D v · w2 − w3
 
 Each pass wrapper launches its hand-written CUDA kernel
-(``csrc/gat_attention.cu``) for CUDA tensors and uses its plain version
-(``*_plain``: gathers, ``exp`` and ``index_add_``, the unsplit definition)
-only for CPU tensors; ``gat_attention_fwd.launches`` and
-``gat_attention_bwd.launches`` count the calls that launch a pass,
-``.combines`` the combine launches among them.
+(``csrc/gat_attention.cu``, one launch a call, through ``build.launch``) for
+CUDA tensors and uses its plain version (``*_plain``: gathers, ``exp`` and
+``index_add_``, the unsplit definition) only for CPU tensors;
+``gat_attention_fwd.launches`` and ``gat_attention_bwd.launches`` count the
+calls that launch a pass. ``.combines`` stays 0: the kernels fold their
+long rows inside their launch.
 
-Long rows are split as in K1 (``kernels/csr_spmm.py``): every row of more
-than ``T`` edges is cut into chunks of at most ``T`` edges, each run by one
-warp of the pass's launch. b2's chunk sums are linear, and three combine
-launches (``grad_v``, ``w2``, ``w3``) add each long row's chunks in
-ascending order. A forward chunk keeps its own shift ``sh_k`` (its chunk's
-maximum); one combine launch takes the row's shift ``sh = max_k sh_k``,
-scales each chunk by ``exp(sh_k − sh)`` and adds them in ascending order.
-No atomics decide an order, so two runs are bitwise equal.
-``gat_attention_plain`` is the whole function written with gathers and
-differentiated by autograd, the yardstick of the tests.
+The kernels (``csrc/gat_attention.cu``, sized by ``csrc/k3_geometry.h``)
+replace ``dgl_tpu/kernels/lane_attention.py:_attn_pass``. On the card they
+are bound by dependent row gathers, as K1 is, so their design is K1's: a
+warp walks a run of consecutive rows for every head at once, each edge's
+index read once and its whole H·D row staged in shared memory by TMA bulk
+or ``cp.async`` copies, with the edge's ``a_src`` (b2: its ``node``) staged
+beside it; lanes own columns of the row and take their own head's weight
+of each edge, which the lane scoring that (edge, head) pair wrote to
+shared memory. The softmax shift is found online, a running maximum per
+head whose rise rescales that head's sums (design (a)). A pre-pass over the
+row's indices and ``a_src`` for the exact maxima first (design (b)) was
+built beside it, timed in turns on an NVIDIA H100 80GB HBM3 at 700 W and
+removed: (a) took 0.5153 ms against 0.5796 at H = 1 on reddit and 0.4482
+against 0.5066 at H = 4 on arxiv (D = 16, with dropout; PERF.md §6 names
+the run). Long rows are split as in K1 (``kernels/csr_spmm.py``):
+every row of more than ``T`` edges is cut into chunks of at most ``T``
+edges, each one warp's work in the pass's launch, and the warp that counts
+a long row's last chunk on the plan's ``counters`` combines it in the same
+launch: b2's sums linearly in ascending chunk order; the forward's, each
+chunk with its own shift ``sh_k`` (its chunk's maximum), scaled by
+``exp(sh_k − sh)`` to the row's shift ``sh = max_k sh_k`` and added in
+ascending order. No atomics decide an order, so two runs are bitwise equal.
+The forward and b2 over one CSR share its plan's counters: the package runs
+both on one stream. A CSR of 2^31 edges or rows or more is refused (the
+index arrays are int32). ``gat_attention_plain`` is the whole function
+written with gathers and differentiated by autograd, the yardstick of the
+tests.
 
 Attention dropout is the JAX package's stateless hash
 (``dgl_tpu/kernels/lane_attention.py:_hash_keep``, ``keep_mask``) keyed on
@@ -46,7 +64,8 @@ float32, and writes float32; b2 reads the float32 cotangent, sums
 ``grad_v`` in float32 and rounds it once to v's type (``:477``), which
 ``gat_attention_bwd`` takes as ``v_dtype``; ``grad_a_src = Σ_D v·w2 − w3``
 reads v converted to float32. ``.launches_bf16`` counts each pass's
-bfloat16 launches among ``.launches``.
+bfloat16 launches among ``.launches``. The kernels take at most
+``MAX_HEADS`` heads.
 
 Counterpart of ``dgl_tpu/kernels/lane_attention.py:lane_gat_agg``. The
 softmax shift is the exact row maximum, where the JAX kernel uses the loose
@@ -64,7 +83,7 @@ import torch
 
 from ..graph.split import RowSplit, row_split
 from ..ops.segment import segment_max
-from .build import load
+from .build import entry, launch
 from .seg_sum import ROW_DTYPES, csr_rows, sum_dtype
 
 __all__ = [
@@ -79,7 +98,7 @@ __all__ = [
 ]
 
 _U32 = 0xFFFFFFFF
-B2_COMBINES = 3  # combine launches of a b2 call with long rows: grad_v, w2, w3
+MAX_HEADS = 32  # the kernels' lanes score head lane % H (H rounded up to a power of two)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -232,20 +251,25 @@ def _check(name, indptr, index_arrays, floats, seed, keep, rows=()) -> None:
         raise ValueError(f"{name}: keep must be in (0, 1], got {keep}")
 
 
-def _fn(name: str, dtype: torch.dtype, n_ptrs_before_dims: int):
-    """The C entry point of pass ``name`` for rows of ``dtype`` (v, or b2's
-    grad_v): indptr and its type, the pass's pointers, its sizes and
-    dropout, the row split (``RowSplit.kernel_args``), two more partials
-    buffers and the stream."""
-    fn = getattr(load("gat_attention"), f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
-    if fn.argtypes is None:
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = ([p, ctypes.c_int] + [p] * n_ptrs_before_dims
-                       + [ll, ctypes.c_int, ctypes.c_int, ctypes.c_float, p, ctypes.c_uint,
-                          ctypes.c_float]
-                       + [ll, p, p, ll, p, ll, p] + [p, p, p])
-        fn.restype = ctypes.c_int
-    return fn
+_P, _LL, _I, _F, _U = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_uint)
+# The C entry points' arguments: indptr and its int64 flag, the pass's
+# arrays and sizes, the dropout (seed, thresh, scale), the row split
+# (RowSplit.kernel_args(p0, counters=True) less its T), the other partials,
+# the CSR's edge count, the stream.
+_FWD_ARGTYPES = (_P, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P, _U, _F,
+                 _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _LL, _P)
+_B2_ARGTYPES = (_P, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P, _U, _F,
+                _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _LL, _P)
+
+
+def _entry(name: str, dtype: torch.dtype, argtypes):
+    """Pass ``name``'s C entry point for rows of ``dtype`` (v, or b2's
+    grad_v): the float32 pair in ``gat_attention``'s library, the bfloat16
+    pair in ``gat_attention_bf16``'s."""
+    if dtype == torch.bfloat16:
+        return entry("gat_attention_bf16", f"{name}_bf16", argtypes)
+    return entry("gat_attention", f"{name}_f32", argtypes)
 
 
 def _partials(chunks: int, dev, *shapes):
@@ -258,6 +282,11 @@ def _partials(chunks: int, dev, *shapes):
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _check_heads(name: str, heads: int) -> None:
+    if heads > MAX_HEADS:
+        raise ValueError(f"{name}: the kernels take at most {MAX_HEADS} heads, got {heads}")
 
 
 def _drop_args(keep: float, seed):
@@ -280,10 +309,12 @@ def gat_attention_fwd(
     ``split``: the CSR's row split (``g.split`` for a graph's dst CSR), on
     the device of ``indptr``, checked as ``csr_spmm`` checks it: one whose
     row or edge count differs raises ``ValueError`` before any launch; one
-    of another CSR with the same counts is not caught, and leaves the rows
-    of more than ``split.t`` edges that it does not list undefined. Without
-    one, a launch on the card builds it from ``indptr`` (a host sync). The
-    package's ops always pass the graph's plan.
+    of another CSR with the same counts is not caught: the rows it lists get
+    the sums of its chunks, the others are summed as usual. Without one, a
+    launch on the card builds it from ``indptr`` (a host sync). The
+    package's ops always pass the graph's plan. Two launches with one plan
+    (this pass's or b2's) must not run at once on two streams (its
+    counters).
     """
     _check("gat_attention_fwd", indptr, [src], [a_src, a_dst], seed, keep, rows=[v])
     n, (n_src, heads, d) = indptr.numel() - 1, v.shape
@@ -300,25 +331,21 @@ def gat_attention_fwd(
                          for _ in range(3))
     if n == 0 or d == 0 or heads == 0:
         return out, w1, inv_s, w1s, shift
+    _check_heads("gat_attention_fwd", heads)
     if split is None:
         split = row_split(indptr)
     c = split.num_chunks
     # the chunks' unnormalised sums and (shift, s, w1su)
     pnum, pw1u, pscal = _partials(c, v.device, (c, heads, d), (c, heads, d), (3, c, heads))
     seed_ptr, thresh, scale = _drop_args(keep, seed)
-    with torch.cuda.device(v.device):
-        err = _fn("gat_fwd", v.dtype, 9)(
-            indptr.data_ptr(), int(indptr.dtype == torch.int64), src.data_ptr(), v.data_ptr(),
-            a_src.data_ptr(), a_dst.data_ptr(), out.data_ptr(), w1.data_ptr(), inv_s.data_ptr(),
-            w1s.data_ptr(), shift.data_ptr(), n, heads, d, negative_slope, seed_ptr, thresh,
-            scale, *split.kernel_args(pnum), _ptr(pw1u), _ptr(pscal),
-            torch.cuda.current_stream(v.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"gat_attention_fwd kernel launch failed with CUDA error {err}")
+    launch(_entry("gat_fwd", v.dtype, _FWD_ARGTYPES), v.device,
+           indptr.data_ptr(), int(indptr.dtype == torch.int64), src.data_ptr(), v.data_ptr(),
+           n_src, a_src.data_ptr(), a_dst.data_ptr(), out.data_ptr(), w1.data_ptr(),
+           inv_s.data_ptr(), w1s.data_ptr(), shift.data_ptr(), n, heads, d, negative_slope,
+           seed_ptr, thresh, scale, *split.kernel_args(pnum, counters=True)[1:], _ptr(pw1u),
+           _ptr(pscal), src.numel())
     gat_attention_fwd.launches += 1
     gat_attention_fwd.launches_bf16 += int(v.dtype == torch.bfloat16)
-    gat_attention_fwd.combines += int(split.num_long > 0)
     return out, w1, inv_s, w1s, shift
 
 
@@ -341,7 +368,8 @@ def gat_attention_bwd(
     H, D) and ``w3`` (N_src, H) float32.
 
     ``split``: the reverse CSR's row split (``g.reverse.split``), as for
-    ``gat_attention_fwd``."""
+    ``gat_attention_fwd``; the forward over the same CSR shares its
+    counters."""
     _check("gat_attention_bwd", indptr, [dst, eid], [g, node, a_src], seed, keep)
     if v_dtype not in ROW_DTYPES:
         raise TypeError(f"gat_attention_bwd: v_dtype must be float32 or bfloat16, got {v_dtype}")
@@ -364,24 +392,19 @@ def gat_attention_bwd(
     w3 = torch.empty((n, heads), dtype=torch.float32, device=g.device)
     if n == 0 or d == 0 or heads == 0:
         return grad_v, w2, w3
+    _check_heads("gat_attention_bwd", heads)
     if split is None:
         split = row_split(indptr)
     c = split.num_chunks
     pgv, pw2, pw3 = _partials(c, g.device, (c, heads, d), (c, heads, d), (c, heads))
     seed_ptr, thresh, scale = _drop_args(keep, seed)
-    with torch.cuda.device(g.device):
-        err = _fn("gat_b2", v_dtype, 8)(
-            indptr.data_ptr(), int(indptr.dtype == torch.int64), dst.data_ptr(), eid.data_ptr(),
-            g.data_ptr(), node.data_ptr(), a_src.data_ptr(), grad_v.data_ptr(), w2.data_ptr(),
-            w3.data_ptr(), n, heads, d, negative_slope, seed_ptr, thresh, scale,
-            *split.kernel_args(pgv), _ptr(pw2), _ptr(pw3),
-            torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"gat_attention_bwd kernel launch failed with CUDA error {err}")
+    launch(_entry("gat_b2", v_dtype, _B2_ARGTYPES), g.device,
+           indptr.data_ptr(), int(indptr.dtype == torch.int64), dst.data_ptr(), eid.data_ptr(),
+           g.data_ptr(), n_dst, node.data_ptr(), a_src.data_ptr(), grad_v.data_ptr(),
+           w2.data_ptr(), w3.data_ptr(), n, heads, d, negative_slope, seed_ptr, thresh, scale,
+           *split.kernel_args(pgv, counters=True)[1:], _ptr(pw2), _ptr(pw3), dst.numel())
     gat_attention_bwd.launches += 1
     gat_attention_bwd.launches_bf16 += int(v_dtype == torch.bfloat16)
-    gat_attention_bwd.combines += B2_COMBINES * int(split.num_long > 0)
     return grad_v, w2, w3
 
 

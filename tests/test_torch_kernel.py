@@ -6,7 +6,8 @@ straddle the row split (graph/split.py), against the plain version and
 exact sums, and in their bfloat16 instantiations; K1 at odd widths, on x
 bases 4 and 8 bytes off 16-byte alignment whose storage ends with x, and
 on CSRs made only of long rows and of none (the combine folded into the
-launch, the plan's counters back at 0).
+launch, the plan's counters back at 0); both K3 passes at heads that are
+not a power of two, odd and wide rows and misaligned bases.
 
 This file imports no JAX, so the card's tests can run where JAX is absent:
     python -m pytest --noconftest tests/test_torch_kernel.py -m cuda
@@ -462,9 +463,8 @@ def test_split_k3_matches_plain_and_exact_sums_on_card(d, heads, keep):
     among them), read as the dst CSR by the forward and as the reverse CSR
     by b2: against the float64 plain version, on exact-sum inputs (every
     logit equal; keep 1 and 0.5 scale exactly), and two runs bitwise
-    equal; one launch and its combines each."""
-    from dgl_tpu_torch.kernels.gat_attention import B2_COMBINES
-
+    equal; one launch each, no combine launch (the long rows fold in the
+    launch) and the plan's counters, which both passes share, back at 0."""
     dev = _card()
     rng = np.random.default_rng(8 + heads)
     n_src = 2000
@@ -500,7 +500,8 @@ def test_split_k3_matches_plain_and_exact_sums_on_card(d, heads, keep):
         counts = (gat_attention_fwd.launches, gat_attention_fwd.combines)
         fwd = gat_attention_fwd(ip, idx, v, a_s, a_d, split=plan, **kw)
         assert (gat_attention_fwd.launches, gat_attention_fwd.combines) == (
-            counts[0] + 1, counts[1] + 1)
+            counts[0] + 1, counts[1])
+        assert not plan.counters.any(), "the forward's fold left a counter above 0"
         hold(fwd, gat_attention_fwd_plain(ip, idx, v.double(), a_s.double(), a_d.double(), **kw),
              "forward")
         assert all(torch.equal(a, b) for a, b in
@@ -508,7 +509,8 @@ def test_split_k3_matches_plain_and_exact_sums_on_card(d, heads, keep):
         counts = (gat_attention_bwd.launches, gat_attention_bwd.combines)
         bwd = gat_attention_bwd(ip, idx, eid, g_out, node, a_s_rev, split=plan, **kw)
         assert (gat_attention_bwd.launches, gat_attention_bwd.combines) == (
-            counts[0] + 1, counts[1] + B2_COMBINES)
+            counts[0] + 1, counts[1])
+        assert not plan.counters.any(), "b2's fold left a counter above 0"
         hold(bwd, gat_attention_bwd_plain(ip, idx, eid, g_out.double(), node.double(),
                                           a_s_rev.double(), **kw), "b2")
         assert all(torch.equal(a, b) for a, b in
@@ -532,6 +534,48 @@ def test_split_k3_matches_plain_and_exact_sums_on_card(d, heads, keep):
                                             **kwi)
             for i, (x, w) in enumerate(zip(got, want)):
                 assert torch.equal(x, w.float()), f"exact output {i}, keep {k}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4, 8])
+@pytest.mark.parametrize("heads,d", [(2, 41), (8, 64), (3, 16)])
+def test_k3_heads_widths_and_misaligned_bases_on_card(heads, d, shift):
+    """Both K3 passes with every head in one warp: heads that are not a
+    power of two, odd and wide rows (two column pieces at H = 8, D = 64),
+    v and g at bases 0, 4 and 8 bytes off 16-byte alignment whose storage
+    ends with the array, over a graph with a long row in each CSR: the plain
+    version, two runs bitwise equal, the counters back at 0."""
+    from dgl_tpu_torch import from_edges
+
+    dev = _card()
+    rng = np.random.default_rng(heads * d + shift)
+    n, e = 900, 20_000
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    src[:1200], dst[1200:2400] = n - 1, 0  # a long row in the reverse CSR and in the dst CSR
+    g = from_edges(src, dst, n, device=dev)
+    rev = g.reverse
+
+    def rows():  # (n, heads, d) at `shift` bytes past a 16-byte-aligned allocation
+        flat = torch.randn(shift // 4 + n * heads * d, device=dev)
+        return flat[shift // 4:].view(n, heads, d)
+
+    v, g_out = rows(), rows()
+    assert v.data_ptr() % 16 == shift
+    a_s, a_d = (torch.randn(n, heads, device=dev) for _ in range(2))
+    kw = dict(negative_slope=0.2, keep=0.82, seed=torch.tensor([5], dtype=torch.int32, device=dev))
+    fwd = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
+    for got, want in zip(fwd, gat_attention_fwd_plain(g.indptr, g.src, v, a_s, a_d, **kw)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in
+               zip(fwd, gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)))
+    node = torch.stack([a_d, fwd[4], fwd[2], (g_out * fwd[0]).sum(-1)], -1)
+    args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
+    bwd = gat_attention_bwd(*args, split=rev.split, **kw)
+    for got, want in zip(bwd, gat_attention_bwd_plain(*args, **kw)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(bwd, gat_attention_bwd(*args, split=rev.split, **kw)))
+    assert g.split.num_long and rev.split.num_long
+    assert not g.split.counters.any() and not rev.split.counters.any()
 
 
 @pytest.mark.cuda
