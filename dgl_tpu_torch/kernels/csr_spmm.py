@@ -48,6 +48,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from ..graph.split import RowSplit, row_split
 from .build import load
 from .seg_sum import ROW_DTYPES, csr_rows, sum_dtype
@@ -141,33 +142,35 @@ def csr_spmm(
     card. The package's ops always pass the graph's plan. Two launches with
     one plan must not run at once on two streams (its counters).
     """
-    _check(indptr, indices, x, w)
-    if split is not None:
-        split.check(indptr, indices.numel(), "csr_spmm")
-    if x.device.type == "cpu":
-        return csr_spmm_plain(indptr, indices, x, w, mean=mean)
-    if x.device.type != "cuda":
-        raise ValueError(f"csr_spmm runs on cuda or cpu tensors, got {x.device}")
-    n_rows, d = indptr.numel() - 1, x.shape[1]
-    out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
-    if n_rows == 0 or d == 0:
+    with trace.span("dgl_tpu_torch.K1"):
+        _check(indptr, indices, x, w)
+        if split is not None:
+            split.check(indptr, indices.numel(), "csr_spmm")
+        if x.device.type == "cpu":
+            return csr_spmm_plain(indptr, indices, x, w, mean=mean)
+        if x.device.type != "cuda":
+            raise ValueError(f"csr_spmm runs on cuda or cpu tensors, got {x.device}")
+        n_rows, d = indptr.numel() - 1, x.shape[1]
+        out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
+        if n_rows == 0 or d == 0:
+            return out
+        if split is None:
+            split = row_split(indptr)
+        partials = torch.empty((split.num_chunks, d), dtype=torch.float32, device=x.device)
+        fn = _kernel_fn(x.dtype)
+        with torch.cuda.device(x.device):
+            err = fn(
+                indptr.data_ptr(), int(indptr.dtype == torch.int64), indices.data_ptr(),
+                None if w is None else w.data_ptr(), x.data_ptr(), x.shape[0], out.data_ptr(),
+                n_rows, d, int(mean), *split.kernel_args(partials, counters=True), indices.numel(),
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"csr_spmm kernel launch failed with CUDA error {err}")
+        csr_spmm.launches += 1
+        csr_spmm.launches_bf16 += int(x.dtype == torch.bfloat16)
+        trace.launch("K1", "spmm", indptr, indices, x, weighted=w is not None)
         return out
-    if split is None:
-        split = row_split(indptr)
-    partials = torch.empty((split.num_chunks, d), dtype=torch.float32, device=x.device)
-    fn = _kernel_fn(x.dtype)
-    with torch.cuda.device(x.device):
-        err = fn(
-            indptr.data_ptr(), int(indptr.dtype == torch.int64), indices.data_ptr(),
-            None if w is None else w.data_ptr(), x.data_ptr(), x.shape[0], out.data_ptr(),
-            n_rows, d, int(mean), *split.kernel_args(partials, counters=True), indices.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"csr_spmm kernel launch failed with CUDA error {err}")
-    csr_spmm.launches += 1
-    csr_spmm.launches_bf16 += int(x.dtype == torch.bfloat16)
-    return out
 
 
 csr_spmm.launches = 0

@@ -81,6 +81,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..graph.split import RowSplit, row_split
 from ..ops.segment import segment_max
 from .build import entry, launch
@@ -316,37 +317,40 @@ def gat_attention_fwd(
     (this pass's or b2's) must not run at once on two streams (its
     counters).
     """
-    _check("gat_attention_fwd", indptr, [src], [a_src, a_dst], seed, keep, rows=[v])
-    n, (n_src, heads, d) = indptr.numel() - 1, v.shape
-    if a_src.shape != (n_src, heads) or a_dst.shape != (n, heads):
-        raise ValueError(f"gat_attention_fwd: a_src {tuple(a_src.shape)} / a_dst "
-                         f"{tuple(a_dst.shape)} do not match v {tuple(v.shape)} and {n} rows")
-    if split is not None:
-        split.check(indptr, src.numel(), "gat_attention_fwd")
-    if v.device.type == "cpu":
-        return gat_attention_fwd_plain(indptr, src, v, a_src, a_dst, negative_slope=negative_slope,
-                                       keep=keep, seed=seed)
-    out, w1 = (torch.empty((n, heads, d), dtype=torch.float32, device=v.device) for _ in range(2))
-    inv_s, w1s, shift = (torch.empty((n, heads), dtype=torch.float32, device=v.device)
-                         for _ in range(3))
-    if n == 0 or d == 0 or heads == 0:
+    with trace.span("dgl_tpu_torch.K3.fwd"):
+        _check("gat_attention_fwd", indptr, [src], [a_src, a_dst], seed, keep, rows=[v])
+        n, (n_src, heads, d) = indptr.numel() - 1, v.shape
+        if a_src.shape != (n_src, heads) or a_dst.shape != (n, heads):
+            raise ValueError(f"gat_attention_fwd: a_src {tuple(a_src.shape)} / a_dst "
+                             f"{tuple(a_dst.shape)} do not match v {tuple(v.shape)} and {n} rows")
+        if split is not None:
+            split.check(indptr, src.numel(), "gat_attention_fwd")
+        if v.device.type == "cpu":
+            return gat_attention_fwd_plain(indptr, src, v, a_src, a_dst,
+                                           negative_slope=negative_slope, keep=keep, seed=seed)
+        out, w1 = (torch.empty((n, heads, d), dtype=torch.float32, device=v.device)
+                   for _ in range(2))
+        inv_s, w1s, shift = (torch.empty((n, heads), dtype=torch.float32, device=v.device)
+                             for _ in range(3))
+        if n == 0 or d == 0 or heads == 0:
+            return out, w1, inv_s, w1s, shift
+        _check_heads("gat_attention_fwd", heads)
+        if split is None:
+            split = row_split(indptr)
+        c = split.num_chunks
+        # the chunks' unnormalised sums and (shift, s, w1su)
+        pnum, pw1u, pscal = _partials(c, v.device, (c, heads, d), (c, heads, d), (3, c, heads))
+        seed_ptr, thresh, scale = _drop_args(keep, seed)
+        launch(_entry("gat_fwd", v.dtype, _FWD_ARGTYPES), v.device,
+               indptr.data_ptr(), int(indptr.dtype == torch.int64), src.data_ptr(), v.data_ptr(),
+               n_src, a_src.data_ptr(), a_dst.data_ptr(), out.data_ptr(), w1.data_ptr(),
+               inv_s.data_ptr(), w1s.data_ptr(), shift.data_ptr(), n, heads, d, negative_slope,
+               seed_ptr, thresh, scale, *split.kernel_args(pnum, counters=True)[1:], _ptr(pw1u),
+               _ptr(pscal), src.numel())
+        gat_attention_fwd.launches += 1
+        gat_attention_fwd.launches_bf16 += int(v.dtype == torch.bfloat16)
+        trace.launch("K3", "fwd", indptr, src, v, dropout=keep < 1.0)
         return out, w1, inv_s, w1s, shift
-    _check_heads("gat_attention_fwd", heads)
-    if split is None:
-        split = row_split(indptr)
-    c = split.num_chunks
-    # the chunks' unnormalised sums and (shift, s, w1su)
-    pnum, pw1u, pscal = _partials(c, v.device, (c, heads, d), (c, heads, d), (3, c, heads))
-    seed_ptr, thresh, scale = _drop_args(keep, seed)
-    launch(_entry("gat_fwd", v.dtype, _FWD_ARGTYPES), v.device,
-           indptr.data_ptr(), int(indptr.dtype == torch.int64), src.data_ptr(), v.data_ptr(),
-           n_src, a_src.data_ptr(), a_dst.data_ptr(), out.data_ptr(), w1.data_ptr(),
-           inv_s.data_ptr(), w1s.data_ptr(), shift.data_ptr(), n, heads, d, negative_slope,
-           seed_ptr, thresh, scale, *split.kernel_args(pnum, counters=True)[1:], _ptr(pw1u),
-           _ptr(pscal), src.numel())
-    gat_attention_fwd.launches += 1
-    gat_attention_fwd.launches_bf16 += int(v.dtype == torch.bfloat16)
-    return out, w1, inv_s, w1s, shift
 
 
 gat_attention_fwd.launches = 0
@@ -370,42 +374,45 @@ def gat_attention_bwd(
     ``split``: the reverse CSR's row split (``g.reverse.split``), as for
     ``gat_attention_fwd``; the forward over the same CSR shares its
     counters."""
-    _check("gat_attention_bwd", indptr, [dst, eid], [g, node, a_src], seed, keep)
-    if v_dtype not in ROW_DTYPES:
-        raise TypeError(f"gat_attention_bwd: v_dtype must be float32 or bfloat16, got {v_dtype}")
-    n, (n_dst, heads, d) = indptr.numel() - 1, g.shape
-    if node.shape != (n_dst, heads, 4) or a_src.shape != (n, heads):
-        raise ValueError(f"gat_attention_bwd: node {tuple(node.shape)} / a_src "
-                         f"{tuple(a_src.shape)} do not match g {tuple(g.shape)} and {n} rows")
-    if eid.shape != dst.shape:
-        raise ValueError("gat_attention_bwd: dst and eid differ in length")
-    if split is not None:
-        split.check(indptr, dst.numel(), "gat_attention_bwd")
-    if g.device.type == "cpu":
-        return gat_attention_bwd_plain(indptr, dst, eid, g, node, a_src,
-                                       negative_slope=negative_slope, keep=keep, seed=seed,
-                                       v_dtype=v_dtype)
-    if node.data_ptr() % 16:
-        raise ValueError("gat_attention_bwd: node must be 16-byte aligned (one float4 per row)")
-    grad_v = torch.empty((n, heads, d), dtype=v_dtype, device=g.device)
-    w2 = torch.empty((n, heads, d), dtype=torch.float32, device=g.device)
-    w3 = torch.empty((n, heads), dtype=torch.float32, device=g.device)
-    if n == 0 or d == 0 or heads == 0:
+    with trace.span("dgl_tpu_torch.K3.b2"):
+        _check("gat_attention_bwd", indptr, [dst, eid], [g, node, a_src], seed, keep)
+        if v_dtype not in ROW_DTYPES:
+            raise TypeError(f"gat_attention_bwd: v_dtype must be float32 or bfloat16, "
+                            f"got {v_dtype}")
+        n, (n_dst, heads, d) = indptr.numel() - 1, g.shape
+        if node.shape != (n_dst, heads, 4) or a_src.shape != (n, heads):
+            raise ValueError(f"gat_attention_bwd: node {tuple(node.shape)} / a_src "
+                             f"{tuple(a_src.shape)} do not match g {tuple(g.shape)} and {n} rows")
+        if eid.shape != dst.shape:
+            raise ValueError("gat_attention_bwd: dst and eid differ in length")
+        if split is not None:
+            split.check(indptr, dst.numel(), "gat_attention_bwd")
+        if g.device.type == "cpu":
+            return gat_attention_bwd_plain(indptr, dst, eid, g, node, a_src,
+                                           negative_slope=negative_slope, keep=keep, seed=seed,
+                                           v_dtype=v_dtype)
+        if node.data_ptr() % 16:
+            raise ValueError("gat_attention_bwd: node must be 16-byte aligned (one float4 per row)")
+        grad_v = torch.empty((n, heads, d), dtype=v_dtype, device=g.device)
+        w2 = torch.empty((n, heads, d), dtype=torch.float32, device=g.device)
+        w3 = torch.empty((n, heads), dtype=torch.float32, device=g.device)
+        if n == 0 or d == 0 or heads == 0:
+            return grad_v, w2, w3
+        _check_heads("gat_attention_bwd", heads)
+        if split is None:
+            split = row_split(indptr)
+        c = split.num_chunks
+        pgv, pw2, pw3 = _partials(c, g.device, (c, heads, d), (c, heads, d), (c, heads))
+        seed_ptr, thresh, scale = _drop_args(keep, seed)
+        launch(_entry("gat_b2", v_dtype, _B2_ARGTYPES), g.device,
+               indptr.data_ptr(), int(indptr.dtype == torch.int64), dst.data_ptr(), eid.data_ptr(),
+               g.data_ptr(), n_dst, node.data_ptr(), a_src.data_ptr(), grad_v.data_ptr(),
+               w2.data_ptr(), w3.data_ptr(), n, heads, d, negative_slope, seed_ptr, thresh, scale,
+               *split.kernel_args(pgv, counters=True)[1:], _ptr(pw2), _ptr(pw3), dst.numel())
+        gat_attention_bwd.launches += 1
+        gat_attention_bwd.launches_bf16 += int(v_dtype == torch.bfloat16)
+        trace.launch("K3", "b2", indptr, dst, g, value_dtype=v_dtype, dropout=keep < 1.0)
         return grad_v, w2, w3
-    _check_heads("gat_attention_bwd", heads)
-    if split is None:
-        split = row_split(indptr)
-    c = split.num_chunks
-    pgv, pw2, pw3 = _partials(c, g.device, (c, heads, d), (c, heads, d), (c, heads))
-    seed_ptr, thresh, scale = _drop_args(keep, seed)
-    launch(_entry("gat_b2", v_dtype, _B2_ARGTYPES), g.device,
-           indptr.data_ptr(), int(indptr.dtype == torch.int64), dst.data_ptr(), eid.data_ptr(),
-           g.data_ptr(), n_dst, node.data_ptr(), a_src.data_ptr(), grad_v.data_ptr(),
-           w2.data_ptr(), w3.data_ptr(), n, heads, d, negative_slope, seed_ptr, thresh, scale,
-           *split.kernel_args(pgv, counters=True)[1:], _ptr(pw2), _ptr(pw3), dst.numel())
-    gat_attention_bwd.launches += 1
-    gat_attention_bwd.launches_bf16 += int(v_dtype == torch.bfloat16)
-    return grad_v, w2, w3
 
 
 gat_attention_bwd.launches = 0
@@ -416,29 +423,31 @@ gat_attention_bwd.combines = 0
 class _GATAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, a_src, a_dst, g, negative_slope, keep, seed):
-        out, w1, inv_s, w1s, shift = gat_attention_fwd(
-            g.indptr, g.src, v, a_src, a_dst, negative_slope=negative_slope, keep=keep, seed=seed,
-            split=g.split,
-        )
-        ctx.save_for_backward(v, a_src, a_dst, out, w1, inv_s, w1s, shift)
-        ctx.g, ctx.negative_slope, ctx.keep, ctx.seed = g, negative_slope, keep, seed
-        return out
+        with trace.span("dgl_tpu_torch._GATAttention.forward"):
+            out, w1, inv_s, w1s, shift = gat_attention_fwd(
+                g.indptr, g.src, v, a_src, a_dst, negative_slope=negative_slope, keep=keep,
+                seed=seed, split=g.split,
+            )
+            ctx.save_for_backward(v, a_src, a_dst, out, w1, inv_s, w1s, shift)
+            ctx.g, ctx.negative_slope, ctx.keep, ctx.seed = g, negative_slope, keep, seed
+            return out
 
     @staticmethod
     def backward(ctx, g_out):
-        v, a_src, a_dst, out, w1, inv_s, w1s, shift = ctx.saved_tensors
-        g_out = g_out.contiguous()
-        c = (g_out * out).sum(-1)
-        grad_a_dst = (g_out * w1).sum(-1) - c * w1s
-        node = torch.stack([a_dst, shift, inv_s, c], dim=-1)
-        rev = ctx.g.reverse
-        grad_v, w2, w3 = gat_attention_bwd(
-            rev.indptr, rev.src, rev.eid, g_out, node, a_src,
-            negative_slope=ctx.negative_slope, keep=ctx.keep, seed=ctx.seed, split=rev.split,
-            v_dtype=v.dtype,
-        )
-        grad_a_src = (v * w2).sum(-1) - w3
-        return grad_v, grad_a_src, grad_a_dst, None, None, None, None
+        with trace.span("dgl_tpu_torch._GATAttention.backward"):
+            v, a_src, a_dst, out, w1, inv_s, w1s, shift = ctx.saved_tensors
+            g_out = g_out.contiguous()
+            c = (g_out * out).sum(-1)
+            grad_a_dst = (g_out * w1).sum(-1) - c * w1s
+            node = torch.stack([a_dst, shift, inv_s, c], dim=-1)
+            rev = ctx.g.reverse
+            grad_v, w2, w3 = gat_attention_bwd(
+                rev.indptr, rev.src, rev.eid, g_out, node, a_src,
+                negative_slope=ctx.negative_slope, keep=ctx.keep, seed=ctx.seed, split=rev.split,
+                v_dtype=v.dtype,
+            )
+            grad_a_src = (v * w2).sum(-1) - w3
+            return grad_v, grad_a_src, grad_a_dst, None, None, None, None
 
 
 def gat_attention(

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import trace
 from ..graph.split import SPLIT_T, RowSplit, row_split
 from .build import entry, launch
 
@@ -89,16 +90,18 @@ def row_gather_async(x: torch.Tensor, idx: torch.Tensor, tile: int = 256) -> tor
     ``x`` (n, d) float32 or bfloat16, ``idx`` (e,) int32 or int64, any e.
     Returns (e, d), bit for bit ``x[idx]``.
     """
-    _check("row_gather_async", x, idx, tile, MAX_ASYNC_TILE)
-    if x.is_cpu:
-        return row_gather_plain(x, idx)
-    if not x.is_cuda:
-        raise ValueError(f"row_gather_async runs on cuda or cpu tensors, got {x.device}")
-    out = _empty_out(x, idx)
-    if out.numel():
-        _launch("row_gather_async", out, x, idx, tile)
-        row_gather_async.launches += 1
-    return out
+    with trace.span("dgl_tpu_torch.P1.index"):
+        _check("row_gather_async", x, idx, tile, MAX_ASYNC_TILE)
+        if x.is_cpu:
+            return row_gather_plain(x, idx)
+        if not x.is_cuda:
+            raise ValueError(f"row_gather_async runs on cuda or cpu tensors, got {x.device}")
+        out = _empty_out(x, idx)
+        if out.numel():
+            _launch("row_gather_async", out, x, idx, tile)
+            row_gather_async.launches += 1
+            trace.launch("P1", "index", None, idx, x)
+        return out
 
 
 def row_gather_smem(x: torch.Tensor, idx: torch.Tensor, tile: int = 512) -> torch.Tensor:
@@ -109,20 +112,22 @@ def row_gather_smem(x: torch.Tensor, idx: torch.Tensor, tile: int = 512) -> torc
     As ``row_gather_async``; raises ``ValueError`` before any launch, on CPU
     tensors too, when x holds more than ``SMEM_LIMIT_BYTES``.
     """
-    _check("row_gather_smem", x, idx, tile, 2**31 - 1)
-    need = x.numel() * x.element_size()
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(f"row_gather_smem needs x in one block's shared memory: x holds {need} B, "
-                         f"the limit is {SMEM_LIMIT_BYTES} B")
-    if x.device.type == "cpu":
-        return row_gather_plain(x, idx)
-    if x.device.type != "cuda":
-        raise ValueError(f"row_gather_smem runs on cuda or cpu tensors, got {x.device}")
-    out = _empty_out(x, idx)
-    if out.numel():
-        _launch("row_gather_smem", out, x, idx, tile)
-        row_gather_smem.launches += 1
-    return out
+    with trace.span("dgl_tpu_torch.P2"):
+        _check("row_gather_smem", x, idx, tile, 2**31 - 1)
+        need = x.numel() * x.element_size()
+        if need > SMEM_LIMIT_BYTES:
+            raise ValueError(f"row_gather_smem needs x in one block's shared memory: x holds "
+                             f"{need} B, the limit is {SMEM_LIMIT_BYTES} B")
+        if x.device.type == "cpu":
+            return row_gather_plain(x, idx)
+        if x.device.type != "cuda":
+            raise ValueError(f"row_gather_smem runs on cuda or cpu tensors, got {x.device}")
+        out = _empty_out(x, idx)
+        if out.numel():
+            _launch("row_gather_smem", out, x, idx, tile)
+            row_gather_smem.launches += 1
+            trace.launch("P2", "smem", None, idx, x)
+        return out
 
 
 row_gather_async.launches = 0
@@ -251,24 +256,29 @@ def row_gather_by_source(x: torch.Tensor, indptr: torch.Tensor,
     below n (a few rows of a large x) leaves most warps idle, and
     ``row_gather_async`` suits it better. The graph gathers have e >= n.
     """
-    e = _check_by_source(x, indptr, pos, split, num_out)
-    if x.is_cpu:
-        out = row_gather_by_source_plain(x, indptr, pos)
-        if out.shape[0] != e:
-            raise ValueError(f"row_gather_by_source: indptr holds {out.shape[0]} slots, not {e}")
+    with trace.span("dgl_tpu_torch.P1.source"):
+        e = _check_by_source(x, indptr, pos, split, num_out)
+        if x.is_cpu:
+            out = row_gather_by_source_plain(x, indptr, pos)
+            if out.shape[0] != e:
+                raise ValueError(f"row_gather_by_source: indptr holds {out.shape[0]} slots, "
+                                 f"not {e}")
+            return out
+        if not x.is_cuda:
+            raise ValueError(f"row_gather_by_source runs on cuda or cpu tensors, got {x.device}")
+        out = torch.empty((e, x.shape[1]), dtype=x.dtype, device=x.device)
+        if not out.numel():
+            return out
+        plan = ((_NO_SPLIT_T, None, None, 0, None, 0) if split is None
+                else split.kernel_args(None)[:-1])
+        launch(entry("row_gather", "row_gather_by_source", _SOURCE_ARGTYPES), x.device,
+               x.data_ptr(), indptr.data_ptr(), int(indptr.dtype == torch.int64),
+               None if pos is None else pos.data_ptr(),
+               int(pos is not None and pos.dtype == torch.int64),
+               out.data_ptr(), x.shape[0], x.shape[1] * x.element_size(), *plan)
+        row_gather_by_source.launches += 1
+        trace.launch("P1", "source", indptr, out, x)
         return out
-    if not x.is_cuda:
-        raise ValueError(f"row_gather_by_source runs on cuda or cpu tensors, got {x.device}")
-    out = torch.empty((e, x.shape[1]), dtype=x.dtype, device=x.device)
-    if not out.numel():
-        return out
-    plan = (_NO_SPLIT_T, None, None, 0, None, 0) if split is None else split.kernel_args(None)[:-1]
-    launch(entry("row_gather", "row_gather_by_source", _SOURCE_ARGTYPES), x.device,
-           x.data_ptr(), indptr.data_ptr(), int(indptr.dtype == torch.int64),
-           None if pos is None else pos.data_ptr(), int(pos is not None and pos.dtype == torch.int64),
-           out.data_ptr(), x.shape[0], x.shape[1] * x.element_size(), *plan)
-    row_gather_by_source.launches += 1
-    return out
 
 
 row_gather_by_source.launches = 0

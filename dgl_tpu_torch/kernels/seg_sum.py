@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from ..graph.split import RowSplit, row_split
 from .build import entry, launch
 
@@ -104,30 +105,32 @@ def seg_sum(indptr: torch.Tensor, msg: torch.Tensor,
     on the card builds it from ``indptr``: a copy of ``indptr`` to the host,
     which waits for the card. The package's ops always pass the graph's plan.
     """
-    _check(indptr, msg)
-    e = msg.shape[0]
-    if split is not None:
-        split.check(indptr, e, "seg_sum")
-    if msg.is_cpu:
-        return seg_sum_plain(indptr, msg)
-    if not msg.is_cuda:
-        raise ValueError(f"seg_sum runs on cuda or cpu tensors, got {msg.device}")
-    n_rows, w = indptr.numel() - 1, msg.shape[1]
-    dev = msg.device
-    out = torch.empty((n_rows, w), dtype=torch.float32, device=dev)
-    if n_rows == 0 or w == 0:
-        return out.zero_()
-    if split is None:
-        split = row_split(indptr)
-    bf16 = msg.dtype == torch.bfloat16
-    partials = (torch.empty((split.num_chunks, w), dtype=torch.float32, device=dev)
-                if split.num_chunks else None)
-    launch(entry("seg_sum", "seg_sum_bf16" if bf16 else "seg_sum_f32", _ARGTYPES), dev,
-           indptr.data_ptr(), int(indptr.dtype == torch.int64), msg.data_ptr(), out.data_ptr(),
-           n_rows, w, e, *split.kernel_args(partials, counters=True)[1:])
-    seg_sum.launches += 1
-    seg_sum.launches_bf16 += int(bf16)
-    return out
+    with trace.span("dgl_tpu_torch.K2"):
+        _check(indptr, msg)
+        e = msg.shape[0]
+        if split is not None:
+            split.check(indptr, e, "seg_sum")
+        if msg.is_cpu:
+            return seg_sum_plain(indptr, msg)
+        if not msg.is_cuda:
+            raise ValueError(f"seg_sum runs on cuda or cpu tensors, got {msg.device}")
+        n_rows, w = indptr.numel() - 1, msg.shape[1]
+        dev = msg.device
+        out = torch.empty((n_rows, w), dtype=torch.float32, device=dev)
+        if n_rows == 0 or w == 0:
+            return out.zero_()
+        if split is None:
+            split = row_split(indptr)
+        bf16 = msg.dtype == torch.bfloat16
+        partials = (torch.empty((split.num_chunks, w), dtype=torch.float32, device=dev)
+                    if split.num_chunks else None)
+        launch(entry("seg_sum", "seg_sum_bf16" if bf16 else "seg_sum_f32", _ARGTYPES), dev,
+               indptr.data_ptr(), int(indptr.dtype == torch.int64), msg.data_ptr(), out.data_ptr(),
+               n_rows, w, e, *split.kernel_args(partials, counters=True)[1:])
+        seg_sum.launches += 1
+        seg_sum.launches_bf16 += int(bf16)
+        trace.launch("K2", "seg_sum", indptr, msg, msg)
+        return out
 
 
 seg_sum.launches = 0

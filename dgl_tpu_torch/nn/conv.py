@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import trace
 from ..device import DeviceLike, resolve_device
 from ..graph.graph import Graph
 from ..kernels.gat_attention import gat_attention
@@ -111,24 +112,25 @@ class SAGEConv(nn.Module):
         x_agg: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        if self.feat_drop > 0.0 and x_agg is not None:
-            raise ValueError(
-                "x_agg (precomputed aggregation) is invalid with feat_drop: "
-                "dropout must be applied before aggregation"
-            )
-        x_src, x_dst = _drop_pair(x, self.feat_drop, self.training, generator)
-        if x_agg is not None:
-            h_neigh = self.fc_neigh(x_agg)
-        elif self.out_feats < x_src.shape[-1]:
-            z = self._msg(self.fc_neigh(x_src))
-            h_neigh = gspmm(g, "copy_u", self.aggr, x=z, lowering=self.lowering)
-        else:
-            h_neigh = self.fc_neigh(gspmm(g, "copy_u", self.aggr, x=self._msg(x_src),
-                                          lowering=self.lowering))
-        out = self.fc_self(x_dst) + h_neigh + self.fc_neigh_bias
-        if self.activation is not None:
-            out = self.activation(out)
-        return out
+        with trace.span("dgl_tpu_torch.SAGEConv.forward"):
+            if self.feat_drop > 0.0 and x_agg is not None:
+                raise ValueError(
+                    "x_agg (precomputed aggregation) is invalid with feat_drop: "
+                    "dropout must be applied before aggregation"
+                )
+            x_src, x_dst = _drop_pair(x, self.feat_drop, self.training, generator)
+            if x_agg is not None:
+                h_neigh = self.fc_neigh(x_agg)
+            elif self.out_feats < x_src.shape[-1]:
+                z = self._msg(self.fc_neigh(x_src))
+                h_neigh = gspmm(g, "copy_u", self.aggr, x=z, lowering=self.lowering)
+            else:
+                h_neigh = self.fc_neigh(gspmm(g, "copy_u", self.aggr, x=self._msg(x_src),
+                                              lowering=self.lowering))
+            out = self.fc_self(x_dst) + h_neigh + self.fc_neigh_bias
+            if self.activation is not None:
+                out = self.activation(out)
+            return out
 
     def _msg(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.msg_dtype is None else x.to(self.msg_dtype)
@@ -239,25 +241,26 @@ class GATConv(nn.Module):
 
     def forward(self, g: Graph, x: Features, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x_src, x_dst = _drop_pair(x, self.feat_drop, self.training, generator)
-        h, d = self.num_heads, self.out_feats
-        z = self.fc(x_src).view(-1, h, d)
-        z_dst = z if x_dst is x_src else self.fc(x_dst).view(-1, h, d)
-        if g.block_fanout is not None:
-            out = self._block(g, z, z_dst, generator)
-        else:
-            a_src = (z * self.attn_r).sum(-1)  # (N_src, H)
-            a_dst = (z_dst * self.attn_l).sum(-1)  # (N_dst, H)
-            if self.fused:
-                out = self._fused(g, x_src, z, a_src, a_dst, generator)
+        with trace.span("dgl_tpu_torch.GATConv.forward"):
+            x_src, x_dst = _drop_pair(x, self.feat_drop, self.training, generator)
+            h, d = self.num_heads, self.out_feats
+            z = self.fc(x_src).view(-1, h, d)
+            z_dst = z if x_dst is x_src else self.fc(x_dst).view(-1, h, d)
+            if g.block_fanout is not None:
+                out = self._block(g, z, z_dst, generator)
             else:
-                out = self._edge(g, z, a_src, a_dst, generator)
-        if self.residual:
-            res = x_dst if self.res_fc is None else self.res_fc(x_dst)
-            out = out + res.view(-1, h, d)
-        if self.activation is not None:
-            out = self.activation(out)
-        return out
+                a_src = (z * self.attn_r).sum(-1)  # (N_src, H)
+                a_dst = (z_dst * self.attn_l).sum(-1)  # (N_dst, H)
+                if self.fused:
+                    out = self._fused(g, x_src, z, a_src, a_dst, generator)
+                else:
+                    out = self._edge(g, z, a_src, a_dst, generator)
+            if self.residual:
+                res = x_dst if self.res_fc is None else self.res_fc(x_dst)
+                out = out + res.view(-1, h, d)
+            if self.activation is not None:
+                out = self.activation(out)
+            return out
 
     def _block(self, g, z, z_dst, generator):
         nd, f = g.num_dst_nodes, g.block_fanout
@@ -327,9 +330,10 @@ class GCNConv(nn.Module):
         self.to(resolve_device(device))
 
     def forward(self, g: Graph, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc(x)
-        dis = (g.in_degrees().to(h.dtype) + 1.0).rsqrt().unsqueeze(1)
-        return gspmm(g, "copy_u", "sum", x=h * dis, lowering=self.lowering) * dis
+        with trace.span("dgl_tpu_torch.GCNConv.forward"):
+            h = self.fc(x)
+            dis = (g.in_degrees().to(h.dtype) + 1.0).rsqrt().unsqueeze(1)
+            return gspmm(g, "copy_u", "sum", x=h * dis, lowering=self.lowering) * dis
 
 
 class GCNConvEdge(nn.Module):
@@ -353,13 +357,14 @@ class GCNConvEdge(nn.Module):
         self.to(resolve_device(device))
 
     def forward(self, g: Graph, x: torch.Tensor, w_edge: torch.Tensor) -> torch.Tensor:
-        h = self.fc(x)
-        deg = (g.in_degrees().to(h.dtype) + 1.0).unsqueeze(1)
-        c = deg.rsqrt()
-        norm = gsddmm(g, "mul", c, c)  # (E, 1)
-        msg = norm * F.relu(gsddmm(g, "copy_u", h) + w_edge)
-        agg = gspmm(g, "copy_e", "sum", e=msg, lowering=self.lowering)
-        return agg + F.relu(h + self.root_emb) / deg
+        with trace.span("dgl_tpu_torch.GCNConvEdge.forward"):
+            h = self.fc(x)
+            deg = (g.in_degrees().to(h.dtype) + 1.0).unsqueeze(1)
+            c = deg.rsqrt()
+            norm = gsddmm(g, "mul", c, c)  # (E, 1)
+            msg = norm * F.relu(gsddmm(g, "copy_u", h) + w_edge)
+            agg = gspmm(g, "copy_e", "sum", e=msg, lowering=self.lowering)
+            return agg + F.relu(h + self.root_emb) / deg
 
 
 class RelGraphConv(nn.Module):
@@ -420,14 +425,15 @@ class RelGraphConv(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``weights``: the graph's ``RelEdgeWeights`` (built once from the
         (E, R) canonical edge weights)."""
-        if self.aggregate_first:
-            agg = gspmm_rel("mean", g, x.unsqueeze(0).expand(weights.num_relations, -1, -1),
-                            weights, per_relation=True)
-            out = torch.einsum("rnd,rdo->no", agg, self.rel_weights)
-        else:
-            y = torch.matmul(x, self.rel_weights)  # (R, N, out), each y[r] contiguous
-            out = gspmm_rel("mean", g, y, weights)
-        out = out + self.skip(x)
-        if self.activation is not None:
-            out = self.activation(out)
-        return dropout(out, self.dropout, self.training, generator)
+        with trace.span("dgl_tpu_torch.RelGraphConv.forward"):
+            if self.aggregate_first:
+                agg = gspmm_rel("mean", g, x.unsqueeze(0).expand(weights.num_relations, -1, -1),
+                                weights, per_relation=True)
+                out = torch.einsum("rnd,rdo->no", agg, self.rel_weights)
+            else:
+                y = torch.matmul(x, self.rel_weights)  # (R, N, out), each y[r] contiguous
+                out = gspmm_rel("mean", g, y, weights)
+            out = out + self.skip(x)
+            if self.activation is not None:
+                out = self.activation(out)
+            return dropout(out, self.dropout, self.training, generator)

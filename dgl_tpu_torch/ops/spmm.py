@@ -61,6 +61,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from ..graph.graph import Graph
 from ..kernels.csr_spmm import csr_spmm
 from ..kernels.seg_sum import sum_dtype
@@ -82,17 +83,19 @@ def _inv_deg(g: Graph, dtype) -> torch.Tensor:
 class _CopyU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, g: Graph, mean: bool) -> torch.Tensor:
-        ctx.g, ctx.mean, ctx.dtype = g, mean, x.dtype
-        return csr_spmm(g.indptr, g.src, x.contiguous(), mean=mean, split=g.split)
+        with trace.span("dgl_tpu_torch._CopyU.forward"):
+            ctx.g, ctx.mean, ctx.dtype = g, mean, x.dtype
+            return csr_spmm(g.indptr, g.src, x.contiguous(), mean=mean, split=g.split)
 
     @staticmethod
     def backward(ctx, g_out: torch.Tensor):
-        g: Graph = ctx.g
-        if ctx.mean:
-            g_out = g_out * _inv_deg(g, g_out.dtype).unsqueeze(1)
-        rev = g.reverse
-        grad_x = csr_spmm(rev.indptr, rev.src, g_out.contiguous(), split=rev.split)
-        return grad_x.to(ctx.dtype), None, None
+        with trace.span("dgl_tpu_torch._CopyU.backward"):
+            g: Graph = ctx.g
+            if ctx.mean:
+                g_out = g_out * _inv_deg(g, g_out.dtype).unsqueeze(1)
+            rev = g.reverse
+            grad_x = csr_spmm(rev.indptr, rev.src, g_out.contiguous(), split=rev.split)
+            return grad_x.to(ctx.dtype), None, None
 
 
 def _scale_mean(g: Graph, out: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ from typing import Iterator, List, Sequence
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import DeviceLike, resolve_device
 from ..graph.graph import Graph
 from .neighbor import CSRGraph, MiniBatch, MultiLayerNeighborSampler
@@ -83,4 +84,6 @@ class DeviceNeighborSampler:
         mask_d = self._upload(mask.reshape(n_steps, b_pad))
         blocks = self.skeleton_blocks(b_pad)
         for s in range(n_steps):
-            yield MiniBatch(blocks, self.input_nodes(seeds_d[s], generator), seeds_d[s], mask_d[s])
+            with trace.span("dgl_tpu_torch.DeviceNeighborSampler.draw"):
+                input_nodes = self.input_nodes(seeds_d[s], generator)
+            yield MiniBatch(blocks, input_nodes, seeds_d[s], mask_d[s])
