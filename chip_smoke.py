@@ -319,6 +319,7 @@ The last line is {"ok": true, "device": {...}}.
 
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
 import math
@@ -1119,29 +1120,33 @@ def check_k3_fwd(what, g, v, a_s, a_d, kw, acc):
     return got
 
 
-def check_k3_bwd(what, g, g_out, node, a_s, kw, acc):
+def check_k3_bwd(what, g, g_out, node, a_s, v, kw, acc):
     """One K3 b2 launch against its plain version in float32 and float64
-    (no combine launch, the plan's counters back at 0)."""
+    (no combine launch, the plan's counters back at 0). grad_a_src = Σ_D
+    v·w2 − w3 is held to the float64 run within the bound of its terms'
+    magnitudes: the run with |v|, |g| and −|C|, whose every term adds."""
     from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_bwd_plain
 
     rev = g.reverse
     args = (rev.indptr, rev.src, rev.eid)
     before = gat_attention_bwd.launches, gat_attention_bwd.combines
-    got = gat_attention_bwd(*args, g_out, node, a_s, split=rev.split, **kw)
+    got = gat_attention_bwd(*args, g_out, node, a_s, v, split=rev.split, **kw)
     k3_folded(what, gat_attention_bwd, rev.split, before)
-    again = gat_attention_bwd(*args, g_out, node, a_s, split=rev.split, **kw)
+    again = gat_attention_bwd(*args, g_out, node, a_s, v, split=rev.split, **kw)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"{what}: two K3 b2 runs differ")
-    plain = gat_attention_bwd_plain(*args, g_out, node, a_s, **kw)
-    g64, n64, s64 = g_out.double(), node.double(), a_s.double()
-    want = gat_attention_bwd_plain(*args, g64, n64, s64, **kw)
+    plain = gat_attention_bwd_plain(*args, g_out, node, a_s, v, **kw)
+    g64, n64, s64, v64 = g_out.double(), node.double(), a_s.double(), v.double()
+    want = gat_attention_bwd_plain(*args, g64, n64, s64, v64, **kw)
     n_abs = n64.clone()
-    n_abs[..., 3] = n_abs[..., 3].abs()
-    absrun = gat_attention_bwd_plain(*args, g64.abs(), n_abs, s64, **kw)
+    n_abs[..., 3] = -n_abs[..., 3].abs()
+    absrun = gat_attention_bwd_plain(*args, g64.abs(), n_abs, s64, v64.abs(), **kw)
     amp = s64.abs() + n64[..., 0].abs().max() + n64[..., 1].abs().max()  # (N_src, H)
-    names = ("grad_v", "w2", "w3")
-    _merge(acc, [check(f"{what} b2 {nm}", x, rev.indptr, (w, m), p, slack=(2, 8), amp=amp)
-                 for nm, x, w, m, p in zip(names, got, want, absrun, plain)])
+    # grad_a_src: D more terms a row (the dot with v)
+    slacks = ((2, 8), (2, 8 + v.shape[-1]))
+    names = ("grad_v", "grad_a_src")
+    _merge(acc, [check(f"{what} b2 {nm}", x.float(), rev.indptr, (w, m), p, slack=sl, amp=amp)
+                 for nm, x, w, m, p, sl in zip(names, got, want, absrun, plain, slacks)])
     return got
 
 
@@ -1156,7 +1161,8 @@ def check_k3_exact(what, g, h, d, gen, dtype=torch.float32):
     which the float64 run rounded to float32 reproduces bit for bit (53 ≥
     2·24 + 2 bits: rounding a quotient twice is innocuous). b2: node =
     (a_dst 0, shift 1, inv_s 1, C integer) and a_src = 1 make α = 1 and the
-    slope 1, so grad_v, w2 and w3 are integer sums. keep = 0.5 scales the
+    slope 1, so grad_v, w2 and w3 are integer sums, and so is grad_a_src =
+    Σ_D v·w2 − w3. keep = 0.5 scales the
     kept terms by exactly 2, so the dropout hash is held exactly too.
     ``dtype`` bfloat16: v in bfloat16 (exact for these integers) and b2's
     grad_v rounded once to bfloat16, which must equal the exact sum rounded
@@ -1176,12 +1182,14 @@ def check_k3_exact(what, g, h, d, gen, dtype=torch.float32):
         kw = dict(negative_slope=0.2, keep=keep, seed=seed)
         got = gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)
         want = gat_attention_fwd_plain(g.indptr, g.src, v.double(), a_s.double(), a_d.double(), **kw)
-        got += gat_attention_bwd(rev.indptr, rev.src, rev.eid, g_out, node, a_s, split=rev.split,
-                                 v_dtype=dtype, **kw)
+        got += gat_attention_bwd(rev.indptr, rev.src, rev.eid, g_out, node, a_s, v,
+                                 split=rev.split, **kw)
         want += gat_attention_bwd_plain(rev.indptr, rev.src, rev.eid, g_out.double(), node.double(),
-                                        a_s.double(), **kw)
-        names = ("out", "w1", "inv_s", "w1s", "shift", "grad_v", "w2", "w3")
+                                        a_s.double(), v.double(), **kw)
+        names = ("out", "w1", "inv_s", "w1s", "shift", "grad_v", "grad_a_src")
         for nm, x, w in zip(names, got, want):
+            if nm == "grad_v":
+                w = w.to(v.dtype)  # the plain pass rounds only bfloat16 grad_v
             w = w.float().to(x.dtype)  # exact in float32: one rounding to bfloat16 at most
             if not torch.equal(x, w):
                 bad = int((x != w).flatten(1).any(1).nonzero()[0])
@@ -1189,27 +1197,29 @@ def check_k3_exact(what, g, h, d, gen, dtype=torch.float32):
                                      "exact sums")
 
 
-def check_k3_b2_bf16(what, g, g_out, node, a_s, kw, acc):
-    """b2's bfloat16 instantiation (grad_v in bfloat16): its grad_v must be
-    the float32 instantiation's rounded once to bfloat16, bit for bit (the
-    same float32 sums in the same order), its w2 and w3 the float32 ones;
-    the float32 pass is held to float64 and its plain version by
-    check_k3_bwd; grad_v within one bfloat16 ulp of the plain version's
-    (float32 sums in another order, then rounded) on rows of at most HUB_DEG
-    terms. Returns the largest difference from the plain version."""
+def check_k3_b2_bf16(what, g, g_out, node, a_s, v, kw, acc):
+    """b2's bfloat16 instantiation (v and grad_v in bfloat16): its grad_v
+    must be the float32 instantiation's rounded once to bfloat16, bit for
+    bit (the same float32 sums in the same order), its grad_a_src the
+    float32 one's on v widened; the float32 pass is held to float64 and its
+    plain version by check_k3_bwd; grad_v within one bfloat16 ulp of the
+    plain version's (float32 sums in another order, then rounded) on rows
+    of at most HUB_DEG terms. Returns the largest difference from the plain
+    version."""
     from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_bwd_plain
 
     rev = g.reverse
+    vb = v.to(BF16)
     args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
-    got = gat_attention_bwd(*args, split=rev.split, v_dtype=BF16, **kw)
-    if not torch.equal(got[0], gat_attention_bwd(*args, split=rev.split, v_dtype=BF16, **kw)[0]):
+    got = gat_attention_bwd(*args, vb, split=rev.split, **kw)
+    if not torch.equal(got[0], gat_attention_bwd(*args, vb, split=rev.split, **kw)[0]):
         raise AssertionError(f"{what}: two K3 b2 bf16 runs differ")
-    ref = check_k3_bwd(what, g, g_out, node, a_s, kw, acc)
+    ref = check_k3_bwd(what, g, g_out, node, a_s, vb.float(), kw, acc)
     if got[0].dtype != BF16 or not torch.equal(got[0], ref[0].to(BF16)):
         raise AssertionError(f"{what}: b2's bf16 grad_v is not its float32 grad_v rounded once")
-    if not all(torch.equal(x, y) for x, y in zip(got[1:], ref[1:])):
-        raise AssertionError(f"{what}: b2's bf16 w2 / w3 differ from the float32 pass's")
-    plain = gat_attention_bwd_plain(*args, v_dtype=BF16, **kw)[0].float()
+    if not torch.equal(got[1], ref[1]):
+        raise AssertionError(f"{what}: b2's bf16 grad_a_src differs from the float32 pass's")
+    plain = gat_attention_bwd_plain(*args, vb, **kw)[0].float()
     short = (rev.indptr[1:] - rev.indptr[:-1]) <= HUB_DEG
     if not torch.allclose(got[0][short].float(), plain[short], rtol=2.0 ** -7, atol=ATOL):
         raise AssertionError(f"{what}: b2's bf16 grad_v is over one bfloat16 ulp off the plain "
@@ -1225,7 +1235,7 @@ def check_k3_bf16(what, g, v, g_out, a_s, a_d, kw, acc):
     out, w1, inv_s, w1s, shift = check_k3_fwd(f"{what} bf16", g, v.to(BF16), a_s, a_d, kw,
                                               acc["fwd"])
     node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
-    b2_err = check_k3_b2_bf16(f"{what} bf16", g, g_out, node, a_s, kw, acc["bwd"])
+    b2_err = check_k3_b2_bf16(f"{what} bf16", g, g_out, node, a_s, v, kw, acc["bwd"])
     return (out, w1, inv_s, w1s, shift), b2_err
 
 
@@ -1287,12 +1297,13 @@ def check_split_k3(rng, dev, acc):
                         out, _, inv_s, _, shift = check_k3_fwd(f"{what} keep={keep}", g, v, a_s,
                                                                a_d, kw, acc["fwd"])
                         node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
-                        check_k3_bwd(f"{what} keep={keep}", g, g_out, node, a_s, kw, acc["bwd"])
+                        check_k3_bwd(f"{what} keep={keep}", g, g_out, node, a_s, v, kw,
+                                     acc["bwd"])
                         cases += 1
         kw = dict(negative_slope=0.2)
         _refuses_mismatched_plan(gat_attention_fwd, g0.indptr, g0.src, v, a_s, a_d, **kw)
         _refuses_mismatched_plan(gat_attention_bwd, g0.reverse.indptr, g0.reverse.src,
-                                 g0.reverse.eid, g_out, node, a_s, **kw)
+                                 g0.reverse.eid, g_out, node, a_s, v, **kw)
     return cases
 
 
@@ -1355,7 +1366,7 @@ def check_k3_misaligned(rng, dev, acc):
                     if dtype == torch.float32:
                         g_out = _x_view(rng, "normal", n, h * d, dtype, shift, dev).view(n, h, d)
                         node = torch.stack([a_d, sh, inv_s, (g_out * out).sum(-1)], -1)
-                        check_k3_bwd(what, g, g_out, node, a_s, kw, acc["bwd"])
+                        check_k3_bwd(what, g, g_out, node, a_s, v, kw, acc["bwd"])
                     cases += 1
     return cases
 
@@ -1385,7 +1396,7 @@ def phase_gat_random():
                 kw = dict(negative_slope=0.2, keep=keep, seed=seed)
                 out, w1, inv_s, w1s, shift = check_k3_fwd(what, g, v, a_s, a_d, kw, k3["fwd"])
                 node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
-                check_k3_bwd(what, g, g_out, node, a_s, kw, k3["bwd"])
+                check_k3_bwd(what, g, g_out, node, a_s, v, kw, k3["bwd"])
                 cases += 1
             # K2 on the same shapes as GAT's edge form: (E, H·D), both CSRs
             w = h * d
@@ -1512,8 +1523,8 @@ def k3_shape(name, g, h, d, gen, keep):
     acc = [0.0, 0.0, 0.0]
     node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
     del out, inv_s, shift
-    check_k3_bwd(name, g, g_out, node, a_s, kw, acc)
-    bwd_args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
+    check_k3_bwd(name, g, g_out, node, a_s, v, kw, acc)
+    bwd_args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s, v)
     bound, by = k3_bwd_bound(n, n, e, h, d, dropout=keep < 1.0)
     ms, combines = timed_combines(
         gat_attention_bwd, lambda: gat_attention_bwd(*bwd_args, split=rev.split, **kw), 0,
@@ -1528,8 +1539,141 @@ def k3_shape(name, g, h, d, gen, keep):
         "t_sweep": t_sweep(lambda p: gat_attention_bwd(*bwd_args, split=p, **kw), rev.indptr),
     }
     del node, bwd_args
+    res["k3_node_passes"] = k3_node_times(name, n, h, d, gen)
     res.update(k3_bf16_times(name, g, v, g_out, a_s, a_d, kw, keep))
     return res
+
+
+def k3_node_times(name, n, h, d, gen):
+    """K3's node passes at N = n, H = h, D = d (z both sides, v = z, as a
+    full-graph GATConv runs them): each against its plain version, two
+    runs bitwise equal, CUDA-event medians and the bytes bound (every
+    array read or written once)."""
+    from dgl_tpu_torch.kernels.gat_attention import (
+        gat_score_grad, gat_score_grad_plain, gat_scores, gat_scores_plain, gat_vector_grad,
+        gat_vector_grad_plain)
+
+    dev = torch.device("cuda")
+    rows = lambda: torch.randn(n, h, d, device=dev, generator=gen)  # noqa: E731
+    heads = lambda: torch.randn(n, h, device=dev, generator=gen)  # noqa: E731
+    z, g_out, out, w1, gv = rows(), rows(), rows(), rows(), rows()
+    a_dst, shift, inv_s, w1s, ga_s, ga_d = (heads() for _ in range(6))
+    att_s, att_d = (torch.randn(1, h, d, device=dev, generator=gen) for _ in range(2))
+    calls = {
+        "gat_scores": (lambda: gat_scores(z, att_s, att_d),
+                       lambda: gat_scores_plain(z, att_s, att_d), (n * h * d, 2 * n * h)),
+        "gat_score_grad": (lambda: gat_score_grad(g_out, out, w1, a_dst, shift, inv_s, w1s),
+                           lambda: gat_score_grad_plain(g_out, out, w1, a_dst, shift, inv_s, w1s),
+                           (3 * n * h * d + 4 * n * h, 5 * n * h)),
+        # on a copy of grad_v each call (the pass writes grad_z over it)
+        "gat_vector_grad": (lambda: gat_vector_grad(z, att_s, att_d, ga_s, ga_d, grad_v=gv.clone()),
+                            lambda: gat_vector_grad_plain(z, att_s, att_d, ga_s, ga_d, gv),
+                            (2 * n * h * d + 2 * n * h, n * h * d)),
+    }
+    res = {}
+    for key, (call, plain, (reads, writes)) in calls.items():
+        got, again = call(), call()
+        if not all(torch.equal(x, y) for x, y in zip(got, again) if x is not None):
+            raise AssertionError(f"{name} {key}: two runs differ")
+        err = max(float((x - y).abs().max()) for x, y in zip(got, plain()) if x is not None)
+        if err > 1e-3 * max(1.0, float(max(y.abs().max() for y in plain() if y is not None))):
+            raise AssertionError(f"{name} {key}: {err} off the plain version")
+        copy_ms = median_ms(gv.clone, reps=20, warmup=2) if key == "gat_vector_grad" else 0.0
+        res[key] = {"ms": median_ms(call, reps=20, warmup=2) - copy_ms,
+                    "bound_ms": 1e3 * 4 * (reads + writes) / HBM_BYTES_PER_S,
+                    "max_abs_err": err}
+    return res
+
+
+# A fused GATConv layer's forward and backward (the scores, K3 and every
+# gradient around them), timed against another checkout in turns:
+# name: (graph, heads, d, in_feats, keep, backward)
+GAT_LAYER_TURN_SHAPES = {
+    "reddit_h1_d16": ("reddit", 1, 16, 16, REDDIT_KEEP, True),
+    "arxiv_h4_d16": ("ogbn-arxiv", 4, 16, 64, REDDIT_KEEP, True),
+    "arxiv_h4_d40": ("ogbn-arxiv", 4, 40, 64, REDDIT_KEEP, True),
+    "reddit_raw_h1_d41": ("reddit_raw", 1, 41, 128, 1.0, False),
+    "cluster_h4_d64": ("cluster", 4, 64, 100, 0.5, True),
+    "cluster_h1_d47": ("cluster", 1, 47, 256, 0.5, True),
+}
+
+
+def gat_layer_parent_turns(parent, card, out_path="gat_layer_turns.jsonl", only=None):
+    """A fused GATConv layer of this checkout and of ``parent`` (imported
+    as k3_parent_turns imports it) at the main paths' shapes
+    (GAT_LAYER_TURN_SHAPES: the layer's heads, width, input width and
+    attention dropout; ns_gat's evaluation forward only), with the same
+    weights, inputs and dropout seed: its output's and every gradient's
+    largest difference, and each tree's CUDA-event time of a forward and
+    backward in turns (parent, this, this, parent). One JSON line a shape,
+    written to out_path after each, the card's line first."""
+    import importlib
+
+    from dgl_tpu_torch import GATConv, from_edges
+    from dgl_tpu_torch.data import data_root, load_node_dataset
+    from dgl_tpu_torch.sampling.cluster import ClusterIter
+
+    name = "parent_dgl_tpu_torch"
+    if name not in sys.modules:
+        import importlib.util
+
+        pkg = os.path.join(os.path.abspath(parent), "dgl_tpu_torch")
+        spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                      submodule_search_locations=[pkg])
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    convs = (("parent", importlib.import_module(name).GATConv), ("new", GATConv))
+    dev, lines = torch.device("cuda"), [{"card": card, "parent": os.path.abspath(parent)}]
+
+    def graph_of(kind):
+        if kind in ("reddit", "ogbn-arxiv"):
+            return _gat_graph(kind, dev)
+        data = load_node_dataset("reddit" if kind == "reddit_raw" else "ogbn-products")
+        if kind != "cluster":
+            return from_edges(data.src, data.dst, data.num_nodes, device=dev)
+        return ClusterIter(PRODUCTS_KEY, data.src, data.dst, data.num_nodes, data.features,
+                           data.labels, data.train_mask, CLUSTER_PSIZE, 32, method="metis",
+                           cache_dir=data_root(), device=dev).first().graph
+
+    kind_now, g = None, None
+    for shape in only or GAT_LAYER_TURN_SHAPES:
+        kind, h, d, in_feats, keep, backward = GAT_LAYER_TURN_SHAPES[shape]
+        if kind != kind_now:
+            g = None
+            torch.cuda.empty_cache()
+            kind_now, g = kind, graph_of(kind)
+        gen = torch.Generator(device=dev).manual_seed(19)
+        n = g.num_src_nodes
+        x = torch.randn(n, in_feats, device=dev, generator=gen)
+        cot = torch.randn(g.num_dst_nodes, h, d, device=dev, generator=gen)
+        layers = {t: c(in_feats, d, h, attn_drop=1.0 - keep, fused=True, device=dev,
+                       generator=torch.Generator().manual_seed(3)).train(backward)
+                  for t, c in convs}
+
+        def step(t):
+            conv = layers[t]
+            out = conv(g, x, generator=torch.Generator(device=dev).manual_seed(7))
+            if backward:
+                (out * cot).sum().backward()
+            return out
+
+        got = {}
+        for t, conv in layers.items():
+            conv.zero_grad()
+            out = step(t)
+            got[t] = [out.detach()] + [p.grad.clone() for p in conv.parameters() if backward]
+        diff = max(float((a - b).abs().max()) for a, b in zip(got["parent"], got["new"]))
+        parent_ms, new_ms = in_turns(lambda: step("parent"), lambda: step("new"), reps=10,
+                                     warmup=2)
+        row = {"shape": shape, "heads": h, "d": d, "in_feats": in_feats, "keep": keep,
+               "backward": backward, "nodes": n, "edges": g.num_edges, "parent_ms": parent_ms,
+               "new_ms": new_ms, "new_over_parent": new_ms / parent_ms, "max_abs_diff": diff}
+        print(json.dumps(row), flush=True)
+        lines.append(row)
+        with open(out_path, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in lines)
+        del layers, got, x, cot
+    return lines
 
 
 def k3_bf16_times(name, g, v, g_out, a_s, a_d, kw, keep):
@@ -1560,13 +1704,12 @@ def k3_bf16_times(name, g, v, g_out, a_s, a_d, kw, keep):
     node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
     del out, inv_s, shift
     args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
-    b2 = lambda vd: lambda: gat_attention_bwd(*args, split=rev.split,  # noqa: E731
-                                              v_dtype=vd, **kw)
-    ms32, ms = in_turns(b2(torch.float32), b2(BF16), reps=20, warmup=2)
+    b2 = lambda vv: lambda: gat_attention_bwd(*args, vv, split=rev.split, **kw)  # noqa: E731
+    ms32, ms = in_turns(b2(v32), b2(vb), reps=20, warmup=2)
     bound, by = k3_bwd_bound(n, n, e, h, d, dropout=keep < 1.0, v_bytes=2)
     res["gat_attention_bwd_bf16"] = {
         "ms": ms, "ms_f32_in_turns": ms32,
-        "plain_ms": median_ms(lambda: gat_attention_bwd_plain(*args, v_dtype=BF16, **kw), reps=5,
+        "plain_ms": median_ms(lambda: gat_attention_bwd_plain(*args, vb, **kw), reps=5,
                               warmup=1),
         "library_ms": None, "bound_ms": bound, "bound_by": by, "max_abs_err": b2_err,
         "max_abs_err_f64": None, "max_bound_used": acc["bwd"][2],
@@ -3467,6 +3610,23 @@ def k2_p1_splits(out_path="k2p1_splits.json"):
     return out
 
 
+def _b2_call(m, rev, g_out, node, a_s, v, kw):
+    """b2 of either checkout's ``gat_attention`` module: one whose b2 takes
+    ``v_dtype`` (and returns grad_v, w2, w3) or one that takes v itself
+    (and returns grad_v, grad_a_src)."""
+    args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
+    if "v_dtype" in inspect.signature(m.gat_attention_bwd).parameters:
+        return m.gat_attention_bwd(*args, split=rev.split, v_dtype=v.dtype, **kw)
+    return m.gat_attention_bwd(*args, v, split=rev.split, **kw)
+
+
+def _b2_outputs(got, v):
+    """(grad_v, grad_a_src) of either form of b2's outputs."""
+    if len(got) == 3:
+        return got[0], (v.float() * got[1]).sum(-1) - got[2]
+    return got
+
+
 # K3's shapes on the main paths, timed against another checkout in turns:
 # name: (graph, heads, d, keep, passes, dtypes)
 K3_TURN_SHAPES = {
@@ -3545,12 +3705,12 @@ def k3_parent_turns(parent, card, out_path="k3_turns.jsonl", only=None):
                 "fwd": {t: (lambda m=m: m.gat_attention_fwd(g.indptr, g.src, vv, a_s, a_d,
                                                              split=g.split, **kw))
                         for t, m in trees},
-                "b2": {t: (lambda m=m: m.gat_attention_bwd(rev.indptr, rev.src, rev.eid, g_out,
-                                                           node, a_s, split=rev.split,
-                                                           v_dtype=vv.dtype, **kw))
+                "b2": {t: (lambda m=m: _b2_call(m, rev, g_out, node, a_s, vv, kw))
                        for t, m in trees}}
             for p in passes:
                 got = {t: f() for t, f in calls[p].items()}
+                if p == "b2":
+                    got = {t: _b2_outputs(x, vv) for t, x in got.items()}
                 diff = max(float((x.float() - y.float()).abs().max())
                            for x, y in zip(got["parent"], got["new"]))
                 fns = {t: m.gat_attention_fwd if p == "fwd" else m.gat_attention_bwd
@@ -4741,7 +4901,7 @@ def dist_plan_kernels(what, src, dst, n, dev, send_widths, rev_width=None, k3=No
         kw, acc_f, acc_b = dict(negative_slope=0.2), [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
         out, _, inv_s, _, shift = check_k3_fwd(f"{what} bipartite", g, v, a_s, a_d, kw, acc_f)
         node = torch.stack([a_d, shift, inv_s, (g_out * out).sum(-1)], -1)
-        check_k3_bwd(f"{what} bipartite", g, g_out, node, a_s, kw, acc_b)
+        check_k3_bwd(f"{what} bipartite", g, g_out, node, a_s, v, kw, acc_b)
         res[f"k3_fwd_h{h}_d{dd}"], res[f"k3_b2_h{h}_d{dd}"] = fields(acc_f), fields(acc_b)
     return res
 

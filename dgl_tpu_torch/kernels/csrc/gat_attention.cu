@@ -26,9 +26,14 @@
 //     recomputes p with the forward's shift, α = p·inv_s[d], and sums
 //     grad_v = Σ m·α·g[d], w2 = Σ m·α·slope·g[d] and w3 = Σ α·slope·C[d],
 //     with C = Σ_D g·out. The per-dst operands (a_dst, shift, inv_s, C) come
-//     packed as one float4 per (d, h).
-//   The gradients of a_src and a_dst are N-wide closed forms of these sums
-//   (kernels/gat_attention.py), as in _lane_gat_bwd.
+//     packed as one float4 per (d, h). It writes grad_v and, from v's row,
+//     grad_a_src = Σ_D v·w2 − w3 (head_dots); w2 and w3 never leave it.
+//   The node passes (below, "K3's node passes") compute the rest of the
+//   gradients of a_src and a_dst as N-wide closed forms, as _lane_gat_bwd
+//   does: C and grad_a_dst = Σ_D g·w1 − C·w1s before b2 (gat_score_grad),
+//   and they compute the scores a_src = z·attn_src, a_dst = z_dst·attn_dst
+//   before the forward (gat_scores) and the gradients of z and of the
+//   attention vectors after b2 (gat_vector_grad).
 //
 // bfloat16 values (gat_fwd_bf16, gat_b2_bf16: the JAX package's lane_gat_agg
 // with compute_dtype = bfloat16, lane_attention.py:503): the forward reads
@@ -38,7 +43,7 @@
 // to bfloat16, as the lane kernel rounds it) and sums grad_v in float, then
 // rounds each grad_v value once to bfloat16, v's type (lane_attention.py:
 // 477); w2 and w3 stay float, and grad_a_src = Σ_D v·w2 − w3 reads v in the
-// wrapper. kernels/build.py compiles this file a second time with -DK3_BF16
+// epilogue. kernels/build.py compiles this file a second time with -DK3_BF16
 // for the bfloat16 entry points, so that the two libraries build in
 // parallel.
 //
@@ -130,6 +135,7 @@
 
 #include <math.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "async_copy.cuh"
@@ -157,9 +163,10 @@ struct Params {
   const float* edge_src;    // forward: a_src (N_src, H), staged beside each row
   const float4* edge_node;  // b2: node (N_dst, H), staged beside each row
   const float* row_in;      // forward: a_dst (N_dst, H); b2: a_src (N_src, H); one a row
+  const void* v;            // b2: v (n_rows, H, D), of grad_v's type, read once a row
   void* out0;               // forward: out (float); b2: grad_v (float or bfloat16)
-  float* out1;              // forward: w1; b2: w2
-  float* s0;                // forward: inv_s; b2: w3 (n_rows, H)
+  float* out1;              // forward: w1
+  float* s0;                // forward: inv_s; b2: grad_a_src (n_rows, H)
   float* s1;                // forward: w1s
   float* s2;                // forward: shift
   float* part0;             // (n_chunks, H·D): forward num, b2 grad_v
@@ -177,6 +184,7 @@ struct Params {
   int ip64, heads, hp, hs, d, hd, piece_cols, lanes, slots, slot_bytes, edge_bytes, warp_smem;
   int chunk_group;  // consecutive chunks a chunk warp walks as one stream
   int whole;  // every row starts on 16 bytes (and x ends on 16 bytes): spans are the rows
+  int v_vec;  // b2: v starts on 16 bytes, so a lane reads its V values of a row at once
 };
 
 // A walk's edge and row positions are 32-bit: src, dst and eid are int32,
@@ -215,6 +223,21 @@ __device__ __forceinline__ float head_max(float x, int hp) {
   }
   for (int off = hp; off < kWarp; off <<= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
   return x;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// V values of a row in device memory at p, as floats: one read where p is
+// aligned to the V values (`vec`), else one value at a time.
+template <int V, typename T>
+__device__ __forceinline__ void ld_vals(const T* p, bool vec, float (&v)[V]) {
+  if (vec) {
+    lds_vec<V>(p, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = to_float(p[k]);
+  }
 }
 
 // A warp's shared memory (k3_geometry.h sizes it): its ring of kStages
@@ -477,6 +500,62 @@ struct RowHeads {
   }
 };
 
+// b2, at the end of row r's walk over one piece: grad_a_src = Σ_D v·w2 − w3
+// of the heads whose columns lie in the piece. Each lane takes the dot of
+// its vectors of w2 (acc1, the row's sums, the same on every lane group)
+// with its values of v (vr). Each row t of the lanes' vectors (c = col +
+// t·lanes) is summed per head by a segmented reduction down the group's
+// lanes (a head's vectors are consecutive, at most d / V of them), which
+// leaves each head's share of the row on the lane of its first vector
+// there; lane h adds head h's shares over the rows t, adds the share an
+// earlier piece wrote where the head began there, and takes w3 (ps: lane h
+// holds head h's) off in the head's last piece. The same order every run.
+template <int kVecs, int V>
+__device__ __forceinline__ void head_dots(const Params& p, int r, int col0, int nvec, int lanes,
+                                          int col, const int (&head)[kVecs],
+                                          const float (&vr)[kVecs][V],
+                                          const float (&acc1)[kVecs][V], float ps) {
+  const int lane = threadIdx.x % kWarp;
+  const int per_head = p.d / V;  // vectors a head
+  float x[kVecs];
+  int span[kVecs];  // offsets down the lanes that stay in this lane's head and row
+#pragma unroll
+  for (int t = 0; t < kVecs; ++t) {
+    const int c = col + t * lanes;
+    x[t] = 0.f;
+#pragma unroll
+    for (int k = 0; k < V; ++k) x[t] = fmaf(vr[t][k], acc1[t][k], x[t]);
+    const int next = min(((head[t] + 1) * p.d - col0) / V, nvec);  // the next head's first vector
+    span[t] = c < nvec ? min(next - c, lanes - col) : 0;
+  }
+  for (int off = 1; off < lanes && off < per_head; off <<= 1) {
+#pragma unroll
+    for (int t = 0; t < kVecs; ++t) {
+      const float y = __shfl_down_sync(kFull, x[t], off);
+      if (off < span[t]) x[t] += y;
+    }
+  }
+  // lane h: head h's first and last vector in the piece, and its shares
+  const int end = col0 + nvec * V;  // the piece's last column, plus one
+  const int h = lane;
+  const bool mine = h < p.heads && h * p.d < end && (h + 1) * p.d > col0;
+  const int first = max(h * p.d - col0, 0) / V, last = min((h + 1) * p.d - col0, end - col0) / V;
+  float sum = 0.f;
+#pragma unroll
+  for (int t = 0; t < kVecs; ++t) {
+    const int src = max(first, t * lanes);
+    const bool in_row = mine && src < min(last, (t + 1) * lanes);
+    const float y = __shfl_sync(kFull, x[t], in_row ? src - t * lanes : 0);
+    if (in_row) sum += y;
+  }
+  if (mine) {
+    float* o = p.s0 + static_cast<int64_t>(r) * p.heads + h;
+    if (h * p.d < col0) sum = *o + sum;
+    if ((h + 1) * p.d <= end) sum -= ps;
+    *o = sum;
+  }
+}
+
 // One column piece of one warp's work: the rows [r0, r1) of a run (the
 // plan's long rows among them skipped, k0 the first listed at or after r0),
 // or the chunks [r0, r1) (`chunk`; k0 the long row of chunk r0), each summed
@@ -519,6 +598,7 @@ __device__ __forceinline__ void walk(const Params& p, const Ring& ring, int r0, 
   RowOffsetsOf<int> offs;
   RowHeads rh;
   float rin = 0.f;  // this lane's head of the row input
+  const OT* vrow = static_cast<const OT*>(p.v) + col0;  // b2: v's columns of this piece
   if (!chunk) {
     offs.init(indptr, n_rows, r0);
     rh.init(p, r0);
@@ -553,6 +633,19 @@ __device__ __forceinline__ void walk(const Params& p, const Ring& ring, int r0, 
     for (int t = 0; t < kVecs; ++t)
 #pragma unroll
       for (int k = 0; k < V; ++k) acc0[t][k] = acc1[t][k] = 0.f;
+    // b2: this lane's values of v's row r, read before the row's edges so
+    // that the read is in flight while they are summed
+    float vr[kVecs][V];
+    if constexpr (!kFwd) {
+#pragma unroll
+      for (int t = 0; t < kVecs; ++t) {
+        const int c = col + t * lanes;
+#pragma unroll
+        for (int k = 0; k < V; ++k) vr[t][k] = 0.f;
+        if (!chunk && c < nvec)
+          ld_vals<V>(vrow + static_cast<int64_t>(r) * p.hd + c * V, p.v_vec != 0, vr[t]);
+      }
+    }
     for (int rem = e0 - s0; rem > 0;) {
       if (pos == cnt) {  // the next stage: refill the one just summed, wait for the next
         if (started) {
@@ -701,9 +794,11 @@ __device__ __forceinline__ void walk(const Params& p, const Ring& ring, int r0, 
           store_vec<V>(p.out1 + off, o1);
         } else {
           store_vec<V>(static_cast<OT*>(p.out0) + off, acc0[t]);
-          store_vec<V>(p.out1 + off, acc1[t]);
         }
       }
+    }
+    if constexpr (!kFwd) {
+      if (!chunk) head_dots<kVecs, V>(p, r, col0, nvec, lanes, col, head, vr, acc1, ps);
     }
     if (piece == 0 && lane < p.heads) {
       const int64_t at = static_cast<int64_t>(r) * p.heads + lane;
@@ -716,8 +811,8 @@ __device__ __forceinline__ void walk(const Params& p, const Ring& ring, int r0, 
         p.s0[at] = ps > 0.f ? 1.f / ps : 0.f;
         p.s1[at] = ps > 0.f ? pss / ps : 0.f;
         p.s2[at] = sh;
-      } else {
-        (chunk ? p.pscal : p.s0)[at] = ps;
+      } else if (chunk) {
+        p.pscal[at] = ps;
       }
     }
   }
@@ -771,7 +866,8 @@ __device__ __forceinline__ void fold_columns(int64_t k0, int64_t k1, int n_cols,
 // through L2) added in ascending chunk order by fold_columns. Forward: per head,
 // sh = max_k sh_k and chunk k's sums scaled by f_k = exp(sh_k − sh) ≤ 1
 // (every chunk holds its maximum edge, whose p is 1, so s >= 1); b2:
-// linear sums, grad_v rounded once.
+// linear sums, grad_v rounded once, then grad_a_src from w2 and w3 as
+// head_dots takes it.
 template <bool kFwd, typename OT>
 __device__ __noinline__ void fold(const Params& p, float* scratch, int64_t i) {
   const int lane = threadIdx.x % kWarp;
@@ -812,16 +908,28 @@ __device__ __noinline__ void fold(const Params& p, float* scratch, int64_t i) {
     __syncwarp();
   } else {
     OT* gv = static_cast<OT*>(p.out0) + row * hd;
-    float* w2 = p.out1 + row * hd;
+    float* w2 = p.part1 + k0 * hd;
     fold_columns(k0, k1, hd, [&](int64_t k, int c) { return __ldcg(p.part0 + k * hd + c); },
                  [&](int c, float x) {
                    const float o[1] = {x};
                    store_vec<1>(gv + c, o);
                  });
+    // w2 into chunk k0's partials row (each value read by the lane that
+    // writes it, before it writes it), w3 into scratch
     fold_columns(k0, k1, hd, [&](int64_t k, int c) { return __ldcg(p.part1 + k * hd + c); },
-                 [&](int c, float x) { w2[c] = x; });
+                 [&](int c, float x) { __stcg(w2 + c, x); });
     fold_columns(k0, k1, H, [&](int64_t k, int h) { return __ldcg(psh + k * H + h); },
-                 [&](int h, float x) { p.s0[row * H + h] = x; });
+                 [&](int h, float x) { scratch[h] = x; });
+    __syncwarp();
+    // grad_a_src = Σ_D v·w2 − w3, a head at a time, summed over the lanes
+    const OT* v = static_cast<const OT*>(p.v) + row * hd;
+    for (int h = 0; h < H; ++h) {
+      float x = 0.f;
+      for (int j = lane; j < d; j += kWarp) x = fmaf(to_float(v[h * d + j]), __ldcg(w2 + h * d + j), x);
+      for (int off = 1; off < kWarp; off <<= 1) x += __shfl_xor_sync(kFull, x, off);
+      if (lane == 0) p.s0[row * H + h] = x - scratch[h];
+    }
+    __syncwarp();
   }
 }
 
@@ -1025,8 +1133,8 @@ int run_fwd(const void* indptr, int ip64, const void* src, const void* v, long l
 
 template <typename GVT>
 int run_b2(const void* indptr, int ip64, const void* dst, const void* eid, const void* g_out,
-           long long n_dst, const void* node, const void* a_src, void* grad_v, void* w2,
-           void* w3, long long n_rows, int heads, int d, float ns, const void* seed,
+           long long n_dst, const void* node, const void* a_src, const void* v, void* grad_v,
+           void* grad_a_src, long long n_rows, int heads, int d, float ns, const void* seed,
            unsigned thresh, float scale, const void* rows, const void* chunk_ptr,
            long long n_long, const void* chunks, long long n_chunks, void* pgv, void* counters,
            void* pw2, void* pw3, long long n_edges, void* stream) {
@@ -1040,9 +1148,10 @@ int run_b2(const void* indptr, int ip64, const void* dst, const void* eid, const
   p.eid = seed != nullptr ? static_cast<const int32_t*>(eid) : nullptr;
   p.edge_node = static_cast<const float4*>(node);
   p.row_in = static_cast<const float*>(a_src);
+  p.v = v;
+  p.v_vec = reinterpret_cast<uint64_t>(v) % 16 == 0;
   p.out0 = grad_v;
-  p.out1 = static_cast<float*>(w2);
-  p.s0 = static_cast<float*>(w3);
+  p.s0 = static_cast<float*>(grad_a_src);
   p.part0 = static_cast<float*>(pgv);
   p.part1 = static_cast<float*>(pw2);
   p.pscal = static_cast<float*>(pw3);
@@ -1064,8 +1173,10 @@ int run_b2(const void* indptr, int ip64, const void* dst, const void* eid, const
 // pgv and pw2 (n_chunks, H, D) and pw3 (n_chunks, H); null when n_chunks is
 // 0, as nothing reads them then. n_edges: the CSR's. k3_geometry.h sizes the launch. One launch a call; returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what the kernels do not
-// take. gat_fwd_bf16 reads v as bfloat16, gat_b2_bf16 writes grad_v as
-// bfloat16; every other operand is float in all four.
+// take. b2 reads v (n_rows, H, D), the forward's gathered rows, once a row,
+// and writes grad_v and grad_a_src (n_rows, H). gat_fwd_bf16 reads v as
+// bfloat16, gat_b2_bf16 reads v and writes grad_v as bfloat16; every other
+// operand is float in all four.
 #define GAT_FWD_ENTRY(NAME, VT)                                                                  \
   extern "C" int NAME(const void* indptr, int indptr_is_int64, const void* src, const void* v,   \
                       long long n_src, const void* a_src, const void* a_dst, void* out,          \
@@ -1082,14 +1193,14 @@ int run_b2(const void* indptr, int ip64, const void* dst, const void* eid, const
 #define GAT_B2_ENTRY(NAME, GVT)                                                                  \
   extern "C" int NAME(const void* indptr, int indptr_is_int64, const void* dst,                  \
                       const void* eid, const void* g, long long n_dst, const void* node,         \
-                      const void* a_src, void* grad_v, void* w2, void* w3, long long n_rows,     \
-                      int heads, int d, float ns, const void* seed, unsigned thresh,             \
-                      float scale, const void* rows, const void* chunk_ptr, long long n_long,    \
-                      const void* chunks, long long n_chunks, void* pgv, void* counters,         \
-                      void* pw2, void* pw3, long long n_edges, void* stream) {                   \
-    return run_b2<GVT>(indptr, indptr_is_int64, dst, eid, g, n_dst, node, a_src, grad_v, w2, w3, \
-                       n_rows, heads, d, ns, seed, thresh, scale, rows, chunk_ptr, n_long,       \
-                       chunks, n_chunks, pgv, counters, pw2, pw3, n_edges, stream);              \
+                      const void* a_src, const void* v, void* grad_v, void* grad_a_src,         \
+                      long long n_rows, int heads, int d, float ns, const void* seed,            \
+                      unsigned thresh, float scale, const void* rows, const void* chunk_ptr,     \
+                      long long n_long, const void* chunks, long long n_chunks, void* pgv,       \
+                      void* counters, void* pw2, void* pw3, long long n_edges, void* stream) {   \
+    return run_b2<GVT>(indptr, indptr_is_int64, dst, eid, g, n_dst, node, a_src, v, grad_v,      \
+                       grad_a_src, n_rows, heads, d, ns, seed, thresh, scale, rows, chunk_ptr,   \
+                       n_long, chunks, n_chunks, pgv, counters, pw2, pw3, n_edges, stream);      \
   }
 
 // Each library holds one type's pair: kernels/build.py compiles this file a
@@ -1101,3 +1212,423 @@ GAT_B2_ENTRY(gat_b2_bf16, __nv_bfloat16)
 GAT_FWD_ENTRY(gat_fwd_f32, float)
 GAT_B2_ENTRY(gat_b2_f32, float)
 #endif
+
+// ---- K3's node passes -------------------------------------------------------
+//
+// The per-(node, head) dot products around the two edge passes, in float
+// (only the float32 library holds them): pair p = n·H + h of an (N, H, D)
+// array is its row of D values at p·D, taken with head h's row of an
+// attention vector (H, D).
+//
+//   gat_scores_kernel (before gat_fwd): a_src = Σ_D z·attn_src over the
+//     source rows and a_dst = Σ_D z_dst·attn_dst over the dst rows, one read
+//     of each row (z_dst null: z is both, each row read once for both);
+//   gat_score_grad_kernel (before b2): over the dst pairs, C = Σ_D g·out and
+//     grad_a_dst = Σ_D g·w1 − C·w1s, and b2's node float4 (a_dst, shift,
+//     inv_s, C) written directly;
+//   gat_vector_grad_kernel (after b2): grad_z = grad_v + grad_a_src ⊗
+//     attn_src + grad_a_dst ⊗ attn_dst (grad_v null where v is not z: 0; a
+//     separate z_dst takes grad_a_dst ⊗ attn_dst in grad_z_dst), written
+//     over grad_v where they share a buffer, and the attention vectors'
+//     gradients Σ_n grad_a_src·z and Σ_n grad_a_dst·z_dst.
+//
+// A dot product is summed by FMAs in ascending order within a lane, then
+// pairwise by a butterfly over the pair's lanes: S lanes a pair (the least
+// power of two that covers its D / V vectors, at most 32), 32 / S pairs a
+// warp at once, V = 4 values a read where D is a multiple of 4 and every
+// row array starts on 16 bytes, else 1. The attention vectors' gradients
+// are column sums over N: each block sums its rows into fixed partials
+// (each thread its rows in ascending order, then the block's row lanes in
+// ascending order), and the block that arrives last on the ticket (a
+// counter left at 0) adds the blocks' partials in ascending block order in
+// the same launch. No atomic decides an order: two runs are bitwise equal.
+// The ticket belongs to the caller's device; two launches must not run at
+// once on two streams (the package runs on one stream).
+
+#ifndef K3_BF16
+namespace {
+
+constexpr int kNodeThreads = 256;
+constexpr int kNodeWarps = kNodeThreads / kWarp;
+constexpr int64_t kNodeMaxBlocks = 65535;
+constexpr int kNodeTiles = 4;  // gat_vector_grad: rows a thread reads at once, then sums
+
+template <int V>
+__device__ __forceinline__ void ldg_vals(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+__device__ __forceinline__ float lanes_sum(float x, int lanes) {
+  for (int off = 1; off < lanes; off <<= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+struct ScoreParams {
+  const float* z;
+  const float* zd;  // z_dst, or null where it is z
+  const float* att_s;
+  const float* att_d;  // (H, D) each
+  float* a_src;
+  float* a_dst;
+  int64_t n_src, n_dst;
+  int heads, d, lanes;
+};
+
+// The pair's row n = pr / heads, in 32 bits where every pair index fits.
+__device__ __forceinline__ int64_t row_of(int64_t pr, int heads, bool narrow) {
+  return narrow ? static_cast<int64_t>(static_cast<uint32_t>(pr) / static_cast<uint32_t>(heads))
+                : pr / heads;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kNodeThreads) gat_scores_kernel(const __grid_constant__ ScoreParams p) {
+  const int lane = threadIdx.x % kWarp, S = p.lanes, sub = lane % S, per = kWarp / S;
+  const int nv = p.d / V;
+  const int64_t pairs = max(p.n_src, p.n_dst) * p.heads;
+  const bool narrow = pairs + kWarp * kNodeWarps <= UINT32_MAX;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kNodeWarps;
+  for (int64_t base = (static_cast<int64_t>(blockIdx.x) * kNodeWarps + threadIdx.x / kWarp) * per;
+       base < pairs; base += warps * per) {
+    const int64_t pr = base + lane / S, n = row_of(pr, p.heads, narrow);
+    const int h = static_cast<int>(pr - n * p.heads);
+    const bool src = pr < pairs && n < p.n_src, dst = pr < pairs && n < p.n_dst;
+    float s = 0.f, t = 0.f;
+    for (int j = sub; j < nv; j += S) {
+      float x[V], a[V];
+      if (src) {
+        ldg_vals<V>(p.z + pr * p.d + j * V, x);
+        ldg_vals<V>(p.att_s + h * p.d + j * V, a);
+#pragma unroll
+        for (int k = 0; k < V; ++k) s = fmaf(x[k], a[k], s);
+      }
+      if (dst) {  // z_dst null: z, whose rows hold every dst row (read above)
+        if (p.zd != nullptr) ldg_vals<V>(p.zd + pr * p.d + j * V, x);
+        ldg_vals<V>(p.att_d + h * p.d + j * V, a);
+#pragma unroll
+        for (int k = 0; k < V; ++k) t = fmaf(x[k], a[k], t);
+      }
+    }
+    s = lanes_sum(s, S);
+    t = lanes_sum(t, S);
+    if (sub == 0) {
+      if (src) p.a_src[pr] = s;
+      if (dst) p.a_dst[pr] = t;
+    }
+  }
+}
+
+struct ScoreGradParams {
+  const float* g;
+  const float* out;
+  const float* w1;  // (N_dst, H, D) each
+  const float* a_dst;
+  const float* shift;
+  const float* inv_s;
+  const float* w1s;  // (N_dst, H) each
+  float4* node;
+  float* grad_a_dst;
+  int64_t n;
+  int heads, d, lanes;
+};
+
+template <int V>
+__global__ void __launch_bounds__(kNodeThreads)
+gat_score_grad_kernel(const __grid_constant__ ScoreGradParams p) {
+  const int lane = threadIdx.x % kWarp, S = p.lanes, sub = lane % S, per = kWarp / S;
+  const int nv = p.d / V;
+  const int64_t pairs = p.n * p.heads;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kNodeWarps;
+  for (int64_t base = (static_cast<int64_t>(blockIdx.x) * kNodeWarps + threadIdx.x / kWarp) * per;
+       base < pairs; base += warps * per) {
+    const int64_t pr = base + lane / S;
+    const bool live = pr < pairs;
+    float c = 0.f, t = 0.f;
+    for (int j = sub; live && j < nv; j += S) {
+      float g[V], o[V], w[V];
+      ldg_vals<V>(p.g + pr * p.d + j * V, g);
+      ldg_vals<V>(p.out + pr * p.d + j * V, o);
+      ldg_vals<V>(p.w1 + pr * p.d + j * V, w);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        c = fmaf(g[k], o[k], c);
+        t = fmaf(g[k], w[k], t);
+      }
+    }
+    c = lanes_sum(c, S);
+    t = lanes_sum(t, S);
+    if (sub == 0 && live) {
+      p.node[pr] = make_float4(__ldg(p.a_dst + pr), __ldg(p.shift + pr), __ldg(p.inv_s + pr), c);
+      p.grad_a_dst[pr] = t - c * __ldg(p.w1s + pr);
+    }
+  }
+}
+
+struct VectorGradParams {
+  const float* z;
+  const float* zd;  // z_dst, or null where it is z (then n_dst = n_src)
+  const float* att_s;
+  const float* att_d;  // (H, D) each
+  const float* ga_s;   // (N_src, H)
+  const float* ga_d;   // (N_dst, H)
+  const float* gv;     // (N_src, H, D) added to grad_z, or null
+  float* gz;           // (N_src, H, D), may be gv
+  float* gzd;          // (N_dst, H, D) where zd is given
+  float* part;         // (gridDim.x, 2, H·D)
+  int* ticket;
+  float* g_att;        // (2, H·D): attn_src's gradient, then attn_dst's
+  int64_t n_src, n_dst, rows_per_block;
+  int heads, d, hd, cols;  // cols: the block's column lanes C, a power of two
+};
+
+template <int V>
+__global__ void __launch_bounds__(kNodeThreads)
+gat_vector_grad_kernel(const __grid_constant__ VectorGradParams p) {
+  __shared__ float red[2][kNodeThreads * V];
+  __shared__ bool last;
+  const int C = p.cols, R = kNodeThreads / C, ci = threadIdx.x % C, ri = threadIdx.x / C;
+  const int nvh = p.hd / V;
+  const bool same = p.zd == nullptr;
+  const int64_t n_rows = max(p.n_src, p.n_dst);
+  const int64_t r0 = min(static_cast<int64_t>(blockIdx.x) * p.rows_per_block, n_rows);
+  const int64_t r1 = min(r0 + p.rows_per_block, n_rows);
+  float* part = p.part + static_cast<int64_t>(blockIdx.x) * 2 * p.hd;
+  for (int j0 = 0; j0 < nvh; j0 += C) {  // the same count on every thread
+    const int j = j0 + ci, col = j * V;
+    const bool live = j < nvh;
+    const int h = live ? col / p.d : 0;
+    float as[V], ad[V], accs[V], accd[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) as[k] = ad[k] = accs[k] = accd[k] = 0.f;
+    if (live) {
+      ldg_vals<V>(p.att_s + col, as);
+      ldg_vals<V>(p.att_d + col, ad);
+      // kNodeTiles rows at once: every row's reads first, then the sums
+      for (int64_t n0 = r0 + ri; n0 < r1; n0 += kNodeTiles * R) {
+        float x[kNodeTiles][V], g[kNodeTiles][V], gs[kNodeTiles], gd[kNodeTiles];
+#pragma unroll
+        for (int u = 0; u < kNodeTiles; ++u) {
+          const int64_t n = n0 + u * R, at = n * p.hd + col, nh = n * p.heads + h;
+#pragma unroll
+          for (int k = 0; k < V; ++k) g[u][k] = 0.f;
+          gs[u] = gd[u] = 0.f;
+          if (n < r1 && n < p.n_src) {
+            ldg_vals<V>(p.z + at, x[u]);
+            if (p.gv != nullptr) lds_vec<V>(p.gv + at, g[u]);
+            gs[u] = __ldg(p.ga_s + nh);
+            if (same) gd[u] = __ldg(p.ga_d + nh);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kNodeTiles; ++u) {
+          const int64_t n = n0 + u * R;
+          if (n >= r1 || n >= p.n_src) continue;
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            g[u][k] = fmaf(gs[u], as[k], g[u][k]);
+            accs[k] = fmaf(gs[u], x[u][k], accs[k]);
+            if (same) {
+              g[u][k] = fmaf(gd[u], ad[k], g[u][k]);
+              accd[k] = fmaf(gd[u], x[u][k], accd[k]);
+            }
+          }
+          store_vec<V>(p.gz + n * p.hd + col, g[u]);
+        }
+        if (same) continue;
+#pragma unroll
+        for (int u = 0; u < kNodeTiles; ++u) {
+          const int64_t n = n0 + u * R;
+          if (n < r1 && n < p.n_dst) {
+            ldg_vals<V>(p.zd + n * p.hd + col, x[u]);
+            gd[u] = __ldg(p.ga_d + n * p.heads + h);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kNodeTiles; ++u) {
+          const int64_t n = n0 + u * R;
+          if (n >= r1 || n >= p.n_dst) continue;
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            g[u][k] = gd[u] * ad[k];
+            accd[k] = fmaf(gd[u], x[u][k], accd[k]);
+          }
+          store_vec<V>(p.gzd + n * p.hd + col, g[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      red[0][threadIdx.x * V + k] = accs[k];
+      red[1][threadIdx.x * V + k] = accd[k];
+    }
+    __syncthreads();
+    if (ri == 0 && live) {
+      float s[V], t[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) s[k] = t[k] = 0.f;
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          s[k] += red[0][(i * C + ci) * V + k];
+          t[k] += red[1][(i * C + ci) * V + k];
+        }
+      store_vec<V>(part + col, s);
+      store_vec<V>(part + p.hd + col, t);
+    }
+    __syncthreads();
+  }
+  // the last block to arrive adds every block's partials, in ascending block
+  // order, and sets the ticket back to 0
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(p.ticket, 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // V columns a read: thread (rs, cs) adds blocks rs, rs + R2, ... of
+  // column vector cs, then the R2 sums in ascending rs
+  const int n_vecs = 2 * p.hd / V;
+  int C2 = 1;
+  while (C2 < n_vecs && C2 < kNodeThreads) C2 <<= 1;
+  const int R2 = kNodeThreads / C2, cs = threadIdx.x % C2, rs = threadIdx.x / C2;
+  for (int c0 = 0; c0 < n_vecs; c0 += C2) {
+    const int c = c0 + cs;
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.f;
+    if (c < n_vecs) {
+#pragma unroll 4
+      for (int64_t b = rs; b < gridDim.x; b += R2) {
+        float x[V];
+        ldcg_vec<V>(p.part + b * 2 * p.hd + c * V, x);
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] += x[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) red[0][threadIdx.x * V + k] = acc[k];
+    __syncthreads();
+    if (rs == 0 && c < n_vecs) {
+      float x[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) x[k] = 0.f;
+      for (int i = 0; i < R2; ++i)
+#pragma unroll
+        for (int k = 0; k < V; ++k) x[k] += red[0][(i * C2 + cs) * V + k];
+      store_vec<V>(p.g_att + c * V, x);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *p.ticket = 0;
+}
+
+// V: 4 where d is a multiple of 4 and every pointer starts on 16 bytes.
+int node_vec(int d, std::initializer_list<const void*> ptrs) {
+  if (d % 4 != 0) return 1;
+  for (const void* q : ptrs)
+    if (q != nullptr && reinterpret_cast<uint64_t>(q) % 16 != 0) return 1;
+  return 4;
+}
+
+// The pair passes' lanes a pair and grid.
+int pair_lanes(int d, int vec) {
+  int s = 1;
+  while (s < d / vec && s < kWarp) s <<= 1;
+  return s;
+}
+
+dim3 pair_grid(int64_t pairs, int lanes) {
+  const int64_t per_block = static_cast<int64_t>(kNodeWarps) * (kWarp / lanes);
+  const int64_t blocks = (pairs + per_block - 1) / per_block;
+  return dim3(static_cast<unsigned>(blocks < kNodeMaxBlocks ? blocks : kNodeMaxBlocks));
+}
+
+}  // namespace
+
+// The node passes' C entry points (the float32 library only). Pointers are
+// device pointers, every array contiguous; z_dst null: z is both sides.
+// One launch a call (none for no pairs); returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what the kernels do not take.
+extern "C" int gat_scores_f32(const void* z, const void* z_dst, const void* attn_src,
+                              const void* attn_dst, void* a_src, void* a_dst, long long n_src,
+                              long long n_dst, int heads, int d, void* stream) {
+  const int64_t pairs = (n_src > n_dst ? n_src : n_dst) * static_cast<int64_t>(heads);
+  if (z_dst == nullptr && n_dst > n_src) return static_cast<int>(cudaErrorInvalidValue);
+  if (pairs <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  ScoreParams p{static_cast<const float*>(z), static_cast<const float*>(z_dst),
+                static_cast<const float*>(attn_src), static_cast<const float*>(attn_dst),
+                static_cast<float*>(a_src), static_cast<float*>(a_dst), n_src, n_dst, heads, d, 1};
+  const int vec = node_vec(d, {z, z_dst, attn_src, attn_dst});
+  p.lanes = pair_lanes(d, vec);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    gat_scores_kernel<4><<<pair_grid(pairs, p.lanes), kNodeThreads, 0, s>>>(p);
+  } else {
+    gat_scores_kernel<1><<<pair_grid(pairs, p.lanes), kNodeThreads, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gat_score_grad_f32(const void* g, const void* out, const void* w1,
+                                  const void* a_dst, const void* shift, const void* inv_s,
+                                  const void* w1s, void* node, void* grad_a_dst, long long n,
+                                  int heads, int d, void* stream) {
+  const int64_t pairs = n * static_cast<int64_t>(heads);
+  if (pairs <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  if (reinterpret_cast<uint64_t>(node) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  ScoreGradParams p{static_cast<const float*>(g),     static_cast<const float*>(out),
+                    static_cast<const float*>(w1),    static_cast<const float*>(a_dst),
+                    static_cast<const float*>(shift), static_cast<const float*>(inv_s),
+                    static_cast<const float*>(w1s),   static_cast<float4*>(node),
+                    static_cast<float*>(grad_a_dst),  n, heads, d, 1};
+  const int vec = node_vec(d, {g, out, w1});
+  p.lanes = pair_lanes(d, vec);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    gat_score_grad_kernel<4><<<pair_grid(pairs, p.lanes), kNodeThreads, 0, s>>>(p);
+  } else {
+    gat_score_grad_kernel<1><<<pair_grid(pairs, p.lanes), kNodeThreads, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// max_blocks: the partials' rows ((max_blocks, 2, H·D) floats); ticket: one
+// int32 at 0, left at 0; grad_attn (2, H·D).
+extern "C" int gat_vector_grad_f32(const void* z, const void* z_dst, const void* attn_src,
+                                   const void* attn_dst, const void* grad_a_src,
+                                   const void* grad_a_dst, const void* grad_v, void* grad_z,
+                                   void* grad_z_dst, void* partials, long long max_blocks,
+                                   void* ticket, void* grad_attn, long long n_src,
+                                   long long n_dst, int heads, int d, void* stream) {
+  const int64_t n_rows = n_src > n_dst ? n_src : n_dst;
+  const int hd = heads * d;
+  if (n_rows <= 0 || hd <= 0 || max_blocks <= 0 || (z_dst == nullptr && n_src != n_dst))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = node_vec(d, {z, z_dst, attn_src, attn_dst, grad_v, grad_z, grad_z_dst});
+  int cols = 1;
+  while (cols < hd / vec && cols < kNodeThreads) cols <<= 1;
+  const int64_t rows_at_once = kNodeThreads / cols;
+  int64_t blocks = (n_rows + rows_at_once - 1) / rows_at_once;
+  if (blocks > max_blocks) blocks = max_blocks;
+  VectorGradParams p{static_cast<const float*>(z),        static_cast<const float*>(z_dst),
+                     static_cast<const float*>(attn_src), static_cast<const float*>(attn_dst),
+                     static_cast<const float*>(grad_a_src),
+                     static_cast<const float*>(grad_a_dst),
+                     static_cast<const float*>(grad_v),   static_cast<float*>(grad_z),
+                     static_cast<float*>(grad_z_dst),     static_cast<float*>(partials),
+                     static_cast<int*>(ticket),           static_cast<float*>(grad_attn),
+                     n_src, n_dst, (n_rows + blocks - 1) / blocks, heads, d, hd, cols};
+  auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  if (vec == 4) {
+    gat_vector_grad_kernel<4><<<grid, kNodeThreads, 0, s>>>(p);
+  } else {
+    gat_vector_grad_kernel<1><<<grid, kNodeThreads, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // K3_BF16

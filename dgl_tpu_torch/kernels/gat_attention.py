@@ -4,13 +4,23 @@
 ``out[d] = Σ_{s→d} drop(softmax_d(leaky_relu(a_src[s] + a_dst[d]))) · v[s]``
 as a ``torch.autograd.Function``: its forward is one call of
 ``gat_attention_fwd`` over the dst CSR with the graph's row split
-(``g.split``), its backward one call of ``gat_attention_bwd`` (the "b2"
-pass) over the reverse CSR with its split (``g.reverse.split``) plus the
-N-wide closed forms of ``_lane_gat_bwd``::
+(``g.split``), its backward one call of ``gat_score_grad`` and one of
+``gat_attention_bwd`` (the "b2" pass) over the reverse CSR with its split
+(``g.reverse.split``), which give the N-wide closed forms of
+``_lane_gat_bwd``::
 
-    C          = Σ_D g · out
-    grad_a_dst = Σ_D g · w1 − C · w1s
-    grad_a_src = Σ_D v · w2 − w3
+    C          = Σ_D g · out              (gat_score_grad)
+    grad_a_dst = Σ_D g · w1 − C · w1s     (gat_score_grad)
+    grad_a_src = Σ_D v · w2 − w3          (b2, from v's row: w2 and w3
+                                           never leave the launch)
+
+``gat_attention_vectors(g, z, attn_src, attn_dst)``, GATConv's fused form,
+takes the scores from the attention vectors as well: ``gat_scores``
+computes ``a_src = Σ_D z·attn_src`` and ``a_dst = Σ_D z_dst·attn_dst``
+before the forward, and ``gat_vector_grad`` the gradients of z (adding v's
+where v is z) and of the attention vectors after b2, so that no torch
+arithmetic on (N, H, D) tensors is left around K3 ("K3's node passes",
+below).
 
 Each pass wrapper launches its hand-written CUDA kernel
 (``csrc/gat_attention.cu``, one launch a call, through ``build.launch``) for
@@ -61,9 +71,9 @@ all heads. The seed is a (1,) int32 tensor on the operands' device.
 (``lane_attention.py:503``): the forward reads v's rows as bfloat16 and
 keeps the logits, the shift, the softmax, the dropout and every sum in
 float32, and writes float32; b2 reads the float32 cotangent, sums
-``grad_v`` in float32 and rounds it once to v's type (``:477``), which
-``gat_attention_bwd`` takes as ``v_dtype``; ``grad_a_src = Σ_D v·w2 − w3``
-reads v converted to float32. ``.launches_bf16`` counts each pass's
+``grad_v`` in float32 and rounds it once to v's type (``:477``); its
+``grad_a_src = Σ_D v·w2 − w3`` reads v's bfloat16 row converted to
+float32. The node passes are float32 only. ``.launches_bf16`` counts each pass's
 bfloat16 launches among ``.launches``. The kernels take at most
 ``MAX_HEADS`` heads.
 
@@ -76,6 +86,7 @@ shift.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -89,11 +100,15 @@ from .seg_sum import ROW_DTYPES, csr_rows, sum_dtype
 
 __all__ = [
     "gat_attention",
+    "gat_attention_vectors",
     "gat_attention_plain",
     "gat_attention_fwd",
     "gat_attention_fwd_plain",
     "gat_attention_bwd",
     "gat_attention_bwd_plain",
+    "gat_scores",
+    "gat_score_grad",
+    "gat_vector_grad",
     "keep_mask",
     "drop_keys",
 ]
@@ -182,14 +197,15 @@ def gat_attention_fwd_plain(
 
 
 def gat_attention_bwd_plain(
-    indptr, dst, eid, g, node, a_src, *, negative_slope: float, keep: float = 1.0,
-    seed: Optional[torch.Tensor] = None, v_dtype: Optional[torch.dtype] = None,
+    indptr, dst, eid, g, node, a_src, v, *, negative_slope: float, keep: float = 1.0,
+    seed: Optional[torch.Tensor] = None,
 ):
     """The b2 pass in plain PyTorch over the reverse CSR (``dst`` holds the
     original dst of each slot, ``eid`` its forward-canonical id, ``node``
-    (N_dst, H, 4) the packed a_dst, shift, inv_s, C); returns
-    (grad_v, w2, w3), ``grad_v`` summed in g's type and rounded once to
-    ``v_dtype`` where given."""
+    (N_dst, H, 4) the packed a_dst, shift, inv_s, C, ``v`` the forward's
+    gathered rows); returns (grad_v, grad_a_src) with ``grad_a_src = Σ_D
+    v·w2 − w3``, both summed in g's type, ``grad_v`` rounded once to
+    bfloat16 where v is bfloat16."""
     n, e = indptr.numel() - 1, dst.numel()
     rows, d = csr_rows(indptr, e), dst.long()
     q = node[d]
@@ -201,7 +217,8 @@ def gat_attention_bwd_plain(
     grad_v = _zeros_like_rows(n, g).index_add_(0, rows, wv.unsqueeze(-1) * gd)
     w2 = _zeros_like_rows(n, g).index_add_(0, rows, (wv * slope).unsqueeze(-1) * gd)
     w3 = _zeros_like_rows(n, a_src).index_add_(0, rows, alpha * slope * q[..., 3])
-    return grad_v if v_dtype is None else grad_v.to(v_dtype), w2, w3
+    grad_a_src = (v.to(g.dtype) * w2).sum(-1) - w3
+    return grad_v.to(v.dtype) if v.dtype == torch.bfloat16 else grad_v, grad_a_src
 
 
 def gat_attention_plain(
@@ -359,45 +376,43 @@ gat_attention_fwd.combines = 0
 
 
 def gat_attention_bwd(
-    indptr, dst, eid, g, node, a_src, *, negative_slope: float, keep: float = 1.0,
+    indptr, dst, eid, g, node, a_src, v, *, negative_slope: float, keep: float = 1.0,
     seed: Optional[torch.Tensor] = None, split: Optional[RowSplit] = None,
-    v_dtype: torch.dtype = torch.float32,
 ):
     """The b2 pass over the reverse CSR (``indptr`` (N_src+1,), ``dst`` and
     ``eid`` (E,) int32: each slot's original dst and forward-canonical id),
     with ``g`` (N_dst, H, D) the output cotangent, ``node`` (N_dst, H, 4)
     the packed a_dst, shift, inv_s and C, and ``a_src`` (N_src, H), all
-    float32. Returns ``grad_v`` (N_src, H, D) in ``v_dtype`` (v's type,
-    float32 or bfloat16: summed in float32, rounded once), ``w2`` (N_src,
-    H, D) and ``w3`` (N_src, H) float32.
+    float32, and ``v`` (N_src, H, D) the forward's rows, float32 or
+    bfloat16. Returns ``grad_v`` (N_src, H, D) in v's type (summed in
+    float32, rounded once) and ``grad_a_src = Σ_D v·w2 − w3`` (N_src, H)
+    float32, which the launch computes from v's row at the end of each row's
+    sums: ``w2`` and ``w3`` never leave it.
 
     ``split``: the reverse CSR's row split (``g.reverse.split``), as for
     ``gat_attention_fwd``; the forward over the same CSR shares its
     counters."""
     with trace.span("dgl_tpu_torch.K3.b2"):
-        _check("gat_attention_bwd", indptr, [dst, eid], [g, node, a_src], seed, keep)
-        if v_dtype not in ROW_DTYPES:
-            raise TypeError(f"gat_attention_bwd: v_dtype must be float32 or bfloat16, "
-                            f"got {v_dtype}")
+        _check("gat_attention_bwd", indptr, [dst, eid], [g, node, a_src], seed, keep, rows=[v])
         n, (n_dst, heads, d) = indptr.numel() - 1, g.shape
-        if node.shape != (n_dst, heads, 4) or a_src.shape != (n, heads):
+        if node.shape != (n_dst, heads, 4) or a_src.shape != (n, heads) or v.shape != (n, heads, d):
             raise ValueError(f"gat_attention_bwd: node {tuple(node.shape)} / a_src "
-                             f"{tuple(a_src.shape)} do not match g {tuple(g.shape)} and {n} rows")
+                             f"{tuple(a_src.shape)} / v {tuple(v.shape)} do not match g "
+                             f"{tuple(g.shape)} and {n} rows")
         if eid.shape != dst.shape:
             raise ValueError("gat_attention_bwd: dst and eid differ in length")
         if split is not None:
             split.check(indptr, dst.numel(), "gat_attention_bwd")
         if g.device.type == "cpu":
-            return gat_attention_bwd_plain(indptr, dst, eid, g, node, a_src,
-                                           negative_slope=negative_slope, keep=keep, seed=seed,
-                                           v_dtype=v_dtype)
+            return gat_attention_bwd_plain(indptr, dst, eid, g, node, a_src, v,
+                                           negative_slope=negative_slope, keep=keep, seed=seed)
         if node.data_ptr() % 16:
             raise ValueError("gat_attention_bwd: node must be 16-byte aligned (one float4 per row)")
+        v_dtype = v.dtype
         grad_v = torch.empty((n, heads, d), dtype=v_dtype, device=g.device)
-        w2 = torch.empty((n, heads, d), dtype=torch.float32, device=g.device)
-        w3 = torch.empty((n, heads), dtype=torch.float32, device=g.device)
+        grad_a_src = torch.empty((n, heads), dtype=torch.float32, device=g.device)
         if n == 0 or d == 0 or heads == 0:
-            return grad_v, w2, w3
+            return grad_v, grad_a_src
         _check_heads("gat_attention_bwd", heads)
         if split is None:
             split = row_split(indptr)
@@ -406,13 +421,14 @@ def gat_attention_bwd(
         seed_ptr, thresh, scale = _drop_args(keep, seed)
         launch(_entry("gat_b2", v_dtype, _B2_ARGTYPES), g.device,
                indptr.data_ptr(), int(indptr.dtype == torch.int64), dst.data_ptr(), eid.data_ptr(),
-               g.data_ptr(), n_dst, node.data_ptr(), a_src.data_ptr(), grad_v.data_ptr(),
-               w2.data_ptr(), w3.data_ptr(), n, heads, d, negative_slope, seed_ptr, thresh, scale,
+               g.data_ptr(), n_dst, node.data_ptr(), a_src.data_ptr(), v.data_ptr(),
+               grad_v.data_ptr(), grad_a_src.data_ptr(), n, heads, d, negative_slope, seed_ptr,
+               thresh, scale,
                *split.kernel_args(pgv, counters=True)[1:], _ptr(pw2), _ptr(pw3), dst.numel())
         gat_attention_bwd.launches += 1
         gat_attention_bwd.launches_bf16 += int(v_dtype == torch.bfloat16)
         trace.launch("K3", "b2", indptr, dst, g, value_dtype=v_dtype, dropout=keep < 1.0)
-        return grad_v, w2, w3
+        return grad_v, grad_a_src
 
 
 gat_attention_bwd.launches = 0
@@ -420,34 +436,272 @@ gat_attention_bwd.launches_bf16 = 0
 gat_attention_bwd.combines = 0
 
 
+# ---- K3's node passes ------------------------------------------------------
+#
+# The per-(node, head) dot products around the two edge passes
+# (csrc/gat_attention.cu, "K3's node passes"), float32, one launch a call on
+# the card and the plain torch expression on the CPU:
+#
+#   gat_scores       before the forward: a_src = Σ_D z·attn_src,
+#                    a_dst = Σ_D z_dst·attn_dst;
+#   gat_score_grad   before b2: C = Σ_D g·out, grad_a_dst = Σ_D g·w1 − C·w1s
+#                    and b2's packed node rows (a_dst, shift, inv_s, C);
+#   gat_vector_grad  after b2: grad_z = grad_v + grad_a_src ⊗ attn_src +
+#                    grad_a_dst ⊗ attn_dst (over grad_v's buffer) and the
+#                    attention vectors' gradients Σ_n grad_a·z.
+#
+# Their launches are traced as kernel "K3N" (passes "scores", "score_grad",
+# "vector_grad") and counted by ``.launches`` on each wrapper, apart from
+# K3's own records and counters.
+
+_SCORES_ARGTYPES = (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P)
+_SCORE_GRAD_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P)
+_VECTOR_GRAD_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _LL, _LL, _I, _I,
+                         _P)
+_tickets = {}  # one int32 a device, at 0 between gat_vector_grad launches
+
+
+def _check_node(name: str, *tensors) -> None:
+    """Float32, contiguous, on one cuda or cpu device (None skipped)."""
+    ts = [t for t in tensors if t is not None]
+    dev = ts[0].device
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes float32 operands, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} operands lie on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
+
+
+def _check_vectors(name: str, z: torch.Tensor, *vectors: torch.Tensor) -> None:
+    """Check the attention vectors against z (N, H, D); they may be (1, H, D)."""
+    if z.dim() != 3:
+        raise ValueError(f"{name}: z must be (N, H, D), got {tuple(z.shape)}")
+    for a in vectors:
+        if a.numel() != z.shape[1] * z.shape[2] or a.shape[-2:] != z.shape[1:]:
+            raise ValueError(f"{name}: attention vector {tuple(a.shape)} does not match z "
+                             f"{tuple(z.shape)}")
+
+
+def gat_scores_plain(z, attn_src, attn_dst, z_dst=None):
+    """``(Σ_D z·attn_src, Σ_D z_dst·attn_dst)``, (N_src, H) and (N_dst, H);
+    ``z_dst`` None: z."""
+    zd = z if z_dst is None else z_dst
+    return (z * attn_src.view(z.shape[1:])).sum(-1), (zd * attn_dst.view(z.shape[1:])).sum(-1)
+
+
+def gat_scores(z, attn_src, attn_dst, z_dst: Optional[torch.Tensor] = None):
+    """The attention scores of every node and head: ``a_src = Σ_D
+    z·attn_src`` (N_src, H) and ``a_dst = Σ_D z_dst·attn_dst`` (N_dst, H),
+    ``z`` (N_src, H, D), ``z_dst`` (N_dst, H, D) or None for z (each row
+    read once for both), the attention vectors (H, D) or (1, H, D); all
+    float32."""
+    with trace.span("dgl_tpu_torch.K3N.scores"):
+        zd = None if z_dst is None or z_dst is z else z_dst
+        _check_node("gat_scores", z, zd, attn_src, attn_dst)
+        _check_vectors("gat_scores", z, attn_src, attn_dst)
+        if zd is not None and zd.shape[1:] != z.shape[1:]:
+            raise ValueError(f"gat_scores: z_dst {tuple(zd.shape)} does not match z {tuple(z.shape)}")
+        if z.device.type == "cpu":
+            return gat_scores_plain(z, attn_src, attn_dst, zd)
+        n_src, heads, d = z.shape
+        n_dst = n_src if zd is None else zd.shape[0]
+        a_src = torch.empty((n_src, heads), dtype=torch.float32, device=z.device)
+        a_dst = torch.empty((n_dst, heads), dtype=torch.float32, device=z.device)
+        launch(entry("gat_attention", "gat_scores_f32", _SCORES_ARGTYPES), z.device,
+               z.data_ptr(), _ptr(zd), attn_src.data_ptr(), attn_dst.data_ptr(), a_src.data_ptr(),
+               a_dst.data_ptr(), n_src, n_dst, heads, d)
+        gat_scores.launches += 1
+        trace.launch("K3N", "scores", None, z, z)
+        return a_src, a_dst
+
+
+gat_scores.launches = 0
+
+
+def gat_score_grad_plain(g, out, w1, a_dst, shift, inv_s, w1s):
+    """``(node, grad_a_dst)``: C = Σ_D g·out, node (N, H, 4) = (a_dst,
+    shift, inv_s, C), grad_a_dst = Σ_D g·w1 − C·w1s."""
+    c = (g * out).sum(-1)
+    return torch.stack([a_dst, shift, inv_s, c], -1), (g * w1).sum(-1) - c * w1s
+
+
+def gat_score_grad(g, out, w1, a_dst, shift, inv_s, w1s):
+    """Before b2, over the dst rows: ``g`` the output cotangent, ``out``,
+    ``w1`` (N_dst, H, D) and ``a_dst``, ``shift``, ``inv_s``, ``w1s``
+    (N_dst, H) the forward's, all float32. Returns b2's packed ``node``
+    (N_dst, H, 4) = (a_dst, shift, inv_s, C), C = Σ_D g·out, and
+    ``grad_a_dst = Σ_D g·w1 − C·w1s`` (N_dst, H)."""
+    with trace.span("dgl_tpu_torch.K3N.score_grad"):
+        _check_node("gat_score_grad", g, out, w1, a_dst, shift, inv_s, w1s)
+        if out.shape != g.shape or w1.shape != g.shape or any(
+                t.shape != g.shape[:2] for t in (a_dst, shift, inv_s, w1s)):
+            raise ValueError(f"gat_score_grad: operands do not match g {tuple(g.shape)}")
+        if g.device.type == "cpu":
+            return gat_score_grad_plain(g, out, w1, a_dst, shift, inv_s, w1s)
+        n, heads, d = g.shape
+        node = torch.empty((n, heads, 4), dtype=torch.float32, device=g.device)
+        grad_a_dst = torch.empty((n, heads), dtype=torch.float32, device=g.device)
+        launch(entry("gat_attention", "gat_score_grad_f32", _SCORE_GRAD_ARGTYPES), g.device,
+               g.data_ptr(), out.data_ptr(), w1.data_ptr(), a_dst.data_ptr(), shift.data_ptr(),
+               inv_s.data_ptr(), w1s.data_ptr(), node.data_ptr(), grad_a_dst.data_ptr(), n,
+               heads, d)
+        gat_score_grad.launches += 1
+        trace.launch("K3N", "score_grad", None, g, g)
+        return node, grad_a_dst
+
+
+gat_score_grad.launches = 0
+
+
+def gat_vector_grad_plain(z, attn_src, attn_dst, grad_a_src, grad_a_dst, grad_v=None,
+                          z_dst=None):
+    """``(grad_z, grad_z_dst, grad_attn_src, grad_attn_dst)`` as
+    ``gat_vector_grad`` returns them, in plain PyTorch."""
+    shape = z.shape[1:]
+    a_s, a_d = attn_src.view(shape), attn_dst.view(shape)
+    grad_z = grad_a_src.unsqueeze(-1) * a_s
+    if grad_v is not None:
+        grad_z = grad_v + grad_z
+    zd, grad_z_dst = z, None
+    if z_dst is None:
+        grad_z = grad_z + grad_a_dst.unsqueeze(-1) * a_d
+    else:
+        zd, grad_z_dst = z_dst, grad_a_dst.unsqueeze(-1) * a_d
+    return (grad_z, grad_z_dst, (grad_a_src.unsqueeze(-1) * z).sum(0),
+            (grad_a_dst.unsqueeze(-1) * zd).sum(0))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_blocks(index: int) -> int:
+    """The blocks a gat_vector_grad launch may take: two an SM."""
+    return 2 * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gat_vector_grad(z, attn_src, attn_dst, grad_a_src, grad_a_dst, *,
+                    grad_v: Optional[torch.Tensor] = None, z_dst: Optional[torch.Tensor] = None):
+    """After b2: the gradients of ``z`` (N_src, H, D), of ``z_dst`` (N_dst,
+    H, D; None: z is both sides) and of the attention vectors (H, D) or (1,
+    H, D) from the scores' gradients ``grad_a_src`` (N_src, H) and
+    ``grad_a_dst`` (N_dst, H); ``grad_v`` (N_src, H, D), v's gradient where
+    v is z, is added to z's (on the card in place, its buffer becoming
+    ``grad_z``). All float32. Returns ``(grad_z, grad_z_dst or None,
+    grad_attn_src, grad_attn_dst)``, the last two (H, D); on the card the
+    attention vectors' column sums over N are fixed per-block partials that
+    the launch's last block adds in a fixed order."""
+    with trace.span("dgl_tpu_torch.K3N.vector_grad"):
+        zd = None if z_dst is None or z_dst is z else z_dst
+        _check_node("gat_vector_grad", z, zd, attn_src, attn_dst, grad_a_src, grad_a_dst, grad_v)
+        _check_vectors("gat_vector_grad", z, attn_src, attn_dst)
+        n_src, heads, d = z.shape
+        n_dst = n_src if zd is None else zd.shape[0]
+        if (grad_a_src.shape != (n_src, heads) or grad_a_dst.shape != (n_dst, heads)
+                or (grad_v is not None and grad_v.shape != z.shape)
+                or (zd is not None and zd.shape[1:] != z.shape[1:])):
+            raise ValueError(f"gat_vector_grad: operands do not match z {tuple(z.shape)}")
+        if z.device.type == "cpu":
+            return gat_vector_grad_plain(z, attn_src, attn_dst, grad_a_src, grad_a_dst, grad_v, zd)
+        dev = z.device
+        grad_z = torch.empty_like(z) if grad_v is None else grad_v
+        grad_z_dst = None if zd is None else torch.empty_like(zd)
+        grad_attn = torch.empty((2, heads, d), dtype=torch.float32, device=dev)
+        if max(n_src, n_dst) == 0 or heads * d == 0:
+            grad_attn.zero_()
+            return grad_z, grad_z_dst, grad_attn[0], grad_attn[1]
+        blocks = _max_blocks(dev.index)
+        partials = torch.empty((blocks, 2, heads * d), dtype=torch.float32, device=dev)
+        ticket = _tickets.get(dev)
+        if ticket is None:
+            ticket = _tickets[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+        launch(entry("gat_attention", "gat_vector_grad_f32", _VECTOR_GRAD_ARGTYPES), dev,
+               z.data_ptr(), _ptr(zd), attn_src.data_ptr(), attn_dst.data_ptr(),
+               grad_a_src.data_ptr(), grad_a_dst.data_ptr(), _ptr(grad_v), grad_z.data_ptr(),
+               _ptr(grad_z_dst), partials.data_ptr(), blocks, ticket.data_ptr(),
+               grad_attn.data_ptr(), n_src, n_dst, heads, d)
+        gat_vector_grad.launches += 1
+        trace.launch("K3N", "vector_grad", None, z, z)
+        return grad_z, grad_z_dst, grad_attn[0], grad_attn[1]
+
+
+gat_vector_grad.launches = 0
+
+
+def _attention_bwd(ctx, g_out, v, a_src, a_dst, out, w1, inv_s, w1s, shift):
+    """(grad_v, grad_a_src, grad_a_dst): gat_score_grad, then b2."""
+    g_out = g_out.contiguous()
+    node, grad_a_dst = gat_score_grad(g_out, out, w1, a_dst, shift, inv_s, w1s)
+    rev = ctx.g.reverse
+    grad_v, grad_a_src = gat_attention_bwd(
+        rev.indptr, rev.src, rev.eid, g_out, node, a_src, v,
+        negative_slope=ctx.negative_slope, keep=ctx.keep, seed=ctx.seed, split=rev.split,
+    )
+    return grad_v, grad_a_src, grad_a_dst
+
+
+def _attention_fwd(ctx, g, v, a_src, a_dst, negative_slope, keep, seed):
+    ctx.g, ctx.negative_slope, ctx.keep, ctx.seed = g, negative_slope, keep, seed
+    return gat_attention_fwd(g.indptr, g.src, v, a_src, a_dst, negative_slope=negative_slope,
+                             keep=keep, seed=seed, split=g.split)
+
+
 class _GATAttention(torch.autograd.Function):
+    """The aggregation of given scores: the forward pass; its backward
+    gat_score_grad and b2, with no torch arithmetic on (N, H, D) tensors."""
+
     @staticmethod
     def forward(ctx, v, a_src, a_dst, g, negative_slope, keep, seed):
         with trace.span("dgl_tpu_torch._GATAttention.forward"):
-            out, w1, inv_s, w1s, shift = gat_attention_fwd(
-                g.indptr, g.src, v, a_src, a_dst, negative_slope=negative_slope, keep=keep,
-                seed=seed, split=g.split,
-            )
+            out, w1, inv_s, w1s, shift = _attention_fwd(ctx, g, v, a_src, a_dst, negative_slope,
+                                                         keep, seed)
             ctx.save_for_backward(v, a_src, a_dst, out, w1, inv_s, w1s, shift)
-            ctx.g, ctx.negative_slope, ctx.keep, ctx.seed = g, negative_slope, keep, seed
             return out
 
     @staticmethod
     def backward(ctx, g_out):
         with trace.span("dgl_tpu_torch._GATAttention.backward"):
-            v, a_src, a_dst, out, w1, inv_s, w1s, shift = ctx.saved_tensors
-            g_out = g_out.contiguous()
-            c = (g_out * out).sum(-1)
-            grad_a_dst = (g_out * w1).sum(-1) - c * w1s
-            node = torch.stack([a_dst, shift, inv_s, c], dim=-1)
-            rev = ctx.g.reverse
-            grad_v, w2, w3 = gat_attention_bwd(
-                rev.indptr, rev.src, rev.eid, g_out, node, a_src,
-                negative_slope=ctx.negative_slope, keep=ctx.keep, seed=ctx.seed, split=rev.split,
-                v_dtype=v.dtype,
-            )
-            grad_a_src = (v * w2).sum(-1) - w3
-            return grad_v, grad_a_src, grad_a_dst, None, None, None, None
+            v, a_src, a_dst, *fwd = ctx.saved_tensors
+            return (*_attention_bwd(ctx, g_out, v, a_src, a_dst, *fwd),
+                    None, None, None, None)
+
+
+class _GATAttentionVectors(torch.autograd.Function):
+    """The aggregation with its scores from the attention vectors: forward
+    gat_scores and the forward pass; backward gat_score_grad, b2 and
+    gat_vector_grad. ``z_dst`` None: z; ``v`` None: z."""
+
+    @staticmethod
+    def forward(ctx, z, z_dst, v, attn_src, attn_dst, g, negative_slope, keep, seed):
+        with trace.span("dgl_tpu_torch._GATAttention.forward"):
+            a_src, a_dst = gat_scores(z, attn_src, attn_dst, z_dst)
+            out, w1, inv_s, w1s, shift = _attention_fwd(
+                ctx, g, z if v is None else v, a_src, a_dst, negative_slope, keep, seed)
+            ctx.save_for_backward(z, z_dst, v, attn_src, attn_dst, a_src, a_dst, out, w1, inv_s,
+                                  w1s, shift)
+            return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        with trace.span("dgl_tpu_torch._GATAttention.backward"):
+            z, z_dst, v, attn_src, attn_dst, a_src, a_dst, *fwd = ctx.saved_tensors
+            grad_v, grad_a_src, grad_a_dst = _attention_bwd(
+                ctx, g_out, z if v is None else v, a_src, a_dst, *fwd)
+            grad_z, grad_z_dst, grad_as, grad_ad = gat_vector_grad(
+                z, attn_src, attn_dst, grad_a_src, grad_a_dst,
+                grad_v=grad_v if v is None else None, z_dst=z_dst)
+            return (grad_z, grad_z_dst, None if v is None else grad_v,
+                    grad_as.view(attn_src.shape), grad_ad.view(attn_dst.shape),
+                    None, None, None, None)
+
+
+def _graph_check(name, g, v, n_dst) -> None:
+    if g.reverse is None:
+        raise ValueError(f"{name} needs the graph's reverse for its backward")
+    if v.shape[0] != g.num_src_nodes or n_dst != g.num_dst_nodes:
+        raise ValueError(f"{name}: v {tuple(v.shape)} / {n_dst} dst rows do not match the graph "
+                         f"({g.num_src_nodes} src, {g.num_dst_nodes} dst nodes)")
 
 
 def gat_attention(
@@ -459,10 +713,27 @@ def gat_attention(
     (N_dst, H) float32; ``keep`` < 1 applies the hash dropout with the (1,)
     int32 ``seed``. Returns (N_dst, H, D) float32; a row with no in-edges is
     0. v's gradient comes in v's type."""
-    if g.reverse is None:
-        raise ValueError("gat_attention needs the graph's reverse for its backward")
-    if v.shape[0] != g.num_src_nodes or a_dst.shape[0] != g.num_dst_nodes:
-        raise ValueError(f"gat_attention: v {tuple(v.shape)} / a_dst {tuple(a_dst.shape)} do not "
-                         f"match the graph ({g.num_src_nodes} src, {g.num_dst_nodes} dst nodes)")
+    _graph_check("gat_attention", g, v, a_dst.shape[0])
     return _GATAttention.apply(v.contiguous(), a_src.contiguous(), a_dst.contiguous(), g,
                                float(negative_slope), float(keep), seed)
+
+
+def gat_attention_vectors(
+    g, z: torch.Tensor, attn_src: torch.Tensor, attn_dst: torch.Tensor, *,
+    z_dst: Optional[torch.Tensor] = None, v: Optional[torch.Tensor] = None,
+    negative_slope: float = 0.2, keep: float = 1.0, seed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``gat_attention`` with its scores from the attention vectors, as
+    GATConv's fused form takes it: ``a_src = Σ_D z·attn_src``, ``a_dst =
+    Σ_D z_dst·attn_dst``, computed and differentiated by K3's node passes.
+    ``z`` (N_src, H, D) and ``z_dst`` (N_dst, H, D; None or z itself: z)
+    float32, the attention vectors (1, H, D) or (H, D) float32; ``v`` the
+    rows aggregated (N_src, H', D'), float32 or bfloat16; None or z itself:
+    z, whose gradient then takes v's in place. Returns (N_dst, H, D')
+    float32."""
+    zd = None if z_dst is None or z_dst is z else z_dst.contiguous()
+    vv = None if v is None or v is z else v.contiguous()
+    _graph_check("gat_attention_vectors", g, z, g.num_src_nodes if zd is None else zd.shape[0])
+    return _GATAttentionVectors.apply(z.contiguous(), zd, vv, attn_src.contiguous(),
+                                      attn_dst.contiguous(), g, float(negative_slope),
+                                      float(keep), seed)

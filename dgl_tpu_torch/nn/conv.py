@@ -22,7 +22,7 @@ from torch import nn
 from .. import trace
 from ..device import DeviceLike, resolve_device
 from ..graph.graph import Graph
-from ..kernels.gat_attention import gat_attention
+from ..kernels.gat_attention import gat_attention_vectors
 from ..ops import edge_softmax, gather_dst, gather_src_rows, gspmm
 from ..ops.rel import RelEdgeWeights, gspmm_rel
 from ..ops.sddmm import gsddmm
@@ -151,12 +151,14 @@ class GATConv(nn.Module):
 
     Two forms of the same function, picked by ``fused``:
 
-    * fused (K3, ``kernels/gat_attention.py``): logits, softmax, dropout and
-      aggregation in one kernel launch each way, no per-edge tensor. When
-      ``in_feats < out_feats`` it aggregates the narrow inputs and applies
-      ``W`` per head after (``Σ α·(W x) = W·(Σ α x)``). Attention dropout is
-      the hash of each (edge, head) pair's key, its seed one int32 drawn
-      from ``generator``.
+    * fused (K3, ``kernels/gat_attention.py:gat_attention_vectors``): logits,
+      softmax, dropout and aggregation in one kernel launch each way, no
+      per-edge tensor; the scores ``z·attn`` and every gradient around them
+      in K3's node passes (one launch forward, two backward), no torch
+      arithmetic on (N, H, D) tensors. When ``in_feats < out_feats`` it
+      aggregates the narrow inputs and applies ``W`` per head after
+      (``Σ α·(W x) = W·(Σ α x)``). Attention dropout is the hash of each
+      (edge, head) pair's key, its seed one int32 drawn from ``generator``.
     * edge: gather ``W x`` per edge, ``edge_softmax`` with the bound shift,
       ``gspmm(copy_e, sum)``; its sums are K2 launches. Attention dropout is
       an ordinary mask from ``generator``. Where the (E, H, D) messages
@@ -248,13 +250,12 @@ class GATConv(nn.Module):
             z_dst = z if x_dst is x_src else self.fc(x_dst).view(-1, h, d)
             if g.block_fanout is not None:
                 out = self._block(g, z, z_dst, generator)
+            elif self.fused:
+                out = self._fused(g, x_src, z, z_dst, generator)
             else:
                 a_src = (z * self.attn_r).sum(-1)  # (N_src, H)
                 a_dst = (z_dst * self.attn_l).sum(-1)  # (N_dst, H)
-                if self.fused:
-                    out = self._fused(g, x_src, z, a_src, a_dst, generator)
-                else:
-                    out = self._edge(g, z, a_src, a_dst, generator)
+                out = self._edge(g, z, a_src, a_dst, generator)
             if self.residual:
                 res = x_dst if self.res_fc is None else self.res_fc(x_dst)
                 out = out + res.view(-1, h, d)
@@ -271,18 +272,18 @@ class GATConv(nn.Module):
         alpha = dropout(torch.softmax(logits, 1), self.attn_drop, self.training, generator)
         return torch.einsum("nfh,nfhd->nhd", alpha, z_n)
 
-    def _fused(self, g, x, z, a_src, a_dst, generator):
+    def _fused(self, g, x, z, z_dst, generator):
         h, d, in_d = self.num_heads, self.out_feats, x.shape[-1]
         keep, seed = 1.0, None
         if self.attn_drop > 0.0 and self.training:
             keep = 1.0 - self.attn_drop
             seed = torch.randint(-(2**31), 2**31 - 1, (1,), dtype=torch.int32,
                                  device=x.device, generator=generator)
+        kw = dict(z_dst=z_dst, negative_slope=self.negative_slope, keep=keep, seed=seed)
         if in_d >= d:
-            return gat_attention(g, self._edge_cast(z), a_src, a_dst,
-                                 negative_slope=self.negative_slope, keep=keep, seed=seed)
-        agg = gat_attention(g, self._edge_cast(x.unsqueeze(1).expand(-1, h, in_d)), a_src, a_dst,
-                            negative_slope=self.negative_slope, keep=keep, seed=seed)
+            return gat_attention_vectors(g, z, self.attn_r, self.attn_l, v=self._edge_cast(z), **kw)
+        agg = gat_attention_vectors(g, z, self.attn_r, self.attn_l,
+                                    v=self._edge_cast(x.unsqueeze(1).expand(-1, h, in_d)), **kw)
         return torch.einsum("nhi,hdi->nhd", agg, self.fc.weight.view(h, d, in_d))
 
     def _edge(self, g, z, a_src, a_dst, generator):

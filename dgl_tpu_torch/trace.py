@@ -67,8 +67,10 @@ class Span:
 
 @dataclasses.dataclass
 class Launch:
-    kernel: str  # K1, K2, K3, P1, P2
-    pass_: str  # K1 "spmm", K2 "seg_sum", K3 "fwd" / "b2", P1 "index" / "source", P2 "smem"
+    kernel: str  # K1, K2, K3, K3N (K3's node passes), P1, P2
+    # K1 "spmm", K2 "seg_sum", K3 "fwd" / "b2", K3N "scores" / "score_grad" / "vector_grad",
+    # P1 "index" / "source", P2 "smem"
+    pass_: str
     rows: int  # rows the launch walks: CSR rows, or output rows of an index-order gather
     src_rows: int  # rows of the operand it gathers from
     edges: int  # edges (gathered rows) it reads

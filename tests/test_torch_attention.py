@@ -227,8 +227,9 @@ def test_split_merges_match_the_unsplit_passes(heads, d, keep):
     row of a CSR whose first row holds the edges before it), and the chunks
     are merged as the kernels merge them: the forward takes sh = max_k sh_k
     and adds f_k·(num_k, w1u_k, s_k, w1su_k), f_k = exp(sh_k − sh), in
-    ascending chunk order; b2 adds its chunks' sums in ascending order. All
-    eight outputs of every long row match the unsplit plain passes."""
+    ascending chunk order; b2 adds its chunks' sums in ascending order
+    (grad_a_src = Σ_D v·w2 − w3 is linear in them). All seven outputs of
+    every long row match the unsplit plain passes."""
     rng = np.random.default_rng(11)
     n, t = 12, 4
     src = np.concatenate([rng.integers(0, n, 50), np.full(11, 5), rng.integers(0, n, 13)])
@@ -262,7 +263,7 @@ def test_split_merges_match_the_unsplit_passes(heads, d, keep):
             torch.testing.assert_close(got, want[r], **tol, msg=f"forward {name}, row {r}")
 
     node = torch.stack([a_d, fwd[4], fwd[2], c], -1)
-    bwd = gat_attention_bwd_plain(rev.indptr, rev.src, rev.eid, gout, node, a_s, **kw)
+    bwd = gat_attention_bwd_plain(rev.indptr, rev.src, rev.eid, gout, node, a_s, v, **kw)
     long_rev = _chunks(row_split(rev.indptr, t))
     assert len(long_rev) >= 2 and max(len(ch) for _, ch in long_rev) >= 3
     for r, chunks in long_rev:
@@ -270,7 +271,7 @@ def test_split_merges_match_the_unsplit_passes(heads, d, keep):
         for b, e in chunks:
             ip = torch.tensor([0, e - b], dtype=torch.int64)
             part = [x[0] for x in gat_attention_bwd_plain(
-                ip, rev.src[b:e], rev.eid[b:e], gout, node, a_s[r:r + 1], **kw)]
+                ip, rev.src[b:e], rev.eid[b:e], gout, node, a_s[r:r + 1], v[r:r + 1], **kw)]
             merged = part if merged is None else [m + p for m, p in zip(merged, part)]
-        for name, got, want in zip(("grad_v", "w2", "w3"), merged, bwd):
+        for name, got, want in zip(("grad_v", "grad_a_src"), merged, bwd):
             torch.testing.assert_close(got, want[r], **tol, msg=f"b2 {name}, row {r}")

@@ -7,7 +7,10 @@ exact sums, and in their bfloat16 instantiations; K1 at odd widths, on x
 bases 4 and 8 bytes off 16-byte alignment whose storage ends with x, and
 on CSRs made only of long rows and of none (the combine folded into the
 launch, the plan's counters back at 0); both K3 passes at heads that are
-not a power of two, odd and wide rows and misaligned bases.
+not a power of two, odd and wide rows and misaligned bases; K3's node
+passes (gat_scores, gat_score_grad, gat_vector_grad) against their plain
+versions and a fused GAT step on the card against the CPU, with its
+launches counted and two runs bitwise equal.
 
 This file imports no JAX, so the card's tests can run where JAX is absent:
     python -m pytest --noconftest tests/test_torch_kernel.py -m cuda
@@ -382,8 +385,9 @@ def test_gat_attention_passes_match_plain_on_card(heads, d, keep):
     for got, want in zip(fwd, gat_attention_fwd_plain(g.indptr, g.src, v, a_s, a_d, **kw)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     node = torch.stack([a_d, fwd[4], fwd[2], (g_out * fwd[0]).sum(-1)], -1)
-    args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
+    args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s, v)
     bwd = gat_attention_bwd(*args, **kw)
+    assert len(bwd) == 2 and bwd[1].shape == (n, heads)  # grad_v, grad_a_src
     for got, want in zip(bwd, gat_attention_bwd_plain(*args, **kw)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert all(torch.equal(a, b) for a, b in zip(bwd, gat_attention_bwd(*args, **kw)))
@@ -424,8 +428,9 @@ def test_bf16_k1_k2_match_plain_on_card(d):
 @pytest.mark.parametrize("heads,d", [(1, 16), (4, 40), (4, 41)])
 def test_bf16_gat_attention_passes_match_plain_on_card(heads, d, keep):
     """v in bfloat16: the forward's float32 outputs against the plain
-    version; b2's bfloat16 grad_v equal to its float32 grad_v rounded once,
-    and within one bfloat16 ulp of the plain version's."""
+    version; b2's bfloat16 grad_v equal to its float32 grad_v (on v
+    widened) rounded once, and within one bfloat16 ulp of the plain
+    version's; its grad_a_src equal to the float32 pass's."""
     dev = _card()
     rng = np.random.default_rng(heads * d + 7)
     n, e = 2000, 30_000
@@ -444,11 +449,13 @@ def test_bf16_gat_attention_passes_match_plain_on_card(heads, d, keep):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     node = torch.stack([a_d, fwd[4], fwd[2], (g_out * fwd[0]).sum(-1)], -1)
     args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
-    bwd = gat_attention_bwd(*args, split=rev.split, v_dtype=torch.bfloat16, **kw)
-    ref = gat_attention_bwd(*args, split=rev.split, **kw)
+    bwd = gat_attention_bwd(*args, v, split=rev.split, **kw)
+    ref = gat_attention_bwd(*args, v.float(), split=rev.split, **kw)
     assert bwd[0].dtype == torch.bfloat16 and torch.equal(bwd[0], ref[0].bfloat16())
-    assert torch.equal(bwd[1], ref[1]) and torch.equal(bwd[2], ref[2])
-    plain = gat_attention_bwd_plain(*args, v_dtype=torch.bfloat16, **kw)[0]
+    assert torch.equal(bwd[1], ref[1])
+    torch.testing.assert_close(bwd[1], gat_attention_bwd_plain(*args, v, **kw)[1], rtol=1e-4,
+                               atol=1e-4)
+    plain = gat_attention_bwd_plain(*args, v, **kw)[0]
     torch.testing.assert_close(bwd[0].float(), plain.float(), rtol=2.0 ** -7, atol=1e-4)
     assert (gat_attention_fwd.launches_bf16, gat_attention_bwd.launches_bf16) == (
         before[0] + 1, before[1] + 1)
@@ -487,6 +494,7 @@ def test_split_k3_matches_plain_and_exact_sums_on_card(d, heads, keep):
                         torch.rand(n_src, heads, device=dev, generator=gen),
                         torch.randn(n_src, heads, device=dev, generator=gen)], -1)
     a_s_rev = torch.randn(n, heads, device=dev, generator=gen)
+    v_rev = 1.0 + torch.randn(n, heads, d, device=dev, generator=gen)
 
     def hold(got, want, what):
         for i, (x, w) in enumerate(zip(got, want)):
@@ -507,18 +515,18 @@ def test_split_k3_matches_plain_and_exact_sums_on_card(d, heads, keep):
         assert all(torch.equal(a, b) for a, b in
                    zip(fwd, gat_attention_fwd(ip, idx, v, a_s, a_d, split=plan, **kw)))
         counts = (gat_attention_bwd.launches, gat_attention_bwd.combines)
-        bwd = gat_attention_bwd(ip, idx, eid, g_out, node, a_s_rev, split=plan, **kw)
+        bwd = gat_attention_bwd(ip, idx, eid, g_out, node, a_s_rev, v_rev, split=plan, **kw)
         assert (gat_attention_bwd.launches, gat_attention_bwd.combines) == (
             counts[0] + 1, counts[1])
         assert not plan.counters.any(), "b2's fold left a counter above 0"
         hold(bwd, gat_attention_bwd_plain(ip, idx, eid, g_out.double(), node.double(),
-                                          a_s_rev.double(), **kw), "b2")
-        assert all(torch.equal(a, b) for a, b in
-                   zip(bwd, gat_attention_bwd(ip, idx, eid, g_out, node, a_s_rev, split=plan, **kw)))
+                                          a_s_rev.double(), v_rev.double(), **kw), "b2")
+        assert all(torch.equal(a, b) for a, b in zip(bwd, gat_attention_bwd(
+            ip, idx, eid, g_out, node, a_s_rev, v_rev, split=plan, **kw)))
         # exact sums: every logit 1 (p = 1, α = 1), small integers, keep 1 or 0.5
         ints = lambda *shape: torch.randint(-4, 5, shape, device=dev, generator=gen).float()  # noqa: E731
         ones = torch.ones(n_src, heads, device=dev)
-        vi, gi = ints(n_src, heads, d), ints(n_src, heads, d)
+        vi, gi, vi_rev = ints(n_src, heads, d), ints(n_src, heads, d), ints(n, heads, d)
         node_i = torch.stack([torch.zeros_like(ones), ones, ones, ints(n_src, heads)], -1)
         for k in (1.0, 0.5):
             kwi = dict(negative_slope=0.2, keep=k, seed=seed)
@@ -528,10 +536,10 @@ def test_split_k3_matches_plain_and_exact_sums_on_card(d, heads, keep):
                                            torch.zeros(n, heads, device=dev, dtype=torch.float64),
                                            **kwi)
             got += gat_attention_bwd(ip, idx, eid, gi, node_i, torch.ones(n, heads, device=dev),
-                                     split=plan, **kwi)
+                                     vi_rev, split=plan, **kwi)
             want += gat_attention_bwd_plain(ip, idx, eid, gi.double(), node_i.double(),
                                             torch.ones(n, heads, device=dev, dtype=torch.float64),
-                                            **kwi)
+                                            vi_rev.double(), **kwi)
             for i, (x, w) in enumerate(zip(got, want)):
                 assert torch.equal(x, w.float()), f"exact output {i}, keep {k}"
 
@@ -569,7 +577,7 @@ def test_k3_heads_widths_and_misaligned_bases_on_card(heads, d, shift):
     assert all(torch.equal(a, b) for a, b in
                zip(fwd, gat_attention_fwd(g.indptr, g.src, v, a_s, a_d, split=g.split, **kw)))
     node = torch.stack([a_d, fwd[4], fwd[2], (g_out * fwd[0]).sum(-1)], -1)
-    args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s)
+    args = (rev.indptr, rev.src, rev.eid, g_out, node, a_s, v)
     bwd = gat_attention_bwd(*args, split=rev.split, **kw)
     for got, want in zip(bwd, gat_attention_bwd_plain(*args, **kw)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
@@ -671,3 +679,106 @@ def test_relation_passes_and_binary_gspmm_match_the_cpu_on_card(reduce):
         assert launched == (2 * r if where == dev else 0)
     for got, want in zip(res[str(dev)], res["cpu"]):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("pair", [False, True], ids=["z", "pair"])
+@pytest.mark.parametrize("heads,d", [(1, 16), (4, 16), (4, 40), (2, 41), (3, 7)])
+def test_k3_node_passes_match_plain_and_repeat_on_card(heads, d, pair, shift):
+    """gat_scores, gat_score_grad and gat_vector_grad (z both sides or a
+    separate z_dst of another row count; rows at 0 or 4 bytes off 16-byte
+    alignment, which takes one value a read): against float64 runs of the
+    plain versions, two runs bitwise equal (the attention vectors' column
+    sums in the launch's fixed order), grad_z written over grad_v, one
+    launch each, and the ticket back at 0."""
+    from dgl_tpu_torch.kernels import gat_attention as k3
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(heads * d + shift)
+    n_src = 5000
+    n_dst = 3100 if pair else n_src
+
+    def rows(n):
+        flat = torch.randn(shift // 4 + n * heads * d, device=dev, generator=gen)
+        return flat[shift // 4:].view(n, heads, d)
+
+    z = rows(n_src)
+    zd = rows(n_dst) if pair else None
+    att_s, att_d = (torch.randn(1, heads, d, device=dev, generator=gen) for _ in range(2))
+    d64 = lambda t: None if t is None else t.double()  # noqa: E731
+    counts = (k3.gat_scores.launches, k3.gat_score_grad.launches, k3.gat_vector_grad.launches)
+    got = k3.gat_scores(z, att_s, att_d, zd)
+    for a, b in zip(got, k3.gat_scores_plain(z.double(), att_s.double(), att_d.double(), d64(zd))):
+        torch.testing.assert_close(a, b.float(), rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, k3.gat_scores(z, att_s, att_d, zd)))
+    g, out, w1 = rows(n_dst), rows(n_dst), rows(n_dst)
+    hs = [torch.randn(n_dst, heads, device=dev, generator=gen) for _ in range(4)]
+    got = k3.gat_score_grad(g, out, w1, *hs)
+    for a, b in zip(got, k3.gat_score_grad_plain(g.double(), out.double(), w1.double(),
+                                                 *(t.double() for t in hs))):
+        torch.testing.assert_close(a, b.float(), rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, k3.gat_score_grad(g, out, w1, *hs)))
+    ga_s = torch.randn(n_src, heads, device=dev, generator=gen)
+    ga_d = torch.randn(n_dst, heads, device=dev, generator=gen)
+    gv = None if pair else rows(n_src)
+    want = k3.gat_vector_grad_plain(z.double(), att_s.double(), att_d.double(), ga_s.double(),
+                                    ga_d.double(), d64(gv), d64(zd))
+    runs = [k3.gat_vector_grad(z, att_s, att_d, ga_s, ga_d,
+                               grad_v=None if gv is None else gv.clone(), z_dst=zd)
+            for _ in range(2)]
+    for a, b in zip(runs[0], want):
+        assert (a is None) == (b is None)
+        if a is not None:  # column sums over thousands of rows: a float32 bound
+            torch.testing.assert_close(a, b.float(), rtol=1e-4, atol=1e-3)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(*runs))
+    if gv is not None:
+        buf = gv.clone()
+        assert k3.gat_vector_grad(z, att_s, att_d, ga_s, ga_d, grad_v=buf)[0] is buf
+    assert (k3.gat_scores.launches, k3.gat_score_grad.launches, k3.gat_vector_grad.launches) == (
+        counts[0] + 2, counts[1] + 2, counts[2] + 2 + (gv is not None))
+    assert not k3._tickets[z.device].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge_dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_gat_step_on_card_matches_cpu_counts_and_repeats(edge_dtype):
+    """A three-layer fused GAT (the last layer narrow: 6 < 9) over a graph
+    with long rows in both CSRs: a training step on the card against the
+    same step on the CPU (the passes' plain versions; no attention dropout,
+    whose seed each device's generator draws apart), two steps with
+    attention dropout bitwise equal, and each step's launches: K3's forward
+    and b2 3 + 3, the node passes 3 scores + 3 score gradients + 3 vector
+    gradients."""
+    from dgl_tpu_torch import GAT, from_edges
+    from dgl_tpu_torch.kernels import gat_attention as k3
+
+    dev = _card()
+    rng = np.random.default_rng(23)
+    n, e = 3000, 40_000
+    src, dst = rng.integers(0, n, e), rng.integers(0, 3 * n // 4, e)
+    src[:1500], dst[1500:3000] = 11, 5  # a long row in the reverse CSR and in the dst CSR
+    x = torch.from_numpy(rng.standard_normal((n, 10)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 9, n))
+    results = {}
+    for where, drop in (("cpu", 0.0), ("cuda", 0.0), ("cuda", 0.3), ("cuda", 0.3)):
+        g = from_edges(src, dst, n, device=where)
+        model = GAT(10, 3, 9, (2, 2, 1), feat_drop=0.0, attn_drop=drop, fused=True,
+                    edge_dtype=edge_dtype, device=where, generator=torch.Generator().manual_seed(4))
+        counts = [f.launches for f in (k3.gat_attention_fwd, k3.gat_attention_bwd, k3.gat_scores,
+                                       k3.gat_score_grad, k3.gat_vector_grad)]
+        logits = model(g, x.to(where), generator=torch.Generator(device=where).manual_seed(6))
+        torch.nn.functional.cross_entropy(logits, y.to(where)).backward()
+        made = [f.launches - c for f, c in zip(
+            (k3.gat_attention_fwd, k3.gat_attention_bwd, k3.gat_scores, k3.gat_score_grad,
+             k3.gat_vector_grad), counts)]
+        assert made == ([0] * 5 if where == "cpu" else [3, 3, 3, 3, 3]), (where, made)
+        results.setdefault((where, drop), []).append(
+            [logits.detach().cpu()] + [p.grad.cpu() for p in model.parameters()])
+    (first, second), (card,), (cpu,) = (results["cuda", 0.3], results["cuda", 0.0],
+                                        results["cpu", 0.0])
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    tol = dict(rtol=2e-3, atol=2e-3) if edge_dtype else dict(rtol=1e-4, atol=1e-4)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        torch.testing.assert_close(a, b, **tol, msg=f"output {i}")
+    assert not any(t.any() for t in k3._tickets.values())

@@ -179,7 +179,8 @@ def test_wrappers_refuse_a_plan_that_does_not_match_indptr(wrapper, mismatch):
         fn = gat_attention_fwd
     else:
         g, node, a = torch.ones(4, 2, 3), torch.ones(4, 2, 4), torch.zeros(4, 2)
-        call = lambda plan: gat_attention_bwd(ip, idx, idx, g, node, a, split=plan, **kw)  # noqa: E731
+        call = lambda plan: gat_attention_bwd(ip, idx, idx, g, node, a, g, split=plan,  # noqa: E731
+                                              **kw)
         fn = gat_attention_bwd
     before = fn.launches
     with pytest.raises(ValueError, match="row split"):

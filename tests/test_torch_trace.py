@@ -25,13 +25,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from dgl_tpu_torch import from_edges, trace
 from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
-from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
+from dgl_tpu_torch.kernels.gat_attention import (gat_attention_bwd, gat_attention_fwd,
+                                                  gat_score_grad, gat_scores, gat_vector_grad)
 from dgl_tpu_torch.models import GAT, GraphSAGE
 
 PREFIX = "dgl_tpu_torch."
 SAGE_SPANS = {"SAGEConv.forward", "_CopyU.forward", "_CopyU.backward", "K1"}
 GAT_SPANS = {"GATConv.forward", "_GATAttention.forward", "_GATAttention.backward", "K3.fwd",
-             "K3.b2"}
+             "K3.b2", "K3N.scores", "K3N.score_grad", "K3N.vector_grad"}
 
 
 def _graph(n, e, device, seed=0):
@@ -235,7 +236,8 @@ def test_card_step_records_each_counted_launch(tmp_path):
     x = torch.randn(3000, 12, device=dev)
     y = torch.randint(0, 5, (3000,), device=dev)
     sage, gat = _models(dev)
-    counters = (csr_spmm, gat_attention_fwd, gat_attention_bwd)
+    counters = (csr_spmm, gat_attention_fwd, gat_attention_bwd, gat_scores, gat_score_grad,
+                gat_vector_grad)
     _step(sage, g, x, y)  # builds the kernels outside the profiled step
     _step(gat, g, x, y)
     torch.cuda.synchronize()
@@ -255,11 +257,17 @@ def test_card_step_records_each_counted_launch(tmp_path):
     k1 = [r for r in recs if r.kernel == "K1"]
     fwd = [r for r in recs if r.kernel == "K3" and r.pass_ == "fwd"]
     b2 = [r for r in recs if r.kernel == "K3" and r.pass_ == "b2"]
-    assert [len(k1), len(fwd), len(b2)] == counted == [6, 2, 2]
+    # K3's node passes, one record each a layer under their own id
+    nodes = [[r for r in recs if r.kernel == "K3N" and r.pass_ == p]
+             for p in ("scores", "score_grad", "vector_grad")]
+    assert [len(k1), len(fwd), len(b2)] + [len(x) for x in nodes] == counted == [6, 2, 2, 2, 2, 2]
     assert len(recs) == sum(counted)
     n, e, ib = g.num_dst_nodes, g.num_edges, g.indptr.element_size()
     for r in recs:
-        assert (r.rows, r.src_rows, r.edges, r.index_bytes, r.value_bytes) == (n, n, e, ib, 4)
+        if r.kernel == "K3N":  # a node pass reads N rows of (H, D) floats
+            assert (r.rows, r.src_rows, r.edges, r.value_bytes) == (n, n, n, 4)
+        else:
+            assert (r.rows, r.src_rows, r.edges, r.index_bytes, r.value_bytes) == (n, n, e, ib, 4)
         assert r.host_ns > 0 and trace.spans()[r.span].name.startswith(PREFIX + r.kernel)
     # SAGE 12 -> 8 -> 8 -> 5: layers 1 and 3 project first, layer 2
     # aggregates its input; each way
