@@ -1459,6 +1459,11 @@ def _gat_graph(name, dev):
     return from_edges(src, dst, data.num_nodes, device=dev)
 
 
+# K3's launch counters: its two edge passes, then its three node passes
+K3_COUNTERS = ("gat_attention_fwd", "gat_attention_bwd", "gat_scores", "gat_score_grad",
+               "gat_vector_grad")
+
+
 def zero_counts(counters):
     """Set each wrapper's launch count, and its combine count where it has
     one, to 0 (K1 has none: its launch folds its long rows; K2's stays 0, as
@@ -1546,9 +1551,11 @@ def k3_shape(name, g, h, d, gen, keep):
 
 def k3_node_times(name, n, h, d, gen):
     """K3's node passes at N = n, H = h, D = d (z both sides, v = z, as a
-    full-graph GATConv runs them): each against its plain version, two
-    runs bitwise equal, CUDA-event medians and the bytes bound (every
-    array read or written once)."""
+    full-graph GATConv runs them): each output against a float64 run of
+    its plain version within 1e-4 of its own largest value (at least 1),
+    so an N-wide column sum of the attention vectors' gradients is not the
+    yardstick of grad_z; two runs bitwise equal, CUDA-event medians and the
+    bytes bound (every array read or written once)."""
     from dgl_tpu_torch.kernels.gat_attention import (
         gat_score_grad, gat_score_grad_plain, gat_scores, gat_scores_plain, gat_vector_grad,
         gat_vector_grad_plain)
@@ -1559,15 +1566,17 @@ def k3_node_times(name, n, h, d, gen):
     z, g_out, out, w1, gv = rows(), rows(), rows(), rows(), rows()
     a_dst, shift, inv_s, w1s, ga_s, ga_d = (heads() for _ in range(6))
     att_s, att_d = (torch.randn(1, h, d, device=dev, generator=gen) for _ in range(2))
+    d64 = lambda *ts: [t.double() for t in ts]  # noqa: E731
     calls = {
         "gat_scores": (lambda: gat_scores(z, att_s, att_d),
-                       lambda: gat_scores_plain(z, att_s, att_d), (n * h * d, 2 * n * h)),
+                       lambda: gat_scores_plain(*d64(z, att_s, att_d)), (n * h * d, 2 * n * h)),
         "gat_score_grad": (lambda: gat_score_grad(g_out, out, w1, a_dst, shift, inv_s, w1s),
-                           lambda: gat_score_grad_plain(g_out, out, w1, a_dst, shift, inv_s, w1s),
+                           lambda: gat_score_grad_plain(*d64(g_out, out, w1, a_dst, shift, inv_s,
+                                                             w1s)),
                            (3 * n * h * d + 4 * n * h, 5 * n * h)),
         # on a copy of grad_v each call (the pass writes grad_z over it)
         "gat_vector_grad": (lambda: gat_vector_grad(z, att_s, att_d, ga_s, ga_d, grad_v=gv.clone()),
-                            lambda: gat_vector_grad_plain(z, att_s, att_d, ga_s, ga_d, gv),
+                            lambda: gat_vector_grad_plain(*d64(z, att_s, att_d, ga_s, ga_d, gv)),
                             (2 * n * h * d + 2 * n * h, n * h * d)),
     }
     res = {}
@@ -1575,13 +1584,18 @@ def k3_node_times(name, n, h, d, gen):
         got, again = call(), call()
         if not all(torch.equal(x, y) for x, y in zip(got, again) if x is not None):
             raise AssertionError(f"{name} {key}: two runs differ")
-        err = max(float((x - y).abs().max()) for x, y in zip(got, plain()) if x is not None)
-        if err > 1e-3 * max(1.0, float(max(y.abs().max() for y in plain() if y is not None))):
-            raise AssertionError(f"{name} {key}: {err} off the plain version")
+        errs = []
+        for i, (x, y) in enumerate((x, y) for x, y in zip(got, plain()) if x is not None):
+            err, limit = float((x - y).abs().max()), 1e-4 * max(1.0, float(y.abs().max()))
+            if err > limit:
+                raise AssertionError(f"{name} {key} output {i}: {err} off the float64 plain "
+                                     f"version, over {limit}")
+            errs.append(err)
+        del got, again
         copy_ms = median_ms(gv.clone, reps=20, warmup=2) if key == "gat_vector_grad" else 0.0
         res[key] = {"ms": median_ms(call, reps=20, warmup=2) - copy_ms,
                     "bound_ms": 1e3 * 4 * (reads + writes) / HBM_BYTES_PER_S,
-                    "max_abs_err": err}
+                    "max_abs_err": max(errs), "max_abs_err_by_output": errs}
     return res
 
 
@@ -2415,8 +2429,9 @@ def phase_gat_main():
     before it and read just after it.
 
     reddit and ogbn-arxiv run the fused form: one K3 forward and one b2 call
-    a layer and step, no K1 or K2, and no combine launch: K3 folds the long
-    rows of both graphs' CSRs inside its launch.
+    a layer and step, and K3's node passes (scores, score gradients, vector
+    gradients) one each a layer and step, no K1 or K2, and no combine
+    launch: K3 folds the long rows of both graphs' CSRs inside its launch.
 
     pubmed runs the edge form: its launches per step are gat_edge_per_step's,
     12 K2, 3 K1 and 18 P1 in source order, and each edge-softmax rescue
@@ -2432,13 +2447,16 @@ def phase_gat_main():
     from dgl_tpu_torch.benchmarks.node_classification import main_gat
     from dgl_tpu_torch.data import NODE_DATASET_STATS
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
-    from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
+    from dgl_tpu_torch.kernels.gat_attention import (
+        gat_attention_bwd, gat_attention_fwd, gat_score_grad, gat_scores, gat_vector_grad)
     from dgl_tpu_torch.kernels.row_gather import row_gather_by_source
     from dgl_tpu_torch.kernels.seg_sum import seg_sum
     from dgl_tpu_torch.ops.softmax import edge_softmax
 
     counters = {"csr_spmm": csr_spmm, "gat_attention_fwd": gat_attention_fwd,
-                "gat_attention_bwd": gat_attention_bwd, "seg_sum": seg_sum}
+                "gat_attention_bwd": gat_attention_bwd, "gat_scores": gat_scores,
+                "gat_score_grad": gat_score_grad, "gat_vector_grad": gat_vector_grad,
+                "seg_sum": seg_sum}
     epochs = {"reddit": 8, "ogbn-arxiv": 10, "pubmed": 30}
     profiled = {"reddit": 0, "ogbn-arxiv": 0, "pubmed": PUBMED_PROFILE}
     steps = {ds: epochs[ds] + profiled[ds] for ds in epochs}
@@ -2466,13 +2484,14 @@ def phase_gat_main():
     for ds in ("reddit", "ogbn-arxiv"):
         s, gg = steps[ds], graphs[ds]
         want_l[ds] = {"csr_spmm": 0, "gat_attention_fwd": 3 * s, "gat_attention_bwd": 3 * s,
+                      "gat_scores": 3 * s, "gat_score_grad": 3 * s, "gat_vector_grad": 3 * s,
                       "seg_sum": 0, "row_gather_by_source": 0}
         want_c[ds] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0, "seg_sum": 0}
         if not (gg.split.num_long or gg.reverse.split.num_long):
             raise AssertionError(f"{ds}: no long row in either CSR, so no fold is counted")
     s, pub = steps["pubmed"], graphs["pubmed"]
     per_step, per_rescue = gat_edge_per_step()
-    want_l["pubmed"] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0} | {
+    want_l["pubmed"] = dict.fromkeys(K3_COUNTERS, 0) | {
         k: n * s + per_rescue[k] * rescues["pubmed"] for k, n in per_step.items()}
     # K2 folds any long rows inside its launch: no combine launch
     want_c["pubmed"] = {"gat_attention_fwd": 0, "gat_attention_bwd": 0, "seg_sum": 0}
@@ -3821,11 +3840,12 @@ def ns_launches(kind, layers, steps, evals):
     a step gathers its features with P1 in index order once and runs no K1,
     K2 or K3 (the block forms are reshapes); an evaluation is one full-graph
     forward without gradients, one K1 forward a SAGEConv layer (it
-    aggregates once, projected first or not) or one K3 forward a fused
-    GATConv layer."""
+    aggregates once, projected first or not) or one K3 forward and its
+    scores a fused GATConv layer."""
+    gat = layers * evals if kind == "gat" else 0
     return {"row_gather_async": steps, "row_gather_by_source": 0, "seg_sum": 0,
-            "csr_spmm": layers * evals if kind == "sage" else 0,
-            "gat_attention_fwd": layers * evals if kind == "gat" else 0, "gat_attention_bwd": 0}
+            "csr_spmm": layers * evals if kind == "sage" else 0} | dict.fromkeys(
+        K3_COUNTERS, 0) | {"gat_attention_fwd": gat, "gat_scores": gat}
 
 
 def ns_gat_memory_bound(blocks, in_feats, heads, hidden):
@@ -3912,8 +3932,8 @@ def phase_ns_main():
     from dgl_tpu_torch.benchmarks.sampling import ns_gat, ns_sage
     from dgl_tpu_torch.data import load_node_dataset
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
-    from dgl_tpu_torch.kernels.gat_attention import (
-        gat_attention_bwd, gat_attention_fwd, gat_attention_fwd_plain)
+    from dgl_tpu_torch.kernels import gat_attention as k3
+    from dgl_tpu_torch.kernels.gat_attention import gat_attention_fwd, gat_attention_fwd_plain
     from dgl_tpu_torch.kernels.row_gather import row_gather_async, row_gather_by_source
     from dgl_tpu_torch.kernels.seg_sum import seg_sum
     from dgl_tpu_torch.sampling import CSRGraph, DeviceNeighborSampler
@@ -3922,8 +3942,8 @@ def phase_ns_main():
     t_phase = time.perf_counter()
     drivers = {"ns_sage": ns_sage, "ns_gat": ns_gat}
     counters = {"row_gather_async": row_gather_async, "row_gather_by_source": row_gather_by_source,
-                "csr_spmm": csr_spmm, "seg_sum": seg_sum, "gat_attention_fwd": gat_attention_fwd,
-                "gat_attention_bwd": gat_attention_bwd}
+                "csr_spmm": csr_spmm, "seg_sum": seg_sum} | {
+        name: getattr(k3, name) for name in K3_COUNTERS}
     res, launches, combines = {}, {}, {}
     for key, (driver, argv) in NS_RUNS.items():
         torch.cuda.synchronize()
@@ -4043,7 +4063,7 @@ CLUSTER_PROFILE_STEPS = 30  # further steps of the sage and gat runs, the loader
 CLUSTER_PSIZE, CLUSTER_LAYERS, CLUSTER_HIDDEN, CLUSTER_HEADS = 15000, 3, 256, 4
 PRODUCTS_KEY = "ogbn-products_s1.0"  # cluster_sage's partition cache key at --scale 1
 _KERNEL_COUNTERS = ("row_gather_async", "row_gather_by_source", "csr_spmm", "seg_sum",
-                    "gat_attention_fwd", "gat_attention_bwd")
+                    *K3_COUNTERS)
 
 
 def cluster_launches(kind, steps, batches, evals, in_feats, classes, layers=CLUSTER_LAYERS,
@@ -4053,20 +4073,21 @@ def cluster_launches(kind, steps, batches, evals, in_feats, classes, layers=CLUS
     nn/conv.py, ops/spmm.py, ops/sddmm.py, ops/gather.py): every batch taken
     from the iterator gathers its features by P1 in index order once;
     a SAGE step launches K1 as sage_k1_launches derives it, a fused GAT step
-    one K3 forward and one b2 a layer; an LP step its SAGE encoder's K1 and,
-    for the scores of the batch's graph and of its negative graph, two P1
+    one K3 forward and one b2 a layer, and one each of K3's node passes; an
+    LP step its SAGE encoder's K1 and, for the scores of the batch's graph
+    and of its negative graph, two P1
     gathers in source order each (u_dot_v's gather_src_rows and
     gather_dst), whose adjoints are one K1 and one K2; an evaluation is one
-    full-graph forward without gradients, one K1 (SAGE) or K3 forward (GAT)
-    a layer."""
+    full-graph forward without gradients, one K1 (SAGE) or K3 forward and
+    its scores (GAT) a layer."""
     out = dict.fromkeys(_KERNEL_COUNTERS, 0)
     out["row_gather_async"] = batches
     if kind == "sage":
         out["csr_spmm"] = (steps * len(sage_k1_launches(in_feats, hidden, classes, layers, False))
                            + evals * layers)
     elif kind == "gat":
-        out["gat_attention_fwd"] = layers * (steps + evals)
-        out["gat_attention_bwd"] = layers * steps
+        out["gat_attention_fwd"] = out["gat_scores"] = layers * (steps + evals)
+        out["gat_attention_bwd"] = out["gat_score_grad"] = out["gat_vector_grad"] = layers * steps
     else:
         enc = len(sage_k1_launches(in_feats, hidden, hidden, layers, False))
         out.update(csr_spmm=steps * (enc + 2) + evals * layers, seg_sum=2 * steps,
@@ -4424,8 +4445,8 @@ def phase_cluster_main():
     from dgl_tpu_torch.benchmarks.link_prediction import cluster_gcn_lp
     from dgl_tpu_torch.benchmarks.sampling import cluster_sage
     from dgl_tpu_torch.data import NODE_DATASET_STATS, data_root, load_node_dataset
+    from dgl_tpu_torch.kernels import gat_attention as k3
     from dgl_tpu_torch.kernels.csr_spmm import csr_spmm
-    from dgl_tpu_torch.kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
     from dgl_tpu_torch.kernels.row_gather import row_gather_async, row_gather_by_source
     from dgl_tpu_torch.kernels.seg_sum import seg_sum
     from dgl_tpu_torch.sampling.cluster import ClusterIter
@@ -4435,8 +4456,8 @@ def phase_cluster_main():
     part = partition_checks()
     drivers = {"cluster_sage": cluster_sage, "cluster_gcn_lp": cluster_gcn_lp}
     counters = {"row_gather_async": row_gather_async, "row_gather_by_source": row_gather_by_source,
-                "csr_spmm": csr_spmm, "seg_sum": seg_sum, "gat_attention_fwd": gat_attention_fwd,
-                "gat_attention_bwd": gat_attention_bwd}
+                "csr_spmm": csr_spmm, "seg_sum": seg_sum} | {
+        name: getattr(k3, name) for name in K3_COUNTERS}
     res, launches, want = {}, {}, {}
     # the models the drivers build, kept for cluster_gat_whole_vs_batch
     models, make_model = [], cluster_sage.make_model
@@ -4563,9 +4584,11 @@ def halo_sage_launches(layers):
 
 def halo_gat_launches(layers):
     """K3's, K1's and P1's launches on one rank in one HaloGAT step: each
-    layer's projection needs a gradient, so each runs K3 forward and b2,
+    layer's projection needs a gradient, so each runs K3 forward and b2
+    with their node passes (the scores, their gradients and the vectors'),
     its payload's P1 and the payload's adjoint (K1, ``send_adjoint``)."""
-    return {"gat_attention_fwd": layers, "gat_attention_bwd": layers,
+    return {"gat_attention_fwd": layers, "gat_attention_bwd": layers, "gat_scores": layers,
+            "gat_score_grad": layers, "gat_vector_grad": layers,
             "row_gather_by_source": layers, "csr_spmm": layers, "send_adjoint": layers}
 
 
@@ -5129,8 +5152,8 @@ def phase_distributed(device="cuda"):
         "sharded gat", ranks["gat_grads"], gat_grads_one_card(arxiv, params, heads, dev),
         gat_grads_f64(src, dst, arxiv, params, heads, dev))
     torch.cuda.empty_cache()
-    widths = sorted({h * (d + 1) for h, d in zip(gcfg["heads"], (gcfg["hidden"],) * (
-        len(gcfg["heads"]) - 1) + (arxiv.num_classes,))})
+    widths = sorted({h * d for h, d in zip(gcfg["heads"], (gcfg["hidden"],) * (
+        len(gcfg["heads"]) - 1) + (arxiv.num_classes,))})  # the payloads: z's rows
     out["gat"]["plan_kernels"] = dist_plan_kernels(
         "arxiv plan", src, dst, arxiv.num_nodes, dev, send_widths=widths,
         k3=(gcfg["heads"][0], gcfg["hidden"]))

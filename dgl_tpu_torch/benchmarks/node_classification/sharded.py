@@ -43,7 +43,8 @@ import torch.distributed as dist
 
 from ...graph import transforms
 from ...kernels.csr_spmm import csr_spmm
-from ...kernels.gat_attention import gat_attention_bwd, gat_attention_fwd
+from ...kernels.gat_attention import (gat_attention_bwd, gat_attention_fwd, gat_score_grad,
+                                     gat_scores, gat_vector_grad)
 from ...kernels.row_gather import row_gather_async, row_gather_by_source
 from ...kernels.seg_sum import seg_sum
 from ...parallel import launch
@@ -62,8 +63,9 @@ __all__ = ["BACKENDS", "resolve", "run_sharded"]
 
 # the kernel wrappers whose launch counters a rank reports
 _KERNELS = {"csr_spmm": csr_spmm, "seg_sum": seg_sum, "gat_attention_fwd": gat_attention_fwd,
-           "gat_attention_bwd": gat_attention_bwd, "row_gather_async": row_gather_async,
-           "row_gather_by_source": row_gather_by_source}
+           "gat_attention_bwd": gat_attention_bwd, "gat_scores": gat_scores,
+           "gat_score_grad": gat_score_grad, "gat_vector_grad": gat_vector_grad,
+           "row_gather_async": row_gather_async, "row_gather_by_source": row_gather_by_source}
 _PLAN = ("local_src", "local_indptr", "halo_remap", "halo_indptr", "send_row")
 _TIMEOUT = 24 * 3600.0  # a run's limit in seconds: past it the ranks are killed
 

@@ -1240,10 +1240,10 @@ GAT_B2_ENTRY(gat_b2_f32, float)
 // are column sums over N: each block sums its rows into fixed partials
 // (each thread its rows in ascending order, then the block's row lanes in
 // ascending order), and the block that arrives last on the ticket (a
-// counter left at 0) adds the blocks' partials in ascending block order in
-// the same launch. No atomic decides an order: two runs are bitwise equal.
-// The ticket belongs to the caller's device; two launches must not run at
-// once on two streams (the package runs on one stream).
+// counter of the call's own, zeroed on the launch's stream just before it,
+// so launches on other streams, or one cut short, never share it) adds the
+// blocks' partials in ascending block order in the same launch. No atomic
+// decides an order: two runs are bitwise equal.
 
 #ifndef K3_BF16
 namespace {
@@ -1482,7 +1482,7 @@ gat_vector_grad_kernel(const __grid_constant__ VectorGradParams p) {
     __syncthreads();
   }
   // the last block to arrive adds every block's partials, in ascending block
-  // order, and sets the ticket back to 0
+  // order
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(p.ticket, 1) == static_cast<int>(gridDim.x) - 1;
@@ -1523,7 +1523,6 @@ gat_vector_grad_kernel(const __grid_constant__ VectorGradParams p) {
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) *p.ticket = 0;
 }
 
 // V: 4 where d is a multiple of 4 and every pointer starts on 16 bytes.
@@ -1597,7 +1596,7 @@ extern "C" int gat_score_grad_f32(const void* g, const void* out, const void* w1
 }
 
 // max_blocks: the partials' rows ((max_blocks, 2, H·D) floats); ticket: one
-// int32 at 0, left at 0; grad_attn (2, H·D).
+// int32 of this call's own, zeroed here on the stream; grad_attn (2, H·D).
 extern "C" int gat_vector_grad_f32(const void* z, const void* z_dst, const void* attn_src,
                                    const void* attn_dst, const void* grad_a_src,
                                    const void* grad_a_dst, const void* grad_v, void* grad_z,
@@ -1623,6 +1622,8 @@ extern "C" int gat_vector_grad_f32(const void* z, const void* z_dst, const void*
                      static_cast<int*>(ticket),           static_cast<float*>(grad_attn),
                      n_src, n_dst, (n_rows + blocks - 1) / blocks, heads, d, hd, cols};
   auto s = static_cast<cudaStream_t>(stream);
+  if (const cudaError_t e = cudaMemsetAsync(ticket, 0, sizeof(int), s); e != cudaSuccess)
+    return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>(blocks));
   if (vec == 4) {
     gat_vector_grad_kernel<4><<<grid, kNodeThreads, 0, s>>>(p);

@@ -458,7 +458,6 @@ _SCORES_ARGTYPES = (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P)
 _SCORE_GRAD_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P)
 _VECTOR_GRAD_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _LL, _LL, _I, _I,
                          _P)
-_tickets = {}  # one int32 a device, at 0 between gat_vector_grad launches
 
 
 def _check_node(name: str, *tensors) -> None:
@@ -591,7 +590,8 @@ def gat_vector_grad(z, attn_src, attn_dst, grad_a_src, grad_a_dst, *,
     ``grad_z``). All float32. Returns ``(grad_z, grad_z_dst or None,
     grad_attn_src, grad_attn_dst)``, the last two (H, D); on the card the
     attention vectors' column sums over N are fixed per-block partials that
-    the launch's last block adds in a fixed order."""
+    the launch's last block adds in a fixed order, the block found by a
+    ticket of the call's own, zeroed on the stream before the launch."""
     with trace.span("dgl_tpu_torch.K3N.vector_grad"):
         zd = None if z_dst is None or z_dst is z else z_dst
         _check_node("gat_vector_grad", z, zd, attn_src, attn_dst, grad_a_src, grad_a_dst, grad_v)
@@ -612,14 +612,13 @@ def gat_vector_grad(z, attn_src, attn_dst, grad_a_src, grad_a_dst, *,
             grad_attn.zero_()
             return grad_z, grad_z_dst, grad_attn[0], grad_attn[1]
         blocks = _max_blocks(dev.index)
-        partials = torch.empty((blocks, 2, heads * d), dtype=torch.float32, device=dev)
-        ticket = _tickets.get(dev)
-        if ticket is None:
-            ticket = _tickets[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+        # the blocks' (2, H·D) partials, then the int32 ticket
+        partials = torch.empty(blocks * 2 * heads * d + 1, dtype=torch.float32, device=dev)
         launch(entry("gat_attention", "gat_vector_grad_f32", _VECTOR_GRAD_ARGTYPES), dev,
                z.data_ptr(), _ptr(zd), attn_src.data_ptr(), attn_dst.data_ptr(),
                grad_a_src.data_ptr(), grad_a_dst.data_ptr(), _ptr(grad_v), grad_z.data_ptr(),
-               _ptr(grad_z_dst), partials.data_ptr(), blocks, ticket.data_ptr(),
+               _ptr(grad_z_dst), partials.data_ptr(), blocks,
+               partials.data_ptr() + 4 * blocks * 2 * heads * d,
                grad_attn.data_ptr(), n_src, n_dst, heads, d)
         gat_vector_grad.launches += 1
         trace.launch("K3N", "vector_grad", None, z, z)
@@ -648,8 +647,10 @@ def _attention_fwd(ctx, g, v, a_src, a_dst, negative_slope, keep, seed):
 
 
 class _GATAttention(torch.autograd.Function):
-    """The aggregation of given scores: the forward pass; its backward
-    gat_score_grad and b2, with no torch arithmetic on (N, H, D) tensors."""
+    """The aggregation of given scores (``gat_attention``, the counterpart
+    of ``lane_gat_agg``; the package's layers take the attention vectors):
+    the forward pass; its backward gat_score_grad and b2, with no torch
+    arithmetic on (N, H, D) tensors."""
 
     @staticmethod
     def forward(ctx, v, a_src, a_dst, g, negative_slope, keep, seed):

@@ -67,15 +67,16 @@ def halo_ops(dev: torch.device, path: str) -> dict:
     Inputs: ``src``, ``dst``, ``n``, ``k``; ``x``, ``cot`` (N, D) for
     ``halo_spmm_boundary`` and ``halo_spmm`` (mean); ``y`` (N, R·D),
     ``w`` (E, R), ``cot_rgcn`` for ``halo_rgcn_boundary``; ``z`` (N, H, D),
-    ``a_s``, ``a_d`` (N, H), ``cot_gat`` for ``halo_gat_boundary``. Each
-    gradient is of ``Σ out · cot`` wrt this rank's rows."""
+    the attention vectors ``attn_r``, ``attn_l`` (1, H, D), ``cot_gat`` for
+    ``halo_gat_boundary``. Each gradient is of ``Σ out · cot`` wrt this
+    rank's rows, or (the attention vectors) this rank's share of it."""
     a = _inputs(path)
     rank, k, n = rank_of(), int(a["k"]), int(a["n"])
     bs, n_pad, leids, heids = shard_fullgraph_boundary(a["src"], a["dst"], n, k, return_eids=True)
     nps = bs.nodes_per_shard
     shard = place(bs, rank, dev)
     rows = {name: _rows(a[name], rank, nps, n_pad)
-            for name in ("x", "cot", "y", "cot_rgcn", "z", "a_s", "a_d", "cot_gat")}
+            for name in ("x", "cot", "y", "cot_rgcn", "z", "cot_gat")}
     out = {}
 
     def grads(result, cot, *inputs):
@@ -97,11 +98,12 @@ def halo_ops(dev: torch.device, path: str) -> dict:
     agg = halo_rgcn_boundary(shard, y, weights, int(a["w"].shape[1]), "mean")
     out["rgcn"], (out["rgcn_grad"],) = _np(agg), grads(agg, rows["cot_rgcn"], y)
 
-    z, a_s, a_d = (_t(rows[name], dev, True) for name in ("z", "a_s", "a_d"))
-    agg = halo_gat_boundary(shard, z, a_s, a_d)
+    z = _t(rows["z"], dev, True)
+    attn_r, attn_l = (_t(a[name], dev, True) for name in ("attn_r", "attn_l"))
+    agg = halo_gat_boundary(shard, z, attn_r, attn_l)
     out["gat"] = _np(agg)
-    out["gat_grad_z"], out["gat_grad_a_s"], out["gat_grad_a_d"] = grads(
-        agg, rows["cot_gat"], z, a_s, a_d)
+    out["gat_grad_z"], out["gat_grad_attn_r"], out["gat_grad_attn_l"] = grads(
+        agg, rows["cot_gat"], z, attn_r, attn_l)
     return out
 
 

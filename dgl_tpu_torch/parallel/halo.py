@@ -61,7 +61,7 @@ from ..device import DeviceLike, resolve_device
 from ..graph.graph import Graph, from_edges
 from ..graph.partition import partition_assignment
 from ..kernels.csr_spmm import csr_spmm
-from ..kernels.gat_attention import gat_attention
+from ..kernels.gat_attention import gat_attention_vectors
 from ..ops.gather import _GatherSrcRows
 from ..ops.rel import RelEdgeWeights, gspmm_rel
 from ..ops.spmm import gspmm
@@ -339,14 +339,17 @@ def halo_rgcn_boundary(shard: HaloShard, y: torch.Tensor, weights: RelEdgeWeight
     return gspmm_rel(reduce, shard.graph, rel_major, weights)
 
 
-def halo_gat_boundary(shard: HaloShard, z: torch.Tensor, a_src: torch.Tensor,
-                      a_dst: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+def halo_gat_boundary(shard: HaloShard, z: torch.Tensor, attn_src: torch.Tensor,
+                      attn_dst: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     """Multi-head attention aggregation over all in-edges of this rank's
-    rows, local and halo: ``z`` (nps, H, D), ``a_src``, ``a_dst`` (nps, H).
-    One exchange ships ``[z | a_src]`` rows; K3 (keep 1) then takes the
-    softmax of ``leaky_relu(a_src[u] + a_dst[v])`` over each row with its
-    exact maximum. Returns (nps, H, D)."""
-    n, h, d = z.shape
-    table = exchange(shard, torch.cat([z.reshape(n, h * d), a_src], 1))
-    return gat_attention(shard.graph, table[:, :h * d].reshape(-1, h, d), table[:, h * d:],
-                         a_dst, negative_slope=negative_slope)
+    rows, local and halo: ``z`` (nps, H, D), the attention vectors
+    ``attn_src`` and ``attn_dst`` (1, H, D) (GATConv's ``attn_r`` and
+    ``attn_l``). One exchange ships z's rows; K3 (keep 1, with its node
+    passes) then scores every row of the table, ``a_src = Σ_D z·attn_src``,
+    and this rank's rows, ``a_dst = Σ_D z·attn_dst``, and takes the softmax
+    of ``leaky_relu(a_src[u] + a_dst[v])`` over each row with its exact
+    maximum. The JAX function takes the scores and ships them beside z.
+    The attention vectors' gradients are this rank's share: their sum over
+    the ranks is the gradient. Returns (nps, H, D)."""
+    return gat_attention_vectors(shard.graph, exchange(shard, z), attn_src, attn_dst, z_dst=z,
+                                 negative_slope=negative_slope)

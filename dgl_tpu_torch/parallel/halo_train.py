@@ -111,9 +111,8 @@ class HaloGAT(nn.Module):
         h = x
         for i, (layer, nh) in enumerate(zip(self.layers, self.heads)):
             z = (h @ layer["w"]).reshape(h.shape[0], nh, -1)
-            a_src = (z * layer["attn_r"]).sum(-1)
-            a_dst = (z * layer["attn_l"]).sum(-1)
-            agg = halo_gat_boundary(shard, z, a_src, a_dst, self.negative_slope)
+            agg = halo_gat_boundary(shard, z, layer["attn_r"], layer["attn_l"],
+                                    self.negative_slope)
             h = F.elu(agg.reshape(agg.shape[0], -1)) if i < len(self.layers) - 1 else agg.mean(1)
         return h
 

@@ -74,6 +74,8 @@ def counts(monkeypatch):
                         spy("gat_attention_fwd", k3_mod.gat_attention_fwd_plain))
     monkeypatch.setattr(k3_mod, "gat_attention_bwd_plain",
                         spy("gat_attention_bwd", k3_mod.gat_attention_bwd_plain))
+    for name in ("gat_scores", "gat_score_grad", "gat_vector_grad"):
+        monkeypatch.setattr(k3_mod, f"{name}_plain", spy(name, getattr(k3_mod, f"{name}_plain")))
     return log
 
 

@@ -15,6 +15,11 @@
   a shard whose in-edges all lie far below the maximum; the port's exact
   row maximum keeps them.
 
+The port's ``halo_gat_boundary`` takes the attention vectors and scores
+the rows itself; the JAX function takes the scores, so its reference is
+given ``Σ_D z·attn`` and differentiated through them. The attention
+vectors' gradients are the ranks' shares summed.
+
 The port runs in float32. The JAX references of the parity tests run in
 float64 (``jax.enable_x64``): in float32 the JAX GAT's bound
 shift leaves rounding noise of up to ~4e-5 in ``a_dst``'s gradient on rows
@@ -48,15 +53,24 @@ def _graph(seed=0):
 
 
 def _inputs(seed=1, a_s=None):
+    """The aggregations' inputs; ``a_s``, ``a_d`` (N, H) are scores that
+    the underflow test puts in z's first two columns (``a_s`` given there)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     src, dst = _graph()
     a = dict(src=src, dst=dst, n=N, x=f(N, D), cot=f(N, D), y=f(N, R * DH),
              w=rng.random((E, R)).astype(np.float32), cot_rgcn=f(N, DH), z=f(N, HEADS, DH),
-             a_s=f(N, HEADS), a_d=f(N, HEADS), cot_gat=f(N, HEADS, DH))
+             a_s=f(N, HEADS), a_d=f(N, HEADS), cot_gat=f(N, HEADS, DH),
+             attn_r=f(1, HEADS, DH), attn_l=f(1, HEADS, DH))
     if a_s is not None:
         a["a_s"] = a_s
     return a
+
+
+def _scores(a):
+    """GAT's float64 scores ``(Σ_D z·attn_r, Σ_D z·attn_l)``, (N, H) each."""
+    z = a["z"].astype(np.float64)
+    return (z * a["attn_r"]).sum(-1), (z * a["attn_l"]).sum(-1)
 
 
 def _spawn(tmp_path_factory, fn, a, k):
@@ -64,6 +78,15 @@ def _spawn(tmp_path_factory, fn, a, k):
     np.savez(path, k=k, **a)
     out = launch.spawn(fn, k, (path,), backend="gloo", device="cpu", timeout=TIMEOUT)
     return {name: np.concatenate([o[name] for o in out]) for name in out[0]}
+
+
+def _port_ops(tmp_path_factory, a, k):
+    """``checks.halo_ops`` on k ranks, the attention vectors' gradients the
+    sum of the ranks' shares."""
+    out = _spawn(tmp_path_factory, checks.halo_ops, a, k)
+    for name in ("gat_grad_attn_r", "gat_grad_attn_l"):
+        out[name] = out[name].sum(0, keepdims=True)
+    return out
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -78,7 +101,7 @@ def _one_thread_per_rank():
 def ops(request, tmp_path_factory):
     """(k, port results, JAX results, inputs): every rank's rows stacked."""
     k, a = request.param, _inputs()
-    return k, _spawn(tmp_path_factory, checks.halo_ops, a, k), _jax_ops(a, k), a
+    return k, _port_ops(tmp_path_factory, a, k), _jax_ops(a, k), a
 
 
 def _mesh(k):
@@ -121,9 +144,9 @@ def _jax_ops(a, k, x64=True):
     wl, wh = jax.device_put(wl, sh), jax.device_put(wh, sh)
     res["rgcn"], res["rgcn_grad"] = both(
         lambda y: jpar.halo_rgcn_boundary(bs, y, wl, wh, R, mesh), a["cot_rgcn"], pad(a["y"]))
-    res["gat"], res["gat_grad_z"], res["gat_grad_a_s"], res["gat_grad_a_d"] = both(
-        lambda z, s, d: jpar.halo_gat_boundary(bs, z, s, d, mesh), a["cot_gat"], pad(a["z"]),
-        pad(a["a_s"]), pad(a["a_d"]))
+    res["gat"], res["gat_grad_z"], res["gat_grad_attn_r"], res["gat_grad_attn_l"] = both(
+        lambda z, ar, al: jpar.halo_gat_boundary(bs, z, (z * ar).sum(-1), (z * al).sum(-1), mesh),
+        a["cot_gat"], pad(a["z"]), jnp.asarray(a["attn_r"], dtype), jnp.asarray(a["attn_l"], dtype))
     return res
 
 
@@ -243,7 +266,7 @@ def test_aggregations_equal_dense_oracles_and_empty_rows_are_zero(ops):
     np.add.at(rgcn, dst, msg)
     rgcn /= np.maximum(np.bincount(dst, minlength=N), 1)[:, None]
     _close(ours["rgcn"][:N], rgcn, "rgcn")
-    _close(ours["gat"][:N], _gat_oracle(src, dst, a["z"], a["a_s"], a["a_d"]), "gat")
+    _close(ours["gat"][:N], _gat_oracle(src, dst, a["z"], *_scores(a)), "gat")
     empty = np.concatenate([np.arange(N - ISOLATED, N), np.arange(N, ours["spmm"].shape[0])])
     assert ours["spmm"].shape[0] > N  # padding rows past N
     for name in ("spmm", "allgather", "rgcn", "gat"):
@@ -252,11 +275,12 @@ def test_aggregations_equal_dense_oracles_and_empty_rows_are_zero(ops):
 
 def test_gat_keeps_the_softmax_where_the_jax_bound_underflows(tmp_path_factory):
     """a_src spreads over 1000: shard 1's nodes sit near -1000, shard 0's
-    near 0, and shard 1's destinations read shard 1's sources only. JAX
-    shifts every logit by leaky_relu(max a_src + a_dst); on each row whose
-    in-edges all come from the low nodes exp underflows to 0 and its
-    where-guard returns 0. K3 shifts by each row's own maximum, and those
-    rows equal the float64 oracle."""
+    near 0 (a_src is column 0 of the z rows and a_dst column 1: the
+    attention vectors pick them), and shard 1's destinations read shard 1's
+    sources only. JAX shifts every logit by leaky_relu(max a_src + a_dst);
+    on each row whose in-edges all come from the low nodes exp underflows
+    to 0 and its where-guard returns 0. K3 shifts by each row's own
+    maximum, and those rows equal the float64 oracle."""
     k = 2
     nps = halo.pad_length(-(-N // k), 8)
     src, dst = _graph()
@@ -266,9 +290,14 @@ def test_gat_keeps_the_softmax_where_the_jax_bound_underflows(tmp_path_factory):
     src = np.where(np.isin(dst, low), np.clip(src, nps, N - 1), src)
     a = _inputs(a_s=a_s)
     a["src"], a["dst"] = src, dst
-    ours = _spawn(tmp_path_factory, checks.halo_ops, a, k)
+    a["z"][..., 0], a["z"][..., 1] = a["a_s"], a["a_d"]
+    a["attn_r"][:], a["attn_l"][:] = 0.0, 0.0
+    a["attn_r"][..., 0], a["attn_l"][..., 1] = 1.0, 1.0
+    a_s, a_d = _scores(a)
+    assert np.array_equal(a_s, a["a_s"]) and np.array_equal(a_d, a["a_d"])
+    ours = _port_ops(tmp_path_factory, a, k)
     theirs = _jax_ops(a, k, x64=False)
-    want = _gat_oracle(src, dst, a["z"], a_s, a["a_d"])
+    want = _gat_oracle(src, dst, a["z"], a_s, a_d)
     deg = np.bincount(dst, minlength=N)
     from_low = np.bincount(dst, weights=np.isin(src, low), minlength=N)
     rows = np.flatnonzero((deg > 0) & (from_low == deg))

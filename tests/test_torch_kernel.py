@@ -691,7 +691,8 @@ def test_k3_node_passes_match_plain_and_repeat_on_card(heads, d, pair, shift):
     alignment, which takes one value a read): against float64 runs of the
     plain versions, two runs bitwise equal (the attention vectors' column
     sums in the launch's fixed order), grad_z written over grad_v, one
-    launch each, and the ticket back at 0."""
+    launch each, and launches on two streams at once equal too (each call
+    has its own ticket)."""
     from dgl_tpu_torch.kernels import gat_attention as k3
 
     dev = _card()
@@ -737,7 +738,14 @@ def test_k3_node_passes_match_plain_and_repeat_on_card(heads, d, pair, shift):
         assert k3.gat_vector_grad(z, att_s, att_d, ga_s, ga_d, grad_v=buf)[0] is buf
     assert (k3.gat_scores.launches, k3.gat_score_grad.launches, k3.gat_vector_grad.launches) == (
         counts[0] + 2, counts[1] + 2, counts[2] + 2 + (gv is not None))
-    assert not k3._tickets[z.device].any()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    grad = lambda: k3.gat_vector_grad(z, att_s, att_d, ga_s, ga_d, z_dst=zd)[2:]  # noqa: E731
+    with torch.cuda.stream(side):
+        on_side = [grad() for _ in range(4)]
+    on_main = [grad() for _ in range(4)]
+    torch.cuda.synchronize(dev)
+    assert all(torch.equal(a, b) for r in on_side + on_main for a, b in zip(r, runs[0][2:]))
 
 
 @pytest.mark.cuda
@@ -781,4 +789,3 @@ def test_fused_gat_step_on_card_matches_cpu_counts_and_repeats(edge_dtype):
     tol = dict(rtol=2e-3, atol=2e-3) if edge_dtype else dict(rtol=1e-4, atol=1e-4)
     for i, (a, b) in enumerate(zip(card, cpu)):
         torch.testing.assert_close(a, b, **tol, msg=f"output {i}")
-    assert not any(t.any() for t in k3._tickets.values())

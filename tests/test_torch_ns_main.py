@@ -3,8 +3,8 @@
 --inductive, ns_gat with the device and the host sampler. They print the
 reference's lines, their losses are finite and fall, and spies on the
 kernels' wrappers see one P1 (index order) feature gather a step, no K1, K2
-or K3 inside a step, and the evaluations' K1 or K3 calls that
-chip_smoke.ns_launches derives from the code."""
+or K3 inside a step, and the evaluations' K1 or K3 calls (K3's with its
+scores) that chip_smoke.ns_launches derives from the code."""
 
 import math
 import os
@@ -70,6 +70,8 @@ def events(monkeypatch):
                         spy("gat_attention_fwd", k3_mod.gat_attention_fwd_plain))
     monkeypatch.setattr(k3_mod, "gat_attention_bwd_plain",
                         spy("gat_attention_bwd", k3_mod.gat_attention_bwd_plain))
+    for name in ("gat_scores", "gat_score_grad", "gat_vector_grad"):
+        monkeypatch.setattr(k3_mod, f"{name}_plain", spy(name, getattr(k3_mod, f"{name}_plain")))
     return log
 
 
@@ -96,8 +98,8 @@ def _check_run(res, out, log, kind, layers=2):
         elif step:
             inside.append(ev)
     assert not inside, inside
-    counts = {k: log.count(k) for k in ("csr_spmm", "seg_sum", "gat_attention_fwd",
-                                        "gat_attention_bwd", "row_gather_by_source")}
+    counts = {k: log.count(k) for k in ("csr_spmm", "seg_sum", "row_gather_by_source",
+                                        *chip_smoke.K3_COUNTERS)}
     counts["row_gather_async"] = log.count("P1")
     steps = res["steps"] + (res["profile"]["steps"] if res["profile"] else 0)
     assert log.count("loss") == steps

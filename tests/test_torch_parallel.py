@@ -240,7 +240,8 @@ def test_calls_per_step_are_the_derived_launches(monkeypatch, name):
     monkeypatch.setattr(gather_mod, "csr_spmm", k1_launch)
     monkeypatch.setattr(k1, "launches", k1.launches)
     _spy(monkeypatch, counts, segment_mod, "row_gather_by_source")
-    for fn in ("gat_attention_fwd", "gat_attention_bwd"):
+    for fn in ("gat_attention_fwd", "gat_attention_bwd", "gat_scores", "gat_score_grad",
+               "gat_vector_grad"):
         _spy(monkeypatch, counts, gat_mod, fn)
     if name == "sage":
         model = HaloSAGE(D, HID, C, 2, dropout=0.5, device="cpu")
